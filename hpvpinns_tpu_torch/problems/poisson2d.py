@@ -1,0 +1,183 @@
+"""2D Poisson benchmark: Delta u = f on [-1, 1]^2, hp-VPINN.
+
+Counterpart of hpvpinns_tpu/problems/poisson2d.py.  Problem of record
+(main/Poisson-2D/hp-VPINN-Poisson-2D.py):
+    u(x, y) = (0.1 sin(2 pi x) + tanh(10 x)) sin(2 pi y)   (:300-305)
+    f = Delta u                                            (:307-310)
+    boundary data: 80 LHS points per edge                  (:313-347)
+    VPINN loss = 10 lossb + lossv                          (:126-129)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hpvpinns_tpu_torch.config import Poisson2DConfig
+from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
+from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
+from hpvpinns_tpu_torch.ops.assembly import poisson2d_residual, variational_loss
+from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
+from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+from hpvpinns_tpu_torch.problems.base import Problem, make_net_init
+from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
+from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
+from hpvpinns_tpu_torch.utils.sampling import lhs_interval
+
+OMEGA_X = 2 * np.pi
+OMEGA_Y = 2 * np.pi
+R1 = 10.0
+
+_FIELDS = {"taylor": taylor_fields_2d, "pallas": fused_fields_2d}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def u_exact(x, y):
+    """Poisson-2D.py:303-305."""
+    return (0.1 * np.sin(OMEGA_X * x) + np.tanh(R1 * x)) * np.sin(OMEGA_Y * y)
+
+
+def f_rhs(x, y):
+    """f = Delta u (Poisson-2D.py:307-310)."""
+    return (
+        -0.1 * OMEGA_X**2 * np.sin(OMEGA_X * x)
+        - (2 * R1**2) * np.tanh(R1 * x) / np.cosh(R1 * x) ** 2
+    ) * np.sin(OMEGA_Y * y) + (0.1 * np.sin(OMEGA_X * x) + np.tanh(R1 * x)) * (
+        -(OMEGA_Y**2) * np.sin(OMEGA_Y * y)
+    )
+
+
+def boundary_points(cfg: Poisson2DConfig, rng: np.random.Generator, u_ex=u_exact):
+    """80 LHS points per edge with exact data (Poisson-2D.py:313-347); the
+    draws from `rng` are the JAX package's, in the same order."""
+    (xl, xr), (yl, yu) = cfg.domain_x, cfg.domain_y
+    n = cfg.n_bound
+    edges = []
+    for i in range(2):  # up, lo: x varies
+        x = lhs_interval(xl, xr, n, rng)
+        edges.append(np.hstack([x, np.full_like(x, yu if i == 0 else yl)]))
+    for i in range(2):  # ri, le: y varies
+        y = lhs_interval(yl, yu, n, rng)
+        edges.append(np.hstack([np.full_like(y, xr if i == 0 else xl), y]))
+    Xb = np.concatenate(edges)
+    ub = u_ex(Xb[:, 0:1], Xb[:, 1:2])
+    return Xb, ub
+
+
+def _check_supported(cfg: Poisson2DConfig) -> None:
+    unported = {
+        "hard_bc": cfg.hard_bc,
+        f"scheme={cfg.scheme!r}": cfg.scheme != "VPINNs",
+        f"var_form={cfg.var_form!r}": cfg.var_form != 1,
+    }
+    for what, bad in unported.items():
+        if bad:
+            raise NotImplementedError(f"Poisson-2D {what} is not ported yet (ROADMAP.md)")
+    if cfg.deriv_mode not in _FIELDS:
+        raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
+
+
+def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = None) -> Problem:
+    """The Poisson-2D hp-VPINN problem on `device` (default: CPU).
+
+    deriv_mode "taylor" takes the derivative fields from the plain Taylor
+    propagation (ops/taylor.py); "pallas" (the JAX package's name, kept so a
+    JAX config maps one to one) takes them from the fused CUDA kernel
+    csrc/fused_fields.cu (ops/fused_fields.py), which needs a CUDA device and
+    float32; on the CPU its plain version runs.  The offline arrays are
+    assembled in float64 on the host, then cast to cfg.dtype.
+    """
+    _check_supported(cfg)
+    dtype = _DTYPES[cfg.dtype]
+    rng = rng or np.random.default_rng(cfg.train.seed)
+    if cfg.grid_x is not None or cfg.grid_y is not None:
+        ax = (
+            Interval1D(np.asarray(cfg.grid_x, dtype=np.float64))
+            if cfg.grid_x is not None
+            else Interval1D.uniform(*cfg.domain_x, cfg.n_elements_x)
+        )
+        ay = (
+            Interval1D(np.asarray(cfg.grid_y, dtype=np.float64))
+            if cfg.grid_y is not None
+            else Interval1D.uniform(*cfg.domain_y, cfg.n_elements_y)
+        )
+        mesh = TensorMesh2D(axis_x=ax, axis_y=ay)
+    else:
+        mesh = TensorMesh2D.uniform(*cfg.domain_x, cfg.n_elements_x, *cfg.domain_y, cfg.n_elements_y)
+    xq, wq = gauss_lobatto_jacobi(cfg.n_quad, 0.0, 0.0)
+
+    ntx = (
+        np.asarray(cfg.n_test_x_per_elem)
+        if cfg.n_test_x_per_elem is not None
+        else np.full(mesh.axis_x.n_elem, cfg.n_test_x)
+    )
+    nty = (
+        np.asarray(cfg.n_test_y_per_elem)
+        if cfg.n_test_y_per_elem is not None
+        else np.full(mesh.axis_y.n_elem, cfg.n_test_y)
+    )
+    bx = make_weighted_basis(int(ntx.max()), xq, wq, dtype, device)
+    by = make_weighted_basis(int(nty.max()), xq, wq, dtype, device)
+    elems = build_elements_2d(mesh, xq, wq, xq, wq, f_rhs, ntx, nty, dtype, device)
+
+    Xb, ub = boundary_points(cfg, rng)
+    data = {
+        "elements": elems,
+        "basis_x": bx,
+        "basis_y": by,
+        "xb": torch.as_tensor(Xb).to(device=device, dtype=dtype),
+        "ub": torch.as_tensor(ub).to(device=device, dtype=dtype),
+    }
+
+    spec = MLP(layers=cfg.layers, activation=cfg.activation,
+               adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
+    fields = _FIELDS[cfg.deriv_mode]
+    wb = cfg.lossb_weight
+
+    def residual_fn(params, data):
+        """Masked weak residual Res[e, k, r]."""
+        el = data["elements"]
+        fields_fn = lambda x, y, **kw: fields(spec, params["net"], x, y, **kw)
+        res = poisson2d_residual(el, data["basis_x"], data["basis_y"], cfg.var_form, fields_fn)
+        return res * el.mask
+
+    def loss_fn(params, data):
+        """10 lossb + lossv (Poisson-2D.py:126-129)."""
+        el = data["elements"]
+        ub_pred = mlp_apply(spec, params["net"], data["xb"])
+        lossb = torch.mean((data["ub"] - ub_pred) ** 2)
+        lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
+        loss = wb * lossb + lossv
+        return loss, {"lossb": lossb, "lossv": lossv, "loss": loss}
+
+    def enriched_residual_fn(params, enrich: int = 3):
+        raise NotImplementedError(
+            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
+            "(ROADMAP.md)"
+        )
+
+    # Dense test grid, 201 x 201 at delta 0.01 (Poisson-2D.py:418-426).
+    xt = np.arange(cfg.domain_x[0], cfg.domain_x[1] + 0.01, 0.01)
+    yt = np.arange(cfg.domain_y[0], cfg.domain_y[1] + 0.01, 0.01)
+    XT, YT = np.meshgrid(xt, yt)
+    test_points = np.stack([XT.reshape(-1), YT.reshape(-1)], axis=-1)
+    test_values = u_exact(test_points[:, 0:1], test_points[:, 1:2])
+
+    return Problem(
+        name="poisson2d",
+        config=cfg,
+        spec=spec,
+        data=data,
+        loss_fn=loss_fn,
+        init_params=make_net_init(spec, dtype=dtype, device=device),
+        exact=u_exact,
+        test_points=test_points,
+        test_values=test_values,
+        extras={
+            "mesh": mesh,
+            "f_rhs": f_rhs,
+            "residual_fn": residual_fn,
+            "enriched_residual_fn": enriched_residual_fn,
+            "test_grid_shape": (len(yt), len(xt)),
+        },
+    )
