@@ -2,15 +2,21 @@
 
 The JAX package `hpvpinns_tpu` is the reference; this package follows its
 layout and names module for module, and never imports JAX or it.  The
-ported slice is the Poisson-2D hp-VPINN trainer (var_form 1, Adam), whose
-derivative fields run in the hand-written CUDA kernel
-csrc/fused_fields.cu under deriv_mode="pallas" (ops/fused_fields.py).
-ROADMAP.md lists what is still to port.
+ported slice is the Poisson-1D (forms 1/2/3) and Poisson-2D (forms
+0/1/2/"2c") hp-VPINN trainers with Adam, whose derivative fields run in the
+hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
+csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
+deriv_mode="pallas" (ops/fused_fields.py).  Problems are built on the card
+unless the caller passes device="cpu".  ROADMAP.md lists what is still to
+port.
 """
 
 from hpvpinns_tpu_torch.config import (
+    Poisson1DConfig,
     Poisson2DConfig,
     TrainConfig,
+    poisson1d_of_record,
+    poisson1d_quality,
     poisson2d_of_record,
     poisson2d_quality,
     poisson2d_scaled,
@@ -22,6 +28,7 @@ from hpvpinns_tpu_torch.problems import build
 from hpvpinns_tpu_torch.training import TrainResult, train
 
 __all__ = [
+    "Poisson1DConfig",
     "Poisson2DConfig",
     "TrainConfig",
     "TrainResult",
@@ -29,6 +36,8 @@ __all__ = [
     "evaluate_problem",
     "params_from_jax",
     "params_to_numpy",
+    "poisson1d_of_record",
+    "poisson1d_quality",
     "poisson2d_of_record",
     "poisson2d_quality",
     "poisson2d_scaled",

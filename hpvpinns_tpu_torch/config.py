@@ -1,10 +1,11 @@
-"""Configuration objects: the Poisson-2D subset of hpvpinns_tpu/config.py.
+"""Configuration objects: the Poisson-1D and Poisson-2D subset of
+hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
 to one.  Fields whose feature is not ported yet (L-BFGS, Gauss-Newton,
-checkpointing, hard BC, PINN scheme, var_form 0/2/"2c", matmul precision
-"high"/"default") are kept and rejected with NotImplementedError where they
-are used; ROADMAP.md lists them.
+checkpointing, hard BC, PINN scheme, matmul precision "high"/"default") are
+kept and rejected with NotImplementedError where they are used; ROADMAP.md
+lists them.
 """
 
 from __future__ import annotations
@@ -40,6 +41,30 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class Poisson1DConfig:
+    """1D Poisson -u'' = f on [-1, 1] (main/Poisson-1D)."""
+
+    layers: Tuple[int, ...] = (1, 20, 20, 20, 20, 1)
+    activation: str = "sin"
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    var_form: int = 1  # 1 | 2 | 3 (zero/one/two integrations by parts)
+    n_elements: int = 1
+    grid: Optional[Tuple[float, ...]] = None  # non-uniform element boundaries
+    n_test: int = 60
+    n_test_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 80
+    lossb_weight: float = 1.0
+    hard_bc: bool = False  # not ported yet
+    domain: Tuple[float, float] = (-1.0, 1.0)
+    dtype: str = "float32"
+    deriv_mode: str = "taylor"  # "taylor" | "pallas" (the fused CUDA kernels)
+    train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(iterations=1001, threshold=2e-32)
+    )
+
+
+@dataclass(frozen=True)
 class Poisson2DConfig:
     """2D Poisson Delta u = f on [-1, 1]^2 (main/Poisson-2D)."""
 
@@ -48,7 +73,7 @@ class Poisson2DConfig:
     adaptive_slope: bool = False
     matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
     scheme: str = "VPINNs"  # 'VPINNs' ('PINNs' not ported yet)
-    var_form: object = 1  # 1 (0 | 2 | "2c" not ported yet)
+    var_form: object = 1  # 0 | 1 | 2 | "2c"
     n_elements_x: int = 4
     n_elements_y: int = 4
     grid_x: Optional[Tuple[float, ...]] = None  # non-uniform x boundaries
@@ -67,6 +92,25 @@ class Poisson2DConfig:
     dtype: str = "float32"
     deriv_mode: str = "taylor"  # "taylor" | "pallas" (the fused CUDA kernel)
     train: TrainConfig = field(default_factory=lambda: TrainConfig(iterations=10001))
+
+
+def poisson1d_of_record() -> Poisson1DConfig:
+    """Poisson-1D.py:231-240."""
+    return Poisson1DConfig()
+
+
+def poisson1d_quality() -> Poisson1DConfig:
+    """The reference's non-uniform 3-element hp grid (Poisson-1D.py:270-273),
+    p = 30, a (1,30,30,30,1) sin net, Adam 5k + L-BFGS 5k (the L-BFGS phase
+    is not ported yet: pass a TrainConfig with lbfgs_iterations=0 to train
+    with Adam alone)."""
+    return Poisson1DConfig(
+        grid=(-1.0, -0.1, 0.1, 1.0),
+        n_elements=3,
+        n_test=30,
+        layers=(1, 30, 30, 30, 1),
+        train=TrainConfig(iterations=5000, lbfgs_iterations=5000, check_every=200),
+    )
 
 
 def poisson2d_of_record() -> Poisson2DConfig:
@@ -108,7 +152,10 @@ def poisson2d_scaled(n_elem_axis: int = 8, n_quad: int = 16, n_test: int = 10) -
 
 __all__ = [
     "TrainConfig",
+    "Poisson1DConfig",
     "Poisson2DConfig",
+    "poisson1d_of_record",
+    "poisson1d_quality",
     "poisson2d_of_record",
     "poisson2d_quality",
     "poisson2d_scaled",

@@ -1,8 +1,8 @@
 """Variational (weak-form) residual assembly, batched over elements.
 
-Counterpart of hpvpinns_tpu/ops/assembly.py for the Poisson-2D slice.
-Res[e, k, r] = U[e, k, r] - F[e, k, r], with F the offline RHS projection
-and U the network's derivative fields contracted against the
+Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D and Poisson-2D.
+Res[e, n] (1D) / Res[e, k, r] (2D) = U - F, with F the offline RHS
+projection and U the network's derivative fields contracted against the
 quadrature-weighted test basis (weights folded in: Wphi[n, q] = w_q phi_n).
 """
 
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
-from hpvpinns_tpu_torch.ops.contract import contract_2d
+from hpvpinns_tpu_torch.ops.contract import contract_1d, contract_2d
 
 
 class _Tensors:
@@ -40,6 +40,23 @@ class Basis1D(_Tensors):
 
 
 @dataclass(frozen=True)
+class Elements1D(_Tensors):
+    """Per-element geometry + targets for a 1D assembly.
+
+    x: [E, Q] physical quadrature points; bounds: [E, 2] element endpoints;
+    jac: [E] affine jacobians (x_r - x_l) / 2; f_proj: [E, N] RHS
+    projections; mask: [E, N] test-index mask; n_test: [E] test counts.
+    """
+
+    x: torch.Tensor
+    bounds: torch.Tensor
+    jac: torch.Tensor
+    f_proj: torch.Tensor
+    mask: torch.Tensor
+    n_test: torch.Tensor
+
+
+@dataclass(frozen=True)
 class Elements2D(_Tensors):
     """Per-element geometry + targets for a tensor-product 2D assembly.
 
@@ -61,25 +78,100 @@ class Elements2D(_Tensors):
     n_test: torch.Tensor
 
 
-def poisson2d_residual(elems: Elements2D, bx: Basis1D, by: Basis1D, var_form, fields_fn):
-    """Res[e, k, r] for Delta u = f on tensor-product elements.
+def poisson1d_residual(u_fn, elems: Elements1D, basis: Basis1D, var_form: int, fields_fn):
+    """Res[e, n] for -u'' = f with test functions phi_n.
 
-    var_form 1:  U = -jac_y * C(phi'_r, phi_k, u_x) - jac_x * C(phi_r, phi'_k, u_y)
-    with C(a, b, g) = sum_{qy,qx} w_x a(xi_qx) w_y b(eta_qy) g[qy, qx].
-    Only first derivatives are needed, so the fields come firsts-only.
-    `fields_fn(x, y, firsts_only=True)` is taylor_fields_2d or
-    fused_fields_2d bound to the network.
+    var_form 1:  U = -jac * sum_q w u_xx phi_n
+    var_form 2:  U =        sum_q w u_x  phi'_n   (the jacobians cancel)
+    var_form 3:  U = -(1/jac) sum_q w u phi''_n
+                     + (1/jac) [u(x_r) phi'_n(+1) - u(x_l) phi'_n(-1)]
+    `fields_fn(x)` returns (u, u_x, u_xx) (taylor_fields_1d or
+    fused_fields_1d bound to the network); `u_fn` [P, 1] -> [P, 1] gives u
+    at the element bounds for form 3's boundary flux.
     """
-    if var_form != 1:
-        raise NotImplementedError(
-            f"Poisson-2D var_form {var_form!r} is not ported yet (ROADMAP.md: forms 0/2/'2c'); "
-            "var_form 1 is"
+    u, ux, uxx = fields_fn(elems.x)
+    if var_form == 1:
+        U = -elems.jac[:, None] * contract_1d(basis.wphi, uxx)
+    elif var_form == 2:
+        U = contract_1d(basis.wdphi, ux)
+    elif var_form == 3:
+        inv_jac = 1.0 / elems.jac[:, None]
+        U = -inv_jac * contract_1d(basis.wd2phi, u)
+        u_b = u_fn(elems.bounds.reshape(-1, 1)).reshape(elems.bounds.shape)
+        flux = u_b[:, 1:2] * basis.dphi_b[None, :, 1] - u_b[:, 0:1] * basis.dphi_b[None, :, 0]
+        U = U + inv_jac * flux
+    else:
+        raise ValueError(f"Poisson-1D var_form must be 1, 2 or 3; got {var_form}")
+    return U - elems.f_proj
+
+
+def _edge_values_2d(u_fn, elems: Elements2D):
+    """u on the four element edges at the tangential axis's quadrature nodes:
+    (u_left, u_right) each [E, Qy] at x = bounds_x, and (u_bottom, u_top)
+    each [E, Qx] at y = bounds_y."""
+    y_edge = elems.y[:, :, 0]  # [E, Qy] (y constant along qx)
+    x_edge = elems.x[:, 0, :]  # [E, Qx] (x constant along qy)
+
+    def eval_at(a, b):  # a, b: [E, P] -> u [E, P]
+        return u_fn(torch.stack([a, b], dim=-1).reshape(-1, 2)).reshape(a.shape)
+
+    xl = elems.bounds_x[:, 0:1].expand_as(y_edge)
+    xr = elems.bounds_x[:, 1:2].expand_as(y_edge)
+    yb = elems.bounds_y[:, 0:1].expand_as(x_edge)
+    yt = elems.bounds_y[:, 1:2].expand_as(x_edge)
+    return eval_at(xl, y_edge), eval_at(xr, y_edge), eval_at(x_edge, yb), eval_at(x_edge, yt)
+
+
+def _flux_2d(u_lo, u_hi, wphi_tan, dphi_b):
+    """Boundary flux [u dphi]_lo^hi integrated along the tangential axis:
+    [E, K, R] = sum_q wphi_tan[k, q] (u_hi[e, q] dphi_b[r, 1]
+                                      - u_lo[e, q] dphi_b[r, 0])."""
+    t_hi = torch.einsum("kq,eq->ek", wphi_tan, u_hi)
+    t_lo = torch.einsum("kq,eq->ek", wphi_tan, u_lo)
+    return t_hi[:, :, None] * dphi_b[None, None, :, 1] - t_lo[:, :, None] * dphi_b[None, None, :, 0]
+
+
+def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_form, fields_fn):
+    """Res[e, k, r] for Delta u = f on tensor-product elements, with
+    C(a, b, g) = sum_{qy,qx} w_x a(xi_qx) w_y b(eta_qy) g[qy, qx]:
+
+    var_form 0:   U = jac * C(phi_r, phi_k, u_xx + u_yy)
+    var_form 1:   U = -jac_y * C(phi'_r, phi_k, u_x) - jac_x * C(phi_r, phi'_k, u_y)
+    var_form 2:   U = jac * [C(phi''_r, phi_k, u) + C(phi_r, phi''_k, u)]
+                  (the reference's formula verbatim: a consistent weak form
+                  only on a single [-1,1]^2 element)
+    var_form "2c": U = (jac_y/jac_x) [C(phi''_r, phi_k, u) - FluxX]
+                     + (jac_x/jac_y) [C(phi_r, phi''_k, u) - FluxY]
+                  (the exact twice-integrated form, with the surviving
+                  [u phi'] boundary fluxes from u_fn on the element edges).
+
+    `fields_fn(x, y, firsts_only=...)` is taylor_fields_2d or
+    fused_fields_2d bound to the network; form 1 needs first derivatives
+    only, so its fields come firsts-only.  `u_fn` [P, 2] -> [P, 1] is used
+    by form "2c" alone.
+    """
+    flds = fields_fn(elems.x, elems.y, firsts_only=(var_form == 1))
+    jac = (elems.jac_x * elems.jac_y)[:, None, None]
+    if var_form == 0:
+        U = jac * contract_2d(bx.wphi, by.wphi, flds["uxx"] + flds["uyy"])
+    elif var_form == 1:
+        U = -(
+            elems.jac_y[:, None, None] * contract_2d(bx.wdphi, by.wphi, flds["ux"])
+            + elems.jac_x[:, None, None] * contract_2d(bx.wphi, by.wdphi, flds["uy"])
         )
-    flds = fields_fn(elems.x, elems.y, firsts_only=True)
-    U = -(
-        elems.jac_y[:, None, None] * contract_2d(bx.wdphi, by.wphi, flds["ux"])
-        + elems.jac_x[:, None, None] * contract_2d(bx.wphi, by.wdphi, flds["uy"])
-    )
+    elif var_form == 2:
+        U = jac * (contract_2d(bx.wd2phi, by.wphi, flds["u"]) + contract_2d(bx.wphi, by.wd2phi, flds["u"]))
+    elif var_form == "2c":
+        u_l, u_r, u_b, u_t = _edge_values_2d(u_fn, elems)
+        flux_x = _flux_2d(u_l, u_r, by.wphi, bx.dphi_b)
+        flux_y = _flux_2d(u_b, u_t, bx.wphi, by.dphi_b).transpose(1, 2)
+        U = (elems.jac_y / elems.jac_x)[:, None, None] * (
+            contract_2d(bx.wd2phi, by.wphi, flds["u"]) - flux_x
+        ) + (elems.jac_x / elems.jac_y)[:, None, None] * (
+            contract_2d(bx.wphi, by.wd2phi, flds["u"]) - flux_y
+        )
+    else:
+        raise ValueError(f"Poisson-2D var_form must be 0, 1, 2 or '2c'; got {var_form!r}")
     return U - elems.f_proj
 
 

@@ -76,6 +76,13 @@ def mlp_fields(spec: MLP, params, X: torch.Tensor, directions, second: bool = Tr
     return u, firsts, seconds
 
 
+def taylor_fields_1d(spec: MLP, params, x):
+    """(u, u_x, u_xx) at x [..., Q]."""
+    shape = x.shape
+    u, (ux,), (uxx,) = mlp_fields(spec, params, x.reshape(-1, 1), (0,))
+    return u.reshape(shape), ux.reshape(shape), uxx.reshape(shape)
+
+
 def taylor_fields_2d(
     spec: MLP, params, x, y, *,
     second_y: bool = True, first_y_only: bool = False, firsts_only: bool = False,

@@ -39,6 +39,20 @@ class Problem:
         return mlp_apply(self.spec, params["net"], X)
 
 
+def resolve_device(device) -> torch.device:
+    """The device a problem is built on: `device` when given, else the card
+    (torch.device("cuda")).  With no CUDA device and no `device` it raises;
+    it never moves to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: problems are built on the GPU by default; "
+            "pass device='cpu' to build on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def make_net_init(spec: MLP, dtype=torch.float32, device=None):
     """init_params factory: Xavier net (drawn from a CPU torch.Generator,
     then moved to `device`) and no PDE coefficients."""

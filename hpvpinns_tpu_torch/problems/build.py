@@ -1,7 +1,7 @@
 """Offline assembly: host-side float64 precomputation of basis tensors,
 element geometry and RHS projections.
 
-Counterpart of hpvpinns_tpu/problems/build.py (2D).  Everything is assembled
+Counterpart of hpvpinns_tpu/problems/build.py (1D and 2D).  Everything is assembled
 in float64 numpy and only then cast to the training dtype and moved to the
 device: the network forward and its derivatives are the only live compute.
 """
@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hpvpinns_tpu_torch.geometry.mesh import TensorMesh2D
-from hpvpinns_tpu_torch.ops.assembly import Basis1D, Elements2D
+from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
+from hpvpinns_tpu_torch.ops.assembly import Basis1D, Elements1D, Elements2D
 from hpvpinns_tpu_torch.spectral.basis import make_test_basis
 
 
@@ -37,6 +37,32 @@ def _test_mask(n_test_per_elem: np.ndarray, n_max: int):
     nt = np.asarray(n_test_per_elem, dtype=np.int64)
     mask = (np.arange(n_max)[None, :] < nt[:, None]).astype(np.float64)
     return mask, nt.astype(np.float64)
+
+
+def build_elements_1d(
+    mesh: Interval1D,
+    xq: np.ndarray,
+    wq: np.ndarray,
+    f_fn,
+    n_test_per_elem,
+    dtype,
+    device=None,
+) -> Elements1D:
+    """1D element batch with RHS projections
+    F[e, n] = jac_e * sum_q w_q f(x^e_q) phi_n(xi_q)."""
+    xq = np.asarray(xq, dtype=np.float64).reshape(-1)
+    wq = np.asarray(wq, dtype=np.float64).reshape(-1)
+    n_test_per_elem = np.asarray(n_test_per_elem, dtype=np.int64)
+    tb = make_test_basis(int(n_test_per_elem.max()), xq)
+
+    x_elem = mesh.map_points(xq)  # [E, Q]
+    jac = mesh.jacobians
+    f_proj = jac[:, None] * np.einsum("nq,eq->en", tb.phi * wq[None, :], f_fn(x_elem))
+    mask, n_test = _test_mask(n_test_per_elem, int(n_test_per_elem.max()))
+    arrays = dict(
+        x=x_elem, bounds=mesh.element_bounds(), jac=jac, f_proj=f_proj * mask, mask=mask, n_test=n_test,
+    )
+    return Elements1D(**{k: _tensor(v, dtype, device) for k, v in arrays.items()})
 
 
 def build_elements_2d(

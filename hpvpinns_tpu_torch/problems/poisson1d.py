@@ -1,0 +1,135 @@
+"""1D Poisson benchmark: -u'' = f on [-1, 1], hp-VPINN.
+
+Counterpart of hpvpinns_tpu/problems/poisson1d.py.  Problem of record
+(main/Poisson-1D/hp-VPINN-Poisson-1D.py):
+    u(x) = 0.1 sin(8 pi x) + tanh(80 x)              (:248-253)
+    f(x) = -u''(x)                                    (:255-257)
+    boundary data: u(+-1) only                        (:298-299)
+    loss = lossb_weight * mean((u_b - u_hat_b)^2) + sum_e mean_n Res^2
+                                                      (:98-100)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hpvpinns_tpu_torch.config import Poisson1DConfig
+from hpvpinns_tpu_torch.geometry.mesh import Interval1D
+from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
+from hpvpinns_tpu_torch.ops.assembly import poisson1d_residual, variational_loss
+from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_1d
+from hpvpinns_tpu_torch.ops.taylor import taylor_fields_1d
+from hpvpinns_tpu_torch.problems.base import Problem, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.build import build_elements_1d, make_weighted_basis
+from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
+
+OMEGA = 8 * np.pi
+AMP = 1.0
+R1 = 80.0
+
+_FIELDS = {"taylor": taylor_fields_1d, "pallas": fused_fields_1d}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def u_exact(x):
+    """Poisson-1D.py:251-253."""
+    return AMP * (0.1 * np.sin(OMEGA * x) + np.tanh(R1 * x))
+
+
+def f_rhs(x):
+    """f = -u'' (Poisson-1D.py:255-257)."""
+    g = -0.1 * OMEGA**2 * np.sin(OMEGA * x) - (2 * R1**2) * np.tanh(R1 * x) / np.cosh(R1 * x) ** 2
+    return -AMP * g
+
+
+def make_mesh(cfg: Poisson1DConfig) -> Interval1D:
+    if cfg.grid is not None:
+        return Interval1D(grid=np.asarray(cfg.grid, dtype=np.float64))
+    return Interval1D.uniform(cfg.domain[0], cfg.domain[1], cfg.n_elements)
+
+
+def _check_supported(cfg: Poisson1DConfig) -> None:
+    if cfg.hard_bc:
+        raise NotImplementedError("Poisson-1D hard_bc is not ported yet (ROADMAP.md)")
+    if cfg.deriv_mode == "jvp":
+        raise NotImplementedError("Poisson-1D deriv_mode='jvp' is not ported yet (ROADMAP.md)")
+    if cfg.deriv_mode not in _FIELDS:
+        raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
+
+
+def build(cfg: Poisson1DConfig, device=None) -> Problem:
+    """The Poisson-1D hp-VPINN problem on `device` (default: the card,
+    torch.device("cuda"); pass device="cpu" for the CPU).
+
+    deriv_mode "taylor" takes (u, u_x, u_xx) from the plain Taylor
+    propagation; "pallas" from the fused CUDA kernels (B1 forward, B2
+    backward, ops/fused_fields.py), which need float32 on a CUDA device; on
+    the CPU their plain versions run.  The offline arrays are assembled in
+    float64 on the host, then cast to cfg.dtype.
+    """
+    _check_supported(cfg)
+    device = resolve_device(device)
+    dtype = _DTYPES[cfg.dtype]
+    mesh = make_mesh(cfg)
+    xq, wq = gauss_lobatto_jacobi(cfg.n_quad, 0.0, 0.0)
+    n_per_elem = (
+        np.asarray(cfg.n_test_per_elem)
+        if cfg.n_test_per_elem is not None
+        else np.full(mesh.n_elem, cfg.n_test)
+    )
+    basis = make_weighted_basis(int(n_per_elem.max()), xq, wq, dtype, device)
+    elems = build_elements_1d(mesh, xq, wq, f_rhs, n_per_elem, dtype, device)
+
+    # Boundary training data: the domain endpoints (Poisson-1D.py:298-299).
+    xb = np.asarray(cfg.domain, dtype=np.float64)[:, None]
+    data = {
+        "elements": elems,
+        "basis": basis,
+        "xb": torch.as_tensor(xb).to(device=device, dtype=dtype),
+        "ub": torch.as_tensor(u_exact(xb)).to(device=device, dtype=dtype),
+    }
+
+    spec = MLP(layers=cfg.layers, activation=cfg.activation,
+               adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
+    fields = _FIELDS[cfg.deriv_mode]
+
+    def residual_fn(params, data):
+        """Masked weak residual Res[e, n]."""
+        el = data["elements"]
+        u_fn = lambda X: mlp_apply(spec, params["net"], X)
+        fields_fn = lambda x: fields(spec, params["net"], x)
+        return poisson1d_residual(u_fn, el, data["basis"], cfg.var_form, fields_fn) * el.mask
+
+    def loss_fn(params, data):
+        """lossb_weight lossb + lossv (Poisson-1D.py:98-100)."""
+        el = data["elements"]
+        lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
+        lossb = torch.mean((data["ub"] - mlp_apply(spec, params["net"], data["xb"])) ** 2)
+        loss = cfg.lossb_weight * lossb + lossv
+        return loss, {"loss": loss, "lossb": lossb, "lossv": lossv}
+
+    def enriched_residual_fn(params, enrich: int = 4):
+        raise NotImplementedError(
+            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
+            "(ROADMAP.md)"
+        )
+
+    xt = np.arange(-1.0, 1.0 + 0.001, 0.001)[:, None]  # Poisson-1D.py:315-316
+    return Problem(
+        name="poisson1d",
+        config=cfg,
+        spec=spec,
+        data=data,
+        loss_fn=loss_fn,
+        init_params=make_net_init(spec, dtype=dtype, device=device),
+        exact=u_exact,
+        test_points=xt,
+        test_values=u_exact(xt),
+        extras={
+            "mesh": mesh,
+            "f_rhs": f_rhs,
+            "residual_fn": residual_fn,
+            "enriched_residual_fn": enriched_residual_fn,
+        },
+    )

@@ -10,6 +10,8 @@ Counterpart of hpvpinns_tpu/problems/poisson2d.py.  Problem of record
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -19,7 +21,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson2d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
-from hpvpinns_tpu_torch.problems.base import Problem, make_net_init
+from hpvpinns_tpu_torch.problems.base import Problem, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
@@ -68,26 +70,42 @@ def _check_supported(cfg: Poisson2DConfig) -> None:
     unported = {
         "hard_bc": cfg.hard_bc,
         f"scheme={cfg.scheme!r}": cfg.scheme != "VPINNs",
-        f"var_form={cfg.var_form!r}": cfg.var_form != 1,
     }
     for what, bad in unported.items():
         if bad:
             raise NotImplementedError(f"Poisson-2D {what} is not ported yet (ROADMAP.md)")
     if cfg.deriv_mode not in _FIELDS:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
+    if cfg.var_form not in (0, 1, 2, "2c"):
+        raise ValueError(f"Poisson-2D var_form must be 0, 1, 2 or '2c'; got {cfg.var_form!r}")
+    on_ref_elem = (cfg.n_elements_x == 1 and cfg.n_elements_y == 1
+                   and cfg.domain_x == (-1.0, 1.0) and cfg.domain_y == (-1.0, 1.0))
+    if cfg.var_form == 2 and not on_ref_elem:
+        # The verbatim reference form 2 (Poisson-2D.py:108-115) lacks the
+        # 1/jac^2 scalings and the boundary flux.
+        warnings.warn(
+            "Poisson-2D var_form=2 replicates the reference's inconsistent "
+            "twice-integrated form (Poisson-2D.py:108-115): it is only a "
+            "valid weak form on a single [-1,1]^2 element. Use var_form "
+            "'2c' for the mathematically correct twice-IBP form, or 0/1.",
+            stacklevel=3,
+        )
 
 
 def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = None) -> Problem:
-    """The Poisson-2D hp-VPINN problem on `device` (default: CPU).
+    """The Poisson-2D hp-VPINN problem on `device` (default: the card,
+    torch.device("cuda"); pass device="cpu" for the CPU).
 
     deriv_mode "taylor" takes the derivative fields from the plain Taylor
     propagation (ops/taylor.py); "pallas" (the JAX package's name, kept so a
-    JAX config maps one to one) takes them from the fused CUDA kernel
-    csrc/fused_fields.cu (ops/fused_fields.py), which needs a CUDA device and
-    float32; on the CPU its plain version runs.  The offline arrays are
-    assembled in float64 on the host, then cast to cfg.dtype.
+    JAX config maps one to one) takes them from the fused CUDA kernels
+    (ops/fused_fields.py: B1 forward, and B2 backward for the
+    second-derivative forms 0/2/"2c"), which need a CUDA device and float32;
+    on the CPU their plain versions run.  The offline arrays are assembled
+    in float64 on the host, then cast to cfg.dtype.
     """
     _check_supported(cfg)
+    device = resolve_device(device)
     dtype = _DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     if cfg.grid_x is not None or cfg.grid_y is not None:
@@ -137,8 +155,9 @@ def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = N
     def residual_fn(params, data):
         """Masked weak residual Res[e, k, r]."""
         el = data["elements"]
+        u_fn = lambda X: mlp_apply(spec, params["net"], X)
         fields_fn = lambda x, y, **kw: fields(spec, params["net"], x, y, **kw)
-        res = poisson2d_residual(el, data["basis_x"], data["basis_y"], cfg.var_form, fields_fn)
+        res = poisson2d_residual(u_fn, el, data["basis_x"], data["basis_y"], cfg.var_form, fields_fn)
         return res * el.mask
 
     def loss_fn(params, data):

@@ -24,6 +24,7 @@ from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
     MAX_WIDTH,
     check_kernel_args,
     fields_flat,
+    fields_flat_bwd_reference,
     fields_flat_reference,
     fused_fields_2d,
     fused_fields_kernel,
@@ -99,13 +100,23 @@ def test_fused_fields_2d_contract_matches_jax():
             np.testing.assert_allclose(tf[k].detach().numpy(), np.asarray(jf[k]), **FIELD_TOL, err_msg=k)
 
 
-def test_second_derivative_backward_is_b2_and_raises():
-    spec = MLP(layers=(1, 8, 1), activation="sin")
-    tp = init_mlp(spec, torch.Generator().manual_seed(0))
-    X = torch.as_tensor(inputs(10, 1))
-    out = fields_flat(spec, tp, X, 1, True)
-    with pytest.raises(NotImplementedError, match="B2"):
-        out.sum().backward()
+def test_second_derivative_gradient_is_the_plain_backward_on_cpu():
+    """On a CPU tensor the second=True gradient is fields_flat_bwd_reference,
+    exactly, in the caller's dtype; without X's gradient it skips gX."""
+    spec = MLP(layers=(2, 8, 8, 1), activation="sin")
+    tp = init_mlp(spec, torch.Generator().manual_seed(0), dtype=torch.float64)
+    X, g = (torch.as_tensor(a).double() for a in (inputs(20, 2), np.random.default_rng(2).standard_normal((20, 5))))
+    Xt = X.clone().requires_grad_(True)
+    leaves = [t for layer in tp for t in (layer["W"], layer["b"])]
+    grads = torch.autograd.grad((fields_flat(spec, tp, Xt, 2, True) * g).sum(), leaves + [Xt])
+    rgrads, rgx = fields_flat_bwd_reference(spec, tp, X, g, 2)
+    rleaves = [t for layer in rgrads for t in (layer["W"], layer["b"])]
+    for a, b in zip(grads, rleaves + [rgx]):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    rgrads2, rgx2 = fields_flat_bwd_reference(spec, tp, X, g, 2, want_x=False)
+    assert rgx2 is None
+    torch.testing.assert_close(rgrads2[0]["W"], rgrads[0]["W"], rtol=0, atol=0)
 
 
 def test_plain_version_is_the_taylor_propagation_in_f64():

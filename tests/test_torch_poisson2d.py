@@ -10,9 +10,17 @@ the plain Taylor propagation in float64, so it is held to the JAX "taylor"
 numbers at those tolerances.  The JAX "pallas" kernel accumulates its dots
 in float32 (pallas_fields.py:68, preferred_element_type) even in float64
 mode, so against it the port is held at rtol 1e-6 / atol 1e-9, which is the
-size of that f32 rounding."""
+size of that f32 rounding.
+
+The second-derivative forms 0, 2 and "2c" run the same way; under "pallas"
+their gradient is B2's.  The JAX backward kernel keeps its scratch in float32
+(pallas_fields.py:426-430) and refuses float64 values, so against JAX
+"pallas" their float64 loss is held at rtol 1e-6 and their gradients are
+compared in float32, at 2e-4 of each leaf's largest entry (B2's
+tolerance)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -20,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 import hpvpinns_tpu as jv  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
@@ -32,13 +41,11 @@ SMALL = dict(
 TIGHT = dict(rtol=1e-10, atol=1e-13)
 
 
-def configs(deriv_mode="taylor", **train):
+def configs(deriv_mode="taylor", var_form=1, dtype="float64", **train):
     tcfg = tv.TrainConfig(iterations=20, check_every=10, **train)
     jcfg = jv.TrainConfig(iterations=20, check_every=10, **train)
-    return (
-        jv.Poisson2DConfig(**SMALL, deriv_mode=deriv_mode, train=jcfg),
-        tv.Poisson2DConfig(**SMALL, deriv_mode=deriv_mode, train=tcfg),
-    )
+    kw = dict(SMALL, deriv_mode=deriv_mode, var_form=var_form, dtype=dtype)
+    return jv.Poisson2DConfig(**kw, train=jcfg), tv.Poisson2DConfig(**kw, train=tcfg)
 
 
 @pytest.fixture(scope="module")
@@ -55,13 +62,21 @@ def jax_loss_and_grads(prob, params):
     return aux, [np.asarray(a) for layer in grads["net"] for a in (layer["W"], layer["b"])]
 
 
+@pytest.fixture(scope="module")
+def jax_taylor(jax_side):
+    """JAX "taylor" (aux, gradient leaves) for a var_form, computed once for
+    both of the port's deriv modes."""
+    _, jparams, _ = jax_side
+    return functools.cache(lambda var_form: jax_loss_and_grads(jv.build(configs("taylor", var_form)[0]), jparams))
+
+
 def tnp(t):
     return t.detach().cpu().numpy()
 
 
 def test_problem_data_matches_jax(jax_side):
     jprob, _, _ = jax_side
-    tprob = tv.build(configs()[1])
+    tprob = tv.build(configs()[1], device="cpu")
     for key in ("elements", "basis_x", "basis_y"):
         t, j = tprob.data[key], jprob.data[key]
         for f in dataclasses.fields(t):
@@ -78,7 +93,7 @@ def test_problem_data_matches_jax(jax_side):
 @pytest.mark.parametrize("deriv_mode", ["taylor", "pallas"])
 def test_loss_and_gradients_match_jax(jax_side, deriv_mode):
     jprob, jparams, np_params = jax_side
-    tprob = tv.build(configs(deriv_mode)[1])
+    tprob = tv.build(configs(deriv_mode)[1], device="cpu")
     tparams = tv.params_from_jax(np_params, dtype=torch.float64)
     tloss, taux = tprob.loss_fn(tparams, tprob.data)
     tgrads = torch.autograd.grad(tloss, parameters(tparams))
@@ -105,7 +120,7 @@ def jax_trained(jax_side):
 @pytest.mark.parametrize("deriv_mode", ["taylor", "pallas"])
 def test_adam_history_and_params_match_jax(jax_side, jax_trained, deriv_mode):
     _, _, np_params = jax_side
-    tprob = tv.build(configs(deriv_mode)[1])
+    tprob = tv.build(configs(deriv_mode)[1], device="cpu")
     start = tv.params_from_jax(np_params, dtype=torch.float64)
     res = tv.train(tprob, params=start, verbose=False)
     jres = jax_trained
@@ -127,7 +142,7 @@ def test_adam_history_and_params_match_jax(jax_side, jax_trained, deriv_mode):
 
 def test_threshold_stop_and_best_snapshot():
     _, tcfg = configs(threshold=1e9, best_snapshot_fraction=0.0)
-    res = tv.train(tv.build(tcfg), verbose=False)
+    res = tv.train(tv.build(tcfg, device="cpu"), verbose=False)
     assert res.stopped_early and res.iterations_run == 10 and len(res.history["loss"]) == 1
     for b, p in zip(res.best_params["net"], res.params["net"]):
         np.testing.assert_array_equal(tnp(b["W"]), tnp(p["W"]))
@@ -140,15 +155,15 @@ def test_threshold_stop_and_best_snapshot():
 def test_unported_training_phases_raise(train_kw):
     _, tcfg = configs(**train_kw)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tv.train(tv.build(tcfg), verbose=False)
+        tv.train(tv.build(tcfg, device="cpu"), verbose=False)
 
 
 @pytest.mark.parametrize(
-    "cfg_kw", [{"hard_bc": True}, {"scheme": "PINNs"}, {"var_form": 0}, {"var_form": "2c"}]
+    "cfg_kw", [{"hard_bc": True}, {"scheme": "PINNs"}, {"adaptive_slope": True}, {"matmul_precision": "high"}]
 )
 def test_unported_problem_options_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="not ported"):
-        tv.build(dataclasses.replace(configs()[1], **cfg_kw))
+        tv.build(dataclasses.replace(configs()[1], **cfg_kw), device="cpu")
 
 
 def test_presets_match_jax_fields():
@@ -156,9 +171,57 @@ def test_presets_match_jax_fields():
         t, j = getattr(tv, name)(), getattr(jv, name)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j), name
     with pytest.raises(ValueError, match="deriv_mode"):
-        tv.build(dataclasses.replace(configs()[1], deriv_mode="jvp"))
+        tv.build(dataclasses.replace(configs()[1], deriv_mode="jvp"), device="cpu")
+    with pytest.raises(ValueError, match="var_form"):
+        tv.build(dataclasses.replace(configs()[1], var_form=3), device="cpu")
 
 
 def test_multi_device_mesh_raises():
     with pytest.raises(NotImplementedError, match="mesh"):
-        tv.train(tv.build(configs()[1]), verbose=False, mesh=object())
+        tv.train(tv.build(configs()[1], device="cpu"), verbose=False, mesh=object())
+
+
+@pytest.mark.parametrize("preset", ["poisson1d_of_record", "poisson2d_scaled"])
+def test_build_defaults_to_the_card(preset):
+    """With no `device`, problems are built on the card; with no CUDA device
+    that raises and names device="cpu" (it never moves to the CPU itself)."""
+    cfg = dataclasses.replace(getattr(tv, preset)(), n_quad=4)
+    if torch.cuda.is_available():
+        assert tv.build(cfg).data["xb"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tv.build(cfg)
+    assert tv.build(cfg, device="cpu").data["xb"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("deriv_mode", ["taylor", "pallas"])
+@pytest.mark.parametrize("var_form", [0, 2, "2c"])
+def test_second_derivative_forms_match_jax(jax_side, jax_taylor, var_form, deriv_mode):
+    _, jparams, np_params = jax_side
+    jcfg, tcfg = configs(deriv_mode, var_form)
+    if var_form == 2:  # SMALL has 2 x 2 elements: both packages warn
+        with pytest.warns(UserWarning, match="var_form=2"):
+            tprob = tv.build(tcfg, device="cpu")
+    else:
+        tprob = tv.build(tcfg, device="cpu")
+    tparams = tv.params_from_jax(np_params, dtype=torch.float64)
+    tloss, taux = tprob.loss_fn(tparams, tprob.data)
+    tgrads = torch.autograd.grad(tloss, parameters(tparams))
+
+    jaux, jgrads = jax_taylor(var_form)
+    for k in ("loss", "lossb", "lossv"):
+        np.testing.assert_allclose(tnp(taux[k]), float(jaux[k]), **TIGHT, err_msg=k)
+    for t, j in zip(tgrads, jgrads):
+        np.testing.assert_allclose(tnp(t), j, **TIGHT)
+
+    if deriv_mode == "pallas":  # the JAX kernels themselves
+        jprob = jv.build(jcfg)
+        np.testing.assert_allclose(tnp(tloss), float(jax.jit(jprob.loss_fn)(jparams, jprob.data)[0]), rtol=1e-6)
+        jcfg32, tcfg32 = configs("pallas", var_form, dtype="float32")
+        p32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+        _, jgrads32 = jax_loss_and_grads(jv.build(jcfg32), p32)
+        tprob32 = tv.build(tcfg32, device="cpu")
+        tparams32 = tv.params_from_jax(np_params, dtype=torch.float32)
+        tgrads32 = torch.autograd.grad(tprob32.loss_fn(tparams32, tprob32.data)[0], parameters(tparams32))
+        for t, j in zip(tgrads32, jgrads32):
+            np.testing.assert_allclose(tnp(t), j, rtol=0, atol=2e-4 * np.abs(j).max())
