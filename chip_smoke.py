@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE]]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -29,9 +29,13 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      and the rel-L2 error on the 201 x 201 test grid;
   7. holds B2 + block sum against its plain version (autograd through the
      plain forward) at the slice's shapes: gW, gb and gX within rtol 2e-4 /
-     atol 1e-5 (5e-4 / 1e-4 at width 48), two runs bit-identical, and the
-     block sum against torch's column sum; times B2, the block sum, both
-     together and the plain version as phase 3 does;
+     atol 1e-5 (5e-4 / 1e-4 at width 48), two runs bit-identical, B2's
+     launch shape against ops/fused_fields.py::bwd_plan, and the block sum
+     against torch's column sum, both on B2's partials and on partials of
+     the shape B2 wrote before its redesign (one row per 16 points,
+     n_params wide); times B2, the block sum, both together and the plain
+     version as phase 3 does, and B2 and the block sum alone by CUDA events
+     over 50 launches of their C functions, arguments prepared once;
   8. checks the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under
      "taylor" and "pallas" for poisson1d_of_record forms 1/2/3 and
      poisson2d_quality forms 0 and "2c";
@@ -49,7 +53,12 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      loss must fall and B1, B2 and the block sum must each launch at least
      200 times.
 
-The tolerances are those of tests/test_pallas_fields.py.  It exits non-zero
+With --bwd-only it runs phases 1, 2 and 7 and prints no summary; given
+also the path of an earlier csrc/fused_fields_bwd.cu whose B2 has no tiles
+argument (from a `git archive` of the commit before the tiled B2), phase 7
+holds this B2 at one tile per block bit for bit against it on the same
+inputs and times the two in turns.  The
+tolerances are those of tests/test_pallas_fields.py.  It exits non-zero
 at the first failure, and when no CUDA device is present.  Its last two
 lines are a JSON summary of the kernels and `{"ok": true, "device": ...}`.
 """
@@ -225,6 +234,154 @@ def random_net(spec, rng, dev):
     ]
 
 
+def load_untiled_bwd(src: str):
+    """Build `src`, an earlier fused_fields_bwd.cu whose B2 takes no tiles
+    argument and writes partials [ceil(P / 16), n_params], under another
+    library name, and return its launch function."""
+    import ctypes
+
+    from hpvpinns_tpu_torch.ops.cuda_build import build_library
+
+    fn = build_library("fused_fields_bwd_untiled", [src]).lib.hp_fused_fields_bwd_f32
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [vp, vp, vp, vp, i32, i32, i32, i32, vp, vp, i32, vp], i32
+    return fn
+
+
+def against_untiled(fn, name, spec, net, X, g, nd):
+    """The earlier, untiled B2 (`fn`) and this one on the same inputs: bit
+    for bit at one tile per block (partials and gX), and both timed alone,
+    C function by C function, in turns earlier, this, this, earlier (CUDA
+    events) and by torch.profiler."""
+    from hpvpinns_tpu_torch.ops.fused_fields import _ACTIVATION_CODE, fused_fields_bwd_kernel, pack_params
+
+    P = X.shape[0]
+    packed, widths = pack_params(spec, net)
+    n = packed.numel()
+    p_old, x_old = torch.empty(((P + 15) // 16, n), device=X.device), torch.empty_like(X)
+    args = (X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P, nd,
+            _ACTIVATION_CODE[spec.activation], p_old.data_ptr(), x_old.data_ptr(), X.device.index or 0,
+            torch.cuda.current_stream(X.device).cuda_stream)
+
+    def old():
+        if fn(*args) != 0:
+            fail(f"{name}: the earlier B2 did not launch")
+
+    (a1, *k1), p1, x1 = fused_fields_bwd_kernel.prepare(spec, net, X, g, nd, tiles_per_block=1)
+    (a, *k), _, _ = fused_fields_bwd_kernel.prepare(spec, net, X, g, nd)
+    old()
+    fused_fields_bwd_kernel.launch(*a1)
+    torch.cuda.synchronize()
+    same = torch.equal(x_old, x1) and torch.equal(p_old, p1[:, :n]) and bool((p1[:, n:] == 0).all())
+    if not same:
+        fail(f"{name}: B2 at one tile per block differs from the earlier B2")
+    new = lambda: fused_fields_bwd_kernel.launch(*a)
+    ev = [1e3 * cuda_ms(f) for f in (old, new, new, old)]
+    dev_old, dev_new = device_us(old), device_us(new)
+    print(f"phase 7 {name} against the earlier B2: one tile per block bit-identical; us/launch (CUDA events, "
+          f"turns earlier, this, this, earlier) {ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f}; device us earlier "
+          + (f"{dev_old:.2f} this {dev_new:.2f}" if dev_old and dev_new else "not measured"), flush=True)
+
+
+def phase7(dev, untiled_src=None):
+    """B2 and its block sum against the plain backward at BWD_CASES: the
+    largest error of B2 + block sum and of the block sum, and per case the ms
+    and device µs of each timed function and the partials' shape.  With
+    untiled_src (an earlier, untiled fused_fields_bwd.cu), also
+    against_untiled at each case."""
+    from hpvpinns_tpu_torch.models.mlp import MLP
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        block_sum_kernel,
+        block_sum_reference,
+        bwd_plan,
+        fields_flat_bwd_reference,
+        fused_fields_bwd,
+        fused_fields_bwd_kernel,
+    )
+
+    untiled = load_untiled_bwd(untiled_src) if untiled_src else None
+    rng = np.random.default_rng(1)
+    bwd_err, sum_err, bwd_times = 0.0, 0.0, {}
+    for name, layers, act, P, nd in BWD_CASES:
+        spec = MLP(layers=layers, activation=act)
+        net = random_net(spec, rng, dev)
+        X = torch.as_tensor(rng.uniform(-1.0, 1.0, (P, layers[0])), dtype=torch.float32, device=dev)
+        # Cotangents of a mean over the points (1/sqrt(P) scale): unit
+        # cotangents at 16,384 points give gradient sums of ~1e2 whose f32
+        # rounding, in either version, exceeds a 1e-5 atol.
+        g = torch.as_tensor(rng.standard_normal((P, 1 + 2 * nd)) / math.sqrt(P), dtype=torch.float32, device=dev)
+        tol = WIDE_GRAD_TOL if max(layers) >= 48 else GRAD_TOL
+        got, got_x = fused_fields_bwd(spec, net, X, g, nd)
+        again, again_x = fused_fields_bwd(spec, net, X, g, nd)
+        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} gX", got_x, want_x, **tol)
+        same = torch.equal(got_x, again_x)
+        for l, (a, b, c) in enumerate(zip(got, want, again)):
+            for k in ("W", "b"):
+                err = max(err, check_close(f"{name} g{k}_{l}", a[k], b[k], **tol))
+                same = same and torch.equal(a[k], c[k])
+        if not same:
+            fail(f"{name}: two runs of B2 + block sum differ")
+        (b2_args, *b2_keep), partials, _ = fused_fields_bwd_kernel.prepare(spec, net, X, g, nd)
+        fused_fields_bwd_kernel.launch(*b2_args)
+        plan = bwd_plan(layers, nd, P)
+        n_params = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+        c_smem = fused_fields_bwd_kernel.load().lib.hp_fused_fields_bwd_smem_bytes(
+            n_params, max(layers[:-1]), len(layers) - 1, nd)
+        if c_smem != plan.smem_bytes or tuple(partials.shape) != (plan.n_blocks, plan.row_pitch):
+            fail(f"{name}: bwd_plan {plan} disagrees with the kernel ({c_smem} B, partials {tuple(partials.shape)})")
+        # The partials' shape before this redesign: one row per 16 points,
+        # n_params wide (rows not 16-byte aligned unless n_params % 4 == 0).
+        one, _ = fused_fields_bwd_kernel(spec, net, X, g, nd, tiles_per_block=1)
+        old_rows = one[:, :n_params].contiguous()
+        serr = 0.0
+        for rows in (partials, old_rows):
+            serr = max(serr, check_close(f"{name} block sum {list(rows.shape)}", block_sum_kernel(rows),
+                                         block_sum_reference(rows), **SUM_TOL))
+        bwd_err, sum_err = max(bwd_err, err), max(sum_err, serr)
+        (sum_args, sum_keep), _ = block_sum_kernel.prepare(partials)
+        (old_sum_args, old_sum_keep), _ = block_sum_kernel.prepare(old_rows)
+        fns = {
+            "plain": lambda: fields_flat_bwd_reference(spec, net, X, g, nd),
+            "b2": lambda: fused_fields_bwd_kernel(spec, net, X, g, nd),
+            "sum": lambda: block_sum_kernel(partials),
+            "b2+sum": lambda: fused_fields_bwd(spec, net, X, g, nd),
+            "torch.sum": lambda: partials.sum(dim=0),
+            "sum_old_rows": lambda: block_sum_kernel(old_rows),
+            "torch.sum_old_rows": lambda: old_rows.sum(dim=0),
+        }
+        ms = {k: cuda_ms(f) for k, f in fns.items() if k != "sum_old_rows" and k != "torch.sum_old_rows"}
+        ms["plain"] = (ms["plain"] + cuda_ms(fns["plain"])) / 2  # plain first and last
+        dev_us = {k: device_us(f) for k, f in fns.items()}
+        # The kernels alone: their C functions, arguments prepared once, in
+        # turns kernel, torch, torch, kernel for the sums
+        c_fns = {
+            "b2": lambda: fused_fields_bwd_kernel.launch(*b2_args),
+            "sum": lambda: block_sum_kernel.launch(*sum_args),
+            "torch.sum": fns["torch.sum"],
+            "sum_old_rows": lambda: block_sum_kernel.launch(*old_sum_args),
+            "torch.sum_old_rows": fns["torch.sum_old_rows"],
+        }
+        ev_us = {k: 1e3 * cuda_ms(f) for k, f in c_fns.items()}
+        for k in ("sum", "sum_old_rows"):
+            ev_us[k] = (ev_us[k] + 1e3 * cuda_ms(c_fns[k])) / 2
+        bwd_times[name] = (ms, partials.shape, dev_us, ev_us)
+        print(
+            f"phase 7 {name}: layers {layers} {act} P={P} n_dirs={nd} tiles/block {plan.tiles_per_block} partials "
+            f"{list(partials.shape)} (old rows {list(old_rows.shape)}) smem {plan.smem_bytes} B; max_abs_err {err:.3e} "
+            f"(block sum {serr:.3e}), bit-identical repeat; ms/call "
+            + " ".join(f"{k} {v:.4f}" for k, v in ms.items()) + "; device us/call (torch.profiler) "
+            + " ".join(f"{k} {v:.2f}" if v else f"{k} not measured" for k, v in dev_us.items())
+            + "; C-function us/launch (CUDA events, 50 launches) "
+            + " ".join(f"{k} {v:.2f}" for k, v in ev_us.items()),
+            flush=True,
+        )
+        if untiled:
+            against_untiled(untiled, name, spec, net, X, g, nd)
+    return bwd_err, sum_err, bwd_times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only", file=sys.stderr)
@@ -272,6 +429,10 @@ def main() -> int:
         print(f"phase 2 build: {built.path.name} in {built.build_seconds:.1f} s", flush=True)
         for ln in ptxas:
             print(f"  ptxas {ln}", flush=True)
+
+    if sys.argv[1:2] == ["--bwd-only"]:  # for work on B2: phases 1, 2 and 7 only, no summary
+        phase7(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
 
     # 3. kernel vs plain on the card
     cases = [  # (name, layers, activation, P, n_dirs, second)
@@ -371,50 +532,7 @@ def main() -> int:
     )
 
     # 7. B2 and its block sum against the plain backward
-    rng = np.random.default_rng(1)
-    bwd_err, sum_err, bwd_times = 0.0, 0.0, {}
-    for name, layers, act, P, nd in BWD_CASES:
-        spec = MLP(layers=layers, activation=act)
-        net = random_net(spec, rng, dev)
-        X = torch.as_tensor(rng.uniform(-1.0, 1.0, (P, layers[0])), dtype=torch.float32, device=dev)
-        # Cotangents of a mean over the points (1/sqrt(P) scale): unit
-        # cotangents at 16,384 points give gradient sums of ~1e2 whose f32
-        # rounding, in either version, exceeds a 1e-5 atol.
-        g = torch.as_tensor(rng.standard_normal((P, 1 + 2 * nd)) / math.sqrt(P), dtype=torch.float32, device=dev)
-        tol = WIDE_GRAD_TOL if max(layers) >= 48 else GRAD_TOL
-        got, got_x = fused_fields_bwd(spec, net, X, g, nd)
-        again, again_x = fused_fields_bwd(spec, net, X, g, nd)
-        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
-        torch.cuda.synchronize()
-        err = check_close(f"{name} gX", got_x, want_x, **tol)
-        same = torch.equal(got_x, again_x)
-        for l, (a, b, c) in enumerate(zip(got, want, again)):
-            for k in ("W", "b"):
-                err = max(err, check_close(f"{name} g{k}_{l}", a[k], b[k], **tol))
-                same = same and torch.equal(a[k], c[k])
-        if not same:
-            fail(f"{name}: two runs of B2 + block sum differ")
-        partials, _ = fused_fields_bwd_kernel(spec, net, X, g, nd)
-        serr = check_close(f"{name} block sum", block_sum_kernel(partials), block_sum_reference(partials), **SUM_TOL)
-        bwd_err, sum_err = max(bwd_err, err), max(sum_err, serr)
-        fns = {
-            "plain": lambda: fields_flat_bwd_reference(spec, net, X, g, nd),
-            "b2": lambda: fused_fields_bwd_kernel(spec, net, X, g, nd),
-            "sum": lambda: block_sum_kernel(partials),
-            "b2+sum": lambda: fused_fields_bwd(spec, net, X, g, nd),
-            "torch.sum": lambda: partials.sum(dim=0),
-        }
-        ms = {k: cuda_ms(f) for k, f in fns.items()}
-        ms["plain"] = (ms["plain"] + cuda_ms(fns["plain"])) / 2  # plain first and last
-        dev_us = {k: device_us(f) for k, f in fns.items()}
-        bwd_times[name] = (ms, partials.shape)
-        print(
-            f"phase 7 {name}: layers {layers} {act} P={P} n_dirs={nd} blocks={partials.shape[0]} "
-            f"max_abs_err {err:.3e} (block sum {serr:.3e}), bit-identical repeat; ms/call "
-            + " ".join(f"{k} {v:.4f}" for k, v in ms.items()) + "; device us/call "
-            + " ".join(f"{k} {v:.2f}" if v else f"{k} not measured" for k, v in dev_us.items()),
-            flush=True,
-        )
+    bwd_err, sum_err, bwd_times = phase7(dev)
 
     # 8. the second-derivative losses both ways
     for base, forms in ((hv.poisson1d_of_record(), (1, 2, 3)), (hv.poisson2d_quality(), (0, "2c"))):
@@ -495,7 +613,7 @@ def main() -> int:
             )
 
     ms, plain_ms = times["scaled"]
-    ms7, pshape = bwd_times["p2d_scaled"]
+    ms7, pshape, dev7, ev7 = bwd_times["p2d_scaled"]
     b1_bound = bound_ms(*fwd_work((2, 20, 20, 20, 1), 16384, 2, False))
     b2_bound = bound_ms(*bwd_work((2, 20, 20, 20, 1), 16384, 2))
     sum_bound = bound_ms(4 * (pshape[0] * pshape[1] + pshape[1]), pshape[0] * pshape[1])
@@ -507,11 +625,13 @@ def main() -> int:
         {"name": "fused_fields_bwd", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259", "launches": counts["fused_fields_bwd"],
          "max_abs_err": bwd_err, "ms": ms7["b2"], "plain_ms": ms7["plain"], "bound_ms": b2_bound[0],
-         "bound_by": b2_bound[1], "library_ms": None, "shape": "poisson2d_scaled second, P 16384"},
+         "bound_by": b2_bound[1], "library_ms": None, "shape": "poisson2d_scaled second, P 16384",
+         "device_us": dev7["b2"], "c_function_us": ev7["b2"]},
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": counts["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],
-         "bound_by": sum_bound[1], "library_ms": ms7["torch.sum"], "shape": f"B2 partials {list(pshape)}"},
+         "bound_by": sum_bound[1], "library_ms": ms7["torch.sum"], "shape": f"B2 partials {list(pshape)}",
+         "device_us": dev7["sum"], "library_device_us": dev7["torch.sum"]},
     ]
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}

@@ -24,6 +24,7 @@ runs instead.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -162,9 +163,10 @@ _FWD_LIBRARY = CudaLibrary(
     "fused_fields", {"hp_fused_fields_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _I32, _VP]}
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
-    "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
-    "hp_block_sum_f32": [_VP, _I32, _I32, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
+    "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_block_points": [],
+    "hp_fused_fields_bwd_point_stride": [],
 })
 
 
@@ -222,13 +224,71 @@ def unpack_params(spec: MLP, packed: torch.Tensor):
     return out
 
 
+# Must equal kBlockPoints / kPointStride in csrc/fused_fields_bwd.cu (the
+# wrapper checks both after the build).
+BWD_TILE_POINTS = 16
+BWD_POINT_STRIDE = 20
+BWD_BLOCKS = 512  # T grows only above this many blocks: four per SM of an H100
+BWD_MAX_TILES = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """B2's launch shape for a network and P points: tiles_per_block tiles
+    of BWD_TILE_POINTS points per block, n_blocks blocks, each writing one
+    partial row of row_pitch floats (n_params rounded up to a multiple of 4),
+    and the shared memory one block needs."""
+
+    tiles_per_block: int
+    n_blocks: int
+    row_pitch: int
+    smem_bytes: int
+
+
+def _row_pitch(layers) -> int:
+    """The network's parameter count rounded up to a multiple of 4."""
+    return -(-sum(a * b + b for a, b in zip(layers[:-1], layers[1:])) // 4) * 4
+
+
+def bwd_smem_bytes(layers, n_dirs: int) -> int:
+    """Shared memory of one B2 block (hp_fused_fields_bwd_smem_bytes): the
+    packed network and the block's gradient sums (row_pitch floats each),
+    the stash of every hidden layer and three stream buffers, each
+    (1 + 2 n_dirs) x max width x BWD_POINT_STRIDE floats."""
+    n_layers = len(layers) - 1
+    return 4 * (2 * _row_pitch(layers) + (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_POINT_STRIDE)
+
+
+def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None) -> BwdPlan:
+    """T = tiles_per_block, by default as many tiles per block as keep at
+    least BWD_BLOCKS blocks (at most BWD_MAX_TILES): a function of P alone,
+    so the summation order, and the gradient, do not depend on the card."""
+    n_tiles = -(-P // BWD_TILE_POINTS)
+    T = tiles_per_block or max(1, min(BWD_MAX_TILES, n_tiles // BWD_BLOCKS))
+    return BwdPlan(T, -(-n_tiles // T), _row_pitch(layers), bwd_smem_bytes(layers, n_dirs))
+
+
 class FusedFieldsBwdKernel(KernelWrapper):
     """B2, the CUDA kernel csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel,
     built at first use.  A call returns the per-block partial sums
-    [n_blocks, n_params] of the weight gradients (packed as pack_params packs
-    the weights) and gX (or None)."""
+    [n_blocks, row_pitch] of the weight gradients (packed as pack_params
+    packs the weights, then zero pad columns; bwd_plan gives the shape) and
+    gX (or None)."""
 
-    def __call__(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True):
+    def load(self) -> BuiltLibrary:
+        built = self.library.load()
+        lib = built.lib
+        if (lib.hp_fused_fields_bwd_block_points(), lib.hp_fused_fields_bwd_point_stride()) != (
+            BWD_TILE_POINTS, BWD_POINT_STRIDE
+        ):
+            raise RuntimeError("csrc/fused_fields_bwd.cu disagrees with BWD_TILE_POINTS/BWD_POINT_STRIDE")
+        return built
+
+    def prepare(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
+                tiles_per_block: int | None = None):
+        """Check the arguments and allocate the outputs of one launch:
+        (the C function's arguments and the buffers they point into,
+        partials, gX or None)."""
         check_kernel_args(spec, params, X, n_dirs)
         P = X.shape[0]
         n_fields = 1 + 2 * n_dirs
@@ -238,45 +298,91 @@ class FusedFieldsBwdKernel(KernelWrapper):
                 f"got {g.dtype} {tuple(g.shape)} on {g.device}"
             )
         packed, widths = pack_params(spec, params)
-        n_params = packed.numel()
         dev = _device_index(X)
+        self.load()
         self.library.check_smem(
-            dev, (n_params, max(spec.layers[:-1]), spec.n_layers, n_dirs), f"layers {spec.layers} and n_dirs {n_dirs}"
+            dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs), f"layers {spec.layers} and n_dirs {n_dirs}"
         )
-        block = self.load().lib.hp_fused_fields_bwd_block_points()
-        partials = torch.empty(((P + block - 1) // block, n_params), dtype=torch.float32, device=X.device)
+        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block)
+        partials = torch.empty((plan.n_blocks, plan.row_pitch), dtype=torch.float32, device=X.device)
         gX = torch.empty_like(X) if want_x else None
-        if P == 0:
-            return partials, gX
-        self.launch(
+        args = (
             X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P,
-            n_dirs, _ACTIVATION_CODE[spec.activation], partials.data_ptr(),
+            n_dirs, _ACTIVATION_CODE[spec.activation], plan.tiles_per_block, partials.data_ptr(),
             gX.data_ptr() if want_x else None, dev, torch.cuda.current_stream(X.device).cuda_stream,
         )
+        return (args, packed, widths), partials, gX
+
+    def __call__(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
+                 tiles_per_block: int | None = None):
+        (args, *_keep), partials, gX = self.prepare(spec, params, X, g, n_dirs, want_x, tiles_per_block)
+        if X.shape[0]:
+            self.launch(*args)
         return partials, gX
 
 
 fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32")
 
 
+# Must equal kSumThreads / kMaxSumTiles in csrc/fused_fields_bwd.cu.
+SUM_THREADS = 256
+SUM_MAX_TILES = 4096
+SUM_ONE_PASS_ROWS = 256  # up to this many rows: one pass, up to 32 row groups of 8 rows
+SUM_SLAB_ROWS = 64  # above it: slabs of 64 rows, 16 row groups of 4 rows
+
+
+def block_sum_plan(n_rows: int, n: int):
+    """(lanes, rows_per_slab, slabs) of the block-sum kernel for partials
+    [n_rows, n]; a block has `lanes` lanes of four columns by 256 / lanes
+    row groups.  Up to SUM_ONE_PASS_ROWS rows one slab, one pass and no
+    ticket, with a row group per row up to 32 groups; above it slabs of
+    SUM_SLAB_ROWS rows and 16 groups (each slab adds a ticket and a second
+    pass over the slab sums).  Chosen from a sweep of (lanes, slabs) on an
+    H100 at the partial shapes of chip_smoke.py phase 7.  It depends on the
+    shape alone, so the summation order, and the result, do not depend on
+    the card (or on the rows' alignment, which only picks the loads)."""
+    if n_rows <= SUM_ONE_PASS_ROWS:
+        groups = min(32, 1 << max(0, n_rows - 1).bit_length())
+        rows_per_slab = max(1, n_rows)
+    else:
+        groups, rows_per_slab = 16, SUM_SLAB_ROWS
+    lanes = SUM_THREADS // groups
+    if -(-n // (4 * lanes)) > SUM_MAX_TILES:  # too many column tiles for the tickets
+        rows_per_slab = n_rows
+    return lanes, rows_per_slab, max(1, -(-n_rows // rows_per_slab))
+
+
 class BlockSumKernel(KernelWrapper):
     """csrc/fused_fields_bwd.cu::block_sum_kernel, the fixed-order column sum
     of B2's partials; shares B2's library."""
 
-    def __call__(self, partials: torch.Tensor) -> torch.Tensor:
+    def prepare(self, partials: torch.Tensor):
+        """Check `partials` and allocate the output and scratch of one launch:
+        (the C function's arguments and the tensors they point into, out)."""
         if not partials.is_cuda or partials.dtype != torch.float32 or partials.dim() != 2 or not partials.is_contiguous():
             raise ValueError(
                 f"block_sum kernel takes a contiguous float32 [rows, n] CUDA tensor; got "
                 f"{partials.dtype} {tuple(partials.shape)} on {partials.device}"
             )
         n_rows, n = partials.shape
-        out = torch.zeros((n,), dtype=torch.float32, device=partials.device)
-        if n_rows == 0 or n == 0:
-            return out
-        self.launch(
-            partials.data_ptr(), n_rows, n, out.data_ptr(), _device_index(partials),
-            torch.cuda.current_stream(partials.device).cuda_stream,
+        out = torch.empty((n,), dtype=torch.float32, device=partials.device)
+        lanes, rows_per_slab, slabs = block_sum_plan(n_rows, n)
+        aligned = n % 4 == 0 and partials.data_ptr() % 16 == 0
+        scratch = torch.empty((slabs, -(-n // 4) * 4), dtype=torch.float32, device=partials.device) if slabs > 1 else None
+        args = (
+            partials.data_ptr(), n_rows, n, int(aligned), lanes, rows_per_slab,
+            None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), _device_index(partials), torch.cuda.current_stream(partials.device).cuda_stream,
         )
+        return (args, scratch), out
+
+    def __call__(self, partials: torch.Tensor) -> torch.Tensor:
+        (args, _scratch), out = self.prepare(partials)
+        if out.numel() == 0:
+            return out
+        if partials.shape[0] == 0:
+            return out.zero_()
+        self.launch(*args)
         return out
 
 
@@ -287,7 +393,7 @@ def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs
     """(gparams, gX) of sum(g * fields_flat(..., second=True)) on the card:
     B2, then the block sum."""
     partials, gX = fused_fields_bwd_kernel(spec, params, X, g, n_dirs, want_x)
-    return unpack_params(spec, block_sum_kernel(partials)), gX
+    return unpack_params(spec, block_sum_kernel(partials)), gX  # the pad columns are left out
 
 
 class _FieldsFlat(torch.autograd.Function):

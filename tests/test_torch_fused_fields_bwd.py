@@ -24,7 +24,13 @@ from hpvpinns_tpu.ops.pallas_fields import pallas_fields_1d  # noqa: E402
 from hpvpinns_tpu_torch.convert import params_from_jax  # noqa: E402
 from hpvpinns_tpu_torch.models.mlp import MLP, init_mlp  # noqa: E402
 from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
+    BWD_TILE_POINTS,
+    SUM_MAX_TILES,
+    SUM_ONE_PASS_ROWS,
+    SUM_THREADS,
     block_sum_kernel,
+    block_sum_plan,
+    bwd_plan,
     fields_flat,
     fields_flat_bwd_reference,
     fused_fields_1d,
@@ -134,3 +140,66 @@ def test_backward_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         block_sum_kernel(torch.zeros(3, 4))
     assert fused_fields_bwd_kernel.launches == 0 and block_sum_kernel.launches == 0
+
+
+# The shapes chip_smoke.py phase 7 runs B2 and its block sum at: (name,
+# layers, n_dirs, P) and the launch shape bwd_plan must give there
+# (tiles_per_block, n_blocks, row_pitch, shared memory bytes), worked out by
+# hand from the kernel's layout: two padded copies of the network (weights,
+# sums) and (n_layers + 2) buffers of (1 + 2 n_dirs) x max width x 20 floats.
+H100_SMEM_PER_BLOCK = 232448  # 227 KB, the most one block may opt in to
+PHASE7 = [
+    ("p1d_record", (1, 20, 20, 20, 20, 1), 1, 80, (1, 5, 1324, 4 * (2 * 1324 + 7 * 3 * 20 * 20))),
+    ("p1d_quality", (1, 30, 30, 30, 1), 1, 240, (1, 15, 1952, 4 * (2 * 1952 + 6 * 3 * 30 * 20))),
+    ("p2d_scaled", (2, 20, 20, 20, 1), 2, 16384, (2, 512, 924, 4 * (2 * 924 + 6 * 5 * 20 * 20))),
+    ("p2d_quality", (2, 48, 48, 48, 48, 1), 2, 4096, (1, 256, 7252, 4 * (2 * 7252 + 7 * 5 * 48 * 20))),
+    ("ragged", (3, 48, 48, 48, 1), 3, 1003, (1, 63, 4948, 4 * (2 * 4948 + 6 * 7 * 48 * 20))),
+]
+
+
+def n_params(layers):
+    return sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+
+
+@pytest.mark.parametrize("name,layers,n_dirs,P,want", PHASE7, ids=[c[0] for c in PHASE7])
+def test_bwd_plan_at_phase7_shapes(name, layers, n_dirs, P, want):
+    plan = bwd_plan(layers, n_dirs, P)
+    assert (plan.tiles_per_block, plan.n_blocks, plan.row_pitch, plan.smem_bytes) == want
+    assert plan.row_pitch % 4 == 0 and 0 <= plan.row_pitch - n_params(layers) < 4
+    assert plan.smem_bytes <= H100_SMEM_PER_BLOCK  # p2d_quality included: 192,416 B
+    # the blocks cover the points, and no block is empty
+    span = plan.tiles_per_block * BWD_TILE_POINTS
+    assert (plan.n_blocks - 1) * span < P <= plan.n_blocks * span
+
+
+def test_bwd_plan_depends_on_P_alone():
+    """T grows with P only (never with the widths or the card), and an
+    explicit T is kept."""
+    for P in (1, 15, 16, 17, 8191, 8192, 16384, 65536, 10**6):
+        Ts = {bwd_plan(layers, n_dirs, P).tiles_per_block for _, layers, n_dirs, _, _ in PHASE7}
+        assert len(Ts) == 1
+        T = Ts.pop()
+        n_tiles = -(-P // BWD_TILE_POINTS)
+        assert 1 <= T <= 8 and (T == 1 or n_tiles // T >= 512)
+    assert bwd_plan((2, 20, 1), 2, 16384, tiles_per_block=1).n_blocks == 1024
+
+
+@pytest.mark.parametrize("rows", ["new", "old"])
+@pytest.mark.parametrize("name,layers,n_dirs,P,want", PHASE7, ids=[c[0] for c in PHASE7])
+def test_block_sum_plan_at_phase7_shapes(name, layers, n_dirs, P, want, rows):
+    """The block sum's plan on B2's partials ("new": padded rows) and on the
+    shape B2 wrote before (one row per 16 points, n_params wide): the slabs
+    cover every row once and no slab is empty; one pass up to
+    SUM_ONE_PASS_ROWS rows; a thread adds at most 8 rows a pass; and more
+    than one slab only where each column tile has a ticket."""
+    if rows == "new":
+        n_rows, n = want[1], want[2]
+    else:
+        n_rows, n = -(-P // BWD_TILE_POINTS), n_params(layers)
+    lanes, rows_per_slab, slabs = block_sum_plan(n_rows, n)
+    assert SUM_THREADS % lanes == 0 and lanes & (lanes - 1) == 0
+    groups = SUM_THREADS // lanes
+    assert (slabs - 1) * rows_per_slab < n_rows <= slabs * rows_per_slab
+    assert -(-rows_per_slab // groups) <= 8
+    assert (slabs == 1) == (n_rows <= SUM_ONE_PASS_ROWS)
+    assert slabs == 1 or -(-n // (4 * lanes)) <= SUM_MAX_TILES
