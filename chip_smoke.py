@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE]]
+    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE]]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -15,11 +15,19 @@ sum) with nvcc for sm_90a, and then, one line per phase:
   3. holds B1 against its plain PyTorch version on the card, at the first
      slice's shapes, at ragged sin shapes with second derivatives and at the
      second-derivative shapes phases 8-10 train on (rtol 2e-5, atol 1e-6),
-     and the firsts-only gradient against autograd through the
-     plain version (rtol 2e-4, atol 1e-5); times both: ms per call over 50
+     at four shapes above width 64, which take the staged form (rtol 5e-5,
+     atol 2e-6: sums of up to 256 terms in another order than cuBLAS's),
+     and the firsts-only gradient against autograd through the plain
+     version (rtol 2e-4, atol 1e-5; 5e-4, 1e-4 above width 64); checks
+     ops/fused_fields.py::fwd_plan against the kernel's own shared-memory
+     count and, up to width 64, the staged form forced on the same inputs
+     bit for bit against the resident one; times both: ms per call over 50
      back-to-back calls (CUDA events; at these sizes the host's launch rate
-     bounds it) and device µs per call (torch.profiler, the kernels' own
-     time, the wrapper's parameter packing included);
+     bounds it), device µs per call (torch.profiler, the kernels' own
+     time), and B1's C function alone, arguments prepared once, by
+     torch.profiler, by CUDA events over 50 launches from the host, and by
+     replaying a CUDA graph of 50 launches (the device's own rate: the host
+     takes longer to launch B1 than the card to run it);
   4. builds poisson2d_scaled twice, deriv_mode "taylor" and "pallas", and
      checks the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) agree;
   5. trains poisson2d_scaled under deriv_mode "pallas" for 200 Adam steps
@@ -51,8 +59,18 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      the kernels' device µs, kernel launches, busy share and five largest
      kernels per step.  On poisson2d_scaled var_form 0 under "pallas" the
      loss must fall and B1, B2 and the block sum must each launch at least
-     200 times.
+     200 times;
+ 11. builds poisson2d_scaled with the (2, 256, 256, 256, 1) network, checks
+     the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under "taylor"
+     and "pallas", and trains 50 Adam steps a turn in turns "taylor",
+     "pallas", "pallas", "taylor": under "pallas" the loss must fall and B1
+     (its staged form) must launch at least 50 times.
 
+With --fwd-only it runs phases 1, 2 and 3 and prints no summary; given also
+the path of an earlier csrc/fused_fields.cu whose C function takes the
+network packed into one buffer (from a `git archive` of the commit before
+B1's redesign), phase 3 holds this B1 bit for bit against it at every shape
+of width up to 64 and times the two in turns.
 With --bwd-only it runs phases 1, 2 and 7 and prints no summary; given
 also the path of an earlier csrc/fused_fields_bwd.cu whose B2 has no tiles
 argument (from a `git archive` of the commit before the tiled B2), phase 7
@@ -79,7 +97,11 @@ import torch
 
 FIELD_TOL = dict(rtol=2e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
-WIDE_GRAD_TOL = dict(rtol=5e-4, atol=1e-4)  # width 48 (tests/test_pallas_fields.py:132-147)
+WIDE_GRAD_TOL = dict(rtol=5e-4, atol=1e-4)  # width 48 and above (tests/test_pallas_fields.py:132-147)
+# Above width 64 a sum has up to 256 terms, added in input order here and in
+# cuBLAS's blocked order in the plain version; the second-derivative streams
+# cancel, so the difference shows against the result's size.
+WIDE_FIELD_TOL = dict(rtol=5e-5, atol=2e-6)
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 TIMED_CALLS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet (at 700 W)
@@ -142,6 +164,28 @@ def device_us(fn) -> float | None:
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     return total / TIMED_CALLS if total > 0 else None
+
+
+def graph_us(prepare) -> float:
+    """µs per launch of TIMED_CALLS launches captured into one CUDA graph and
+    replayed: the device's own rate, also where a launch from the host takes
+    longer than the kernel.  `prepare()` returns the launch function, bound
+    to the stream that is current when it is called."""
+    prepare()()  # outside the capture: opts in to the shared memory
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch = prepare()
+        for _ in range(TIMED_CALLS):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(end) / TIMED_CALLS
 
 
 def part_times(problem, params, opt, n: int = 50):
@@ -382,22 +426,172 @@ def phase7(dev, untiled_src=None):
     return bwd_err, sum_err, bwd_times
 
 
+FWD_CASES = [  # (name, layers, activation, P, n_dirs, second)
+    ("scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2, False),
+    ("quality", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2, False),
+    ("sin_d1_second", (1, 20, 20, 20, 1), "sin", 1000, 1, True),
+    ("sin_d3_second", (3, 48, 48, 48, 1), "sin", 1003, 3, True),
+    # the second-derivative shapes that phases 8-10 train on
+    ("p1d_record", (1, 20, 20, 20, 20, 1), "sin", 80, 1, True),
+    ("p1d_quality", (1, 30, 30, 30, 1), "sin", 240, 1, True),
+    ("p2d_scaled_second", (2, 20, 20, 20, 1), "tanh", 16384, 2, True),
+    ("p2d_quality_second", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2, True),
+    # above width 64: the staged form (phase 11 trains on the first)
+    ("wide_scaled", (2, 256, 256, 256, 1), "tanh", 16384, 2, False),
+    ("wide_one_layer", (2, 256, 1), "tanh", 1000, 2, True),
+    ("wide_mixed", (1, 200, 40, 1), "tanh", 1000, 1, True),
+    ("wide_sin_d3", (3, 128, 128, 128, 1), "sin", 1003, 3, True),
+]
+
+
+def load_parent_fwd(src: str):
+    """Build `src`, an earlier fused_fields.cu whose C function takes the
+    network packed into one buffer, under another library name, and return
+    its launch function."""
+    import ctypes
+
+    from hpvpinns_tpu_torch.ops.cuda_build import build_library
+
+    fn = build_library("fused_fields_parent", [src]).lib.hp_fused_fields_f32
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [vp, vp, vp, i32, i32, i32, i32, i32, vp, i32, vp], i32
+    return fn
+
+
+def against_parent_fwd(fn, name, spec, net, X, nd, second):
+    """The earlier B1 (`fn`) and this one on the same inputs: bit for bit,
+    and both timed alone, C function by C function, in turns earlier, this,
+    this, earlier (replays of a CUDA graph of 50 launches; CUDA events around
+    50 launches from the host) and by torch.profiler."""
+    from hpvpinns_tpu_torch.ops.fused_fields import _ACTIVATION_CODE, fused_fields_kernel, pack_params
+
+    P = X.shape[0]
+    with torch.no_grad():
+        packed, widths = pack_params(spec, net)
+    out_old = torch.empty((P, 1 + nd * (2 if second else 1)), device=X.device)
+
+    def prepare_old():
+        args = (X.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P, nd, int(second),
+                _ACTIVATION_CODE[spec.activation], out_old.data_ptr(), X.device.index or 0,
+                torch.cuda.current_stream(X.device).cuda_stream)
+
+        def launch():
+            if fn(*args) != 0:
+                fail(f"{name}: the earlier B1 did not launch")
+
+        return launch
+
+    def prepare_new():
+        (a, *keep), _ = fused_fields_kernel.prepare(spec, net, X, nd, second)
+        return lambda keep=keep: fused_fields_kernel.launch(*a)
+
+    old = prepare_old()
+    (a, *keep), out_new = fused_fields_kernel.prepare(spec, net, X, nd, second)
+    new = lambda: fused_fields_kernel.launch(*a)
+    old()
+    new()
+    torch.cuda.synchronize()
+    if not torch.equal(out_old, out_new):
+        fail(f"{name}: B1 differs from the earlier B1 (max abs diff {(out_old - out_new).abs().max().item():.3e})")
+    ev = [1e3 * cuda_ms(f) for f in (old, new, new, old)]
+    gr = [graph_us(f) for f in (prepare_old, prepare_new, prepare_new, prepare_old)]
+    dev_old, dev_new = device_us(old), device_us(new)
+    print(f"phase 3 {name} against the earlier B1: bit-identical; us/launch in turns earlier, this, this, earlier: "
+          f"in a CUDA graph of {TIMED_CALLS} launches {gr[0]:.2f} {gr[1]:.2f} {gr[2]:.2f} {gr[3]:.2f}, from the host "
+          f"(CUDA events) {ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f}; device us (torch.profiler) earlier "
+          + (f"{dev_old:.2f} this {dev_new:.2f}" if dev_old and dev_new else "not measured"), flush=True)
+
+
+def phase3(dev, parent_src=None):
+    """B1 against its plain version at FWD_CASES: the largest error at widths
+    up to 64 and above, and per case (ms through the wrapper, plain ms, the C
+    function's device us by torch.profiler and its us per launch in a CUDA
+    graph, the plain version's device us).  With parent_src (an earlier
+    fused_fields.cu), also against_parent_fwd at every case of width <= 64."""
+    from hpvpinns_tpu_torch.models.mlp import MLP
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        FWD_RESIDENT_WIDTH,
+        fields_flat,
+        fields_flat_reference,
+        fused_fields_kernel,
+        fwd_plan,
+    )
+
+    parent = load_parent_fwd(parent_src) if parent_src else None
+    rng = np.random.default_rng(0)
+    max_err, wide_err, times = 0.0, 0.0, {}
+    for name, layers, act, P, nd, second in FWD_CASES:
+        spec = MLP(layers=layers, activation=act)
+        params = random_net(spec, rng, dev)
+        X = torch.as_tensor(rng.uniform(-1.0, 1.0, (P, layers[0])), dtype=torch.float32, device=dev)
+        wide = max(layers) > FWD_RESIDENT_WIDTH
+        with torch.no_grad():
+            got = fused_fields_kernel(spec, params, X, nd, second)
+            want = fields_flat_reference(spec, params, X, nd, second)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} fields", got, want, **(WIDE_FIELD_TOL if wide else FIELD_TOL))
+        if wide:
+            wide_err = max(wide_err, err)
+        else:
+            max_err = max(max_err, err)
+        # the plan against the kernel's own arithmetic
+        plan = fwd_plan(layers, nd, second, P)
+        widths = np.asarray(layers, dtype=np.int32)
+        c_smem = fused_fields_kernel.load().lib.hp_fused_fields_smem_bytes(
+            widths.ctypes.data, len(layers) - 1, nd, int(second), int(plan.staged), plan.block_points, plan.k_tile)
+        if c_smem != plan.smem_bytes or plan.staged != wide or plan.n_blocks != -(-P // plan.block_points):
+            fail(f"{name}: fwd_plan {plan} disagrees with the kernel ({c_smem} B) or with the width")
+        line = (f"phase 3 {name}: layers {layers} {act} P={P} n_dirs={nd} second={second} "
+                f"{'staged' if plan.staged else 'resident'} {plan.block_points} points x {plan.groups} groups, "
+                f"{plan.n_blocks} blocks, smem {plan.smem_bytes} B; max_abs_err {err:.3e}")
+        if not wide:  # the staged form adds in the same order: bit for bit
+            with torch.no_grad():
+                forced = fused_fields_kernel(spec, params, X, nd, second, plan=fwd_plan(layers, nd, second, P, staged=True))
+            torch.cuda.synchronize()
+            if not torch.equal(forced, got):
+                fail(f"{name}: the staged form differs from the resident form")
+            line += ", staged form bit-identical"
+        if not second:
+            g = torch.as_tensor(rng.standard_normal(got.shape), dtype=torch.float32, device=dev)
+            leaves = [t for layer in params for t in (layer["W"], layer["b"])]
+            gk = torch.autograd.grad((fields_flat(spec, params, X, nd, False) * g).sum(), leaves)
+            gr = torch.autograd.grad((fields_flat_reference(spec, params, X, nd, False) * g).sum(), leaves)
+            tol = WIDE_GRAD_TOL if wide else GRAD_TOL
+            gerr = max(check_close(f"{name} grad {i}", a, b, **tol) for i, (a, b) in enumerate(zip(gk, gr)))
+            line += f", grad max_abs_err {gerr:.3e}"
+        with torch.no_grad():
+            kernel = lambda: fused_fields_kernel(spec, params, X, nd, second)
+            plain = lambda: fields_flat_reference(spec, params, X, nd, second)
+
+            def prepare_c():
+                (c_args, *c_keep), _ = fused_fields_kernel.prepare(spec, params, X, nd, second)
+                return lambda c_keep=c_keep: fused_fields_kernel.launch(*c_args)
+
+            c_fn = prepare_c()
+            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+            k_dev, p_dev, c_dev = device_us(kernel), device_us(plain), device_us(c_fn)
+            c_ev, c_graph = 1e3 * cuda_ms(c_fn), graph_us(prepare_c)
+        bound, by = bound_ms(*fwd_work(layers, P, nd, second))
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, c_dev, c_graph, p_dev)
+        line += f"; ms/call kernel {k1:.4f} {k2:.4f} plain {p1:.4f} {p2:.4f}"
+        line += "; device us/call " + (
+            f"kernel {k_dev:.2f} plain {p_dev:.2f} C function {c_dev:.2f}" if k_dev and p_dev and c_dev
+            else "not measured (no device events)"
+        ) + (f"; C-function us/launch in a CUDA graph of {TIMED_CALLS} launches {c_graph:.2f}, from the host (CUDA "
+             f"events) {c_ev:.2f}; bound {1e3 * bound:.3f} us ({by})")
+        print(line, flush=True)
+        if parent and not wide:
+            against_parent_fwd(parent, name, spec, params, X, nd, second)
+    return max_err, wide_err, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only", file=sys.stderr)
         return 1
     import hpvpinns_tpu_torch as hv
-    from hpvpinns_tpu_torch.models.mlp import MLP, init_mlp, use_ieee_fp32_matmuls
-    from hpvpinns_tpu_torch.ops.fused_fields import (
-        block_sum_kernel,
-        block_sum_reference,
-        fields_flat,
-        fields_flat_bwd_reference,
-        fields_flat_reference,
-        fused_fields_bwd,
-        fused_fields_bwd_kernel,
-        fused_fields_kernel,
-    )
+    from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
+    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, fused_fields_bwd_kernel, fused_fields_kernel
     from hpvpinns_tpu_torch.problems.base import parameters
     from hpvpinns_tpu_torch.training.trainer import make_optimizer
 
@@ -434,50 +628,12 @@ def main() -> int:
         phase7(dev, sys.argv[2] if len(sys.argv) > 2 else None)
         return 0
 
-    # 3. kernel vs plain on the card
-    cases = [  # (name, layers, activation, P, n_dirs, second)
-        ("scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2, False),
-        ("quality", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2, False),
-        ("sin_d1_second", (1, 20, 20, 20, 1), "sin", 1000, 1, True),
-        ("sin_d3_second", (3, 48, 48, 48, 1), "sin", 1003, 3, True),
-        # the second-derivative shapes that phases 8-10 train on
-        ("p1d_record", (1, 20, 20, 20, 20, 1), "sin", 80, 1, True),
-        ("p1d_quality", (1, 30, 30, 30, 1), "sin", 240, 1, True),
-        ("p2d_scaled_second", (2, 20, 20, 20, 1), "tanh", 16384, 2, True),
-        ("p2d_quality_second", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2, True),
-    ]
-    rng = np.random.default_rng(0)
-    max_err = 0.0
-    times = {}
-    for name, layers, act, P, nd, second in cases:
-        spec = MLP(layers=layers, activation=act)
-        params = init_mlp(spec, torch.Generator().manual_seed(1), device=dev)
-        X = torch.as_tensor(rng.uniform(-1.0, 1.0, (P, layers[0])), dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            got = fused_fields_kernel(spec, params, X, nd, second)
-            want = fields_flat_reference(spec, params, X, nd, second)
-        torch.cuda.synchronize()
-        err = check_close(f"{name} fields", got, want, **FIELD_TOL)
-        max_err = max(max_err, err)
-        line = f"phase 3 {name}: layers {layers} {act} P={P} n_dirs={nd} second={second} max_abs_err {err:.3e}"
-        if not second:
-            g = torch.as_tensor(rng.standard_normal(got.shape), dtype=torch.float32, device=dev)
-            leaves = [t for layer in params for t in (layer["W"], layer["b"])]
-            gk = torch.autograd.grad((fields_flat(spec, params, X, nd, False) * g).sum(), leaves)
-            gr = torch.autograd.grad((fields_flat_reference(spec, params, X, nd, False) * g).sum(), leaves)
-            gerr = max(check_close(f"{name} grad {i}", a, b, **GRAD_TOL) for i, (a, b) in enumerate(zip(gk, gr)))
-            line += f", grad max_abs_err {gerr:.3e}"
-        with torch.no_grad():
-            kernel = lambda: fused_fields_kernel(spec, params, X, nd, second)
-            plain = lambda: fields_flat_reference(spec, params, X, nd, second)
-            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-            k_dev, p_dev = device_us(kernel), device_us(plain)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        line += f"; ms/call kernel {k1:.4f} {k2:.4f} plain {p1:.4f} {p2:.4f}"
-        line += "; device us/call " + (
-            f"kernel {k_dev:.2f} plain {p_dev:.2f}" if k_dev and p_dev else "not measured (no device events)"
-        )
-        print(line, flush=True)
+    if sys.argv[1:2] == ["--fwd-only"]:  # for work on B1: phases 1, 2 and 3 only, no summary
+        phase3(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+
+    # 3. B1 vs plain on the card
+    max_err, wide_err, times = phase3(dev)
 
     # 4. the same loss both ways
     cfg = hv.poisson2d_scaled()
@@ -612,7 +768,42 @@ def main() -> int:
                 flush=True,
             )
 
-    ms, plain_ms = times["scaled"]
+    # 11. the wide path: poisson2d_scaled with the 3 x 256 network, on the staged form of B1
+    wcfg = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1))
+    wprobs = {m: hv.build(dataclasses.replace(wcfg, deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
+    wparams = wprobs["taylor"].init_params(torch.Generator().manual_seed(wcfg.train.seed))
+    wleaves = [t for layer in wparams["net"] for t in (layer["W"], layer["b"])]
+    lt, _ = wprobs["taylor"].loss_fn(wparams, wprobs["taylor"].data)
+    lp, _ = wprobs["pallas"].loss_fn(wparams, wprobs["pallas"].data)
+    check_close("wide loss pallas vs taylor", lp.detach(), lt.detach(), rtol=1e-5, atol=0.0)
+    gt = torch.autograd.grad(lt, wleaves)
+    gp = torch.autograd.grad(lp, wleaves)
+    gerr = max(check_close(f"wide loss grad {i}", a, b, rtol=1e-3, atol=1e-4) for i, (a, b) in enumerate(zip(gp, gt)))
+    wtc = dataclasses.replace(wcfg.train, iterations=50, check_every=10, lbfgs_iterations=0, threshold=None)
+    wsps = {"taylor": [], "pallas": []}
+    for turn, mode in enumerate(("taylor", "pallas", "pallas", "taylor")):
+        fused_fields_kernel.launches = 0
+        rw = hv.train(wprobs[mode], cfg=wtc, verbose=False)
+        wsps[mode].append(rw.steps_per_sec)
+        if turn == 1:
+            wide_launches = fused_fields_kernel.launches
+            paths["poisson2d_scaled 3 x 256"] = {"fused_fields": wide_launches}
+            hw = rw.history["loss"]
+            if not np.all(np.isfinite(hw)) or not hw[-1] < hw[0]:
+                fail(f"poisson2d_scaled 3 x 256 loss did not fall: {hw[[0, -1]].tolist()}")
+            if wide_launches < wtc.iterations:
+                fail(f"poisson2d_scaled 3 x 256: B1 launched {wide_launches} times in {wtc.iterations} steps")
+    print(
+        f"phase 11 poisson2d_scaled layers {wcfg.layers}: loss taylor {lt.item():.6e} pallas {lp.item():.6e}, grad "
+        f"max_abs_err {gerr:.3e}; 50 Adam steps under pallas: loss {hw[0]:.6e} -> {hw[-1]:.6e}, B1 launches "
+        f"{wide_launches}; steps/s (50 steps per turn, turns t p p t) taylor {wsps['taylor'][0]!r} {wsps['taylor'][1]!r} "
+        f"pallas {wsps['pallas'][0]!r} {wsps['pallas'][1]!r}",
+        flush=True,
+    )
+
+    ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
+    wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
+    wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
     ms7, pshape, dev7, ev7 = bwd_times["p2d_scaled"]
     b1_bound = bound_ms(*fwd_work((2, 20, 20, 20, 1), 16384, 2, False))
     b2_bound = bound_ms(*bwd_work((2, 20, 20, 20, 1), 16384, 2))
@@ -621,7 +812,10 @@ def main() -> int:
         {"name": "fused_fields", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:48", "launches": launches, "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None,
-         "shape": "poisson2d_scaled firsts, P 16384"},
+         "shape": "poisson2d_scaled firsts, P 16384", "device_us": c_dev, "c_function_graph_us": c_graph,
+         "wide": {"shape": "(2, 256, 256, 256, 1) firsts, P 16384, the staged form", "max_abs_err": wide_err,
+                  "ms": wide_ms, "plain_ms": wide_plain_ms, "bound_ms": wide_bound[0], "bound_by": wide_bound[1],
+                  "device_us": wide_c_dev, "c_function_graph_us": wide_c_graph, "plain_device_us": wide_plain_dev}},
         {"name": "fused_fields_bwd", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259", "launches": counts["fused_fields_bwd"],
          "max_abs_err": bwd_err, "ms": ms7["b2"], "plain_ms": ms7["plain"], "bound_ms": b2_bound[0],

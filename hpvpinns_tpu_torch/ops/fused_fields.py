@@ -7,8 +7,10 @@ seconds...).  Its forward is the hand-written CUDA kernel
 csrc/fused_fields.cu on a CUDA tensor, and the plain PyTorch version
 `fields_flat_reference` on a CPU tensor; on a CUDA tensor the kernel
 launches or the call raises, it never falls back.  The kernels take float32,
-sin/tanh, a scalar output, n_dirs 1-3, layer widths up to MAX_WIDTH = 64 and
-up to MAX_LAYERS = 16 layers, and raise above them.
+sin/tanh, a scalar output, n_dirs 1-3 and up to MAX_LAYERS = 16 layers; B1
+takes layer widths up to FWD_MAX_WIDTH = 256, B2 up to MAX_WIDTH = 64 (its
+stash), and each raises above its own.  B1's launch shape comes from
+`fwd_plan`, B2's from `bwd_plan`: functions of the shapes alone.
 
 The gradient: for second=False it is autograd through the plain Taylor
 propagation (ops/taylor.py::mlp_fields), which is what the JAX package does
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -33,9 +36,11 @@ from hpvpinns_tpu_torch.models.mlp import MLP
 from hpvpinns_tpu_torch.ops.cuda_build import CSRC_DIR, BuiltLibrary, build_library
 from hpvpinns_tpu_torch.ops.taylor import mlp_fields
 
-# Must equal kMaxWidth / kMaxLayers in csrc/fused_fields.cu (the kernel
-# rejects wider or deeper networks too).
+# Must equal kMaxWidth / kMaxLayers in csrc/fused_fields_bwd.cu (B2) and, for
+# FWD_MAX_WIDTH, kMaxWidth in csrc/fused_fields.cu (B1); the kernels reject
+# wider or deeper networks too.
 MAX_WIDTH = 64
+FWD_MAX_WIDTH = 256
 MAX_LAYERS = 16
 _ACTIVATION_CODE = {"tanh": 0, "sin": 1}
 
@@ -61,18 +66,19 @@ def pack_params(spec: MLP, params):
     return packed.contiguous(), np.asarray(spec.layers, dtype=np.int32)
 
 
-def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int) -> None:
-    """Raise on anything the kernel does not take: widths above MAX_WIDTH,
-    more than MAX_LAYERS layers, a non-scalar output, activations other than
-    sin/tanh, or X / params that are not contiguous float32 on one CUDA
+def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int, max_width: int = MAX_WIDTH) -> None:
+    """Raise on anything a kernel does not take: widths above max_width (the
+    limit of the kernel that is served), more than MAX_LAYERS layers, a
+    non-scalar output, activations other than sin/tanh, X that is not
+    contiguous float32 on a CUDA device, or params of another type, shape or
     device."""
     if spec.activation not in _ACTIVATION_CODE:
         raise ValueError(f"fused_fields kernel supports sin/tanh; got {spec.activation!r}")
     if spec.layers[-1] != 1:
         raise ValueError(f"fused_fields kernel needs a scalar output; got layers {spec.layers}")
-    if max(spec.layers) > MAX_WIDTH or spec.n_layers > MAX_LAYERS:
+    if max(spec.layers) > max_width or spec.n_layers > MAX_LAYERS:
         raise ValueError(
-            f"fused_fields kernel supports widths <= {MAX_WIDTH} and <= {MAX_LAYERS} "
+            f"fused_fields kernel supports widths <= {max_width} and <= {MAX_LAYERS} "
             f"layers; got {spec.layers}"
         )
     if not 1 <= n_dirs <= min(3, spec.layers[0]):
@@ -95,12 +101,13 @@ class CudaLibrary:
     """A library csrc/<name>.cu behind a ctypes handle, built with nvcc at
     first use.  `signatures` maps each exported function to its ctypes
     argument types (each returns an int: a launch returns a CUDA error
-    code); every library also
-    exports hp_<name>_smem_bytes/_smem_limit/_max_width/_max_layers, and its
-    limits must equal MAX_WIDTH / MAX_LAYERS."""
+    code); every library also exports hp_<name>_smem_bytes (its argument
+    types are `smem_bytes_args`), _smem_limit, _max_width and _max_layers,
+    and its limits must equal `max_width` / MAX_LAYERS."""
 
-    def __init__(self, name: str, signatures: dict):
-        self.name, self._signatures = name, signatures
+    def __init__(self, name: str, signatures: dict, smem_bytes_args: list, max_width: int):
+        self.name, self._signatures, self._smem_bytes_args = name, signatures, smem_bytes_args
+        self.max_width = max_width
         self.built: BuiltLibrary | None = None
         self._smem_limit = {}
 
@@ -110,29 +117,32 @@ class CudaLibrary:
             lib, i32, pre = built.lib, ctypes.c_int, f"hp_{self.name}"
             signatures = {
                 **{fn: (args, i32) for fn, args in self._signatures.items()},
-                f"{pre}_smem_bytes": ([i32] * 4, ctypes.c_longlong),
+                f"{pre}_smem_bytes": (self._smem_bytes_args, ctypes.c_longlong),
                 f"{pre}_smem_limit": ([i32], i32),
                 f"{pre}_max_width": ([], i32),
                 f"{pre}_max_layers": ([], i32),
             }
             for fn, (argtypes, restype) in signatures.items():
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
-            if (getattr(lib, f"{pre}_max_width")(), getattr(lib, f"{pre}_max_layers")()) != (MAX_WIDTH, MAX_LAYERS):
-                raise RuntimeError(f"csrc/{self.name}.cu limits disagree with MAX_WIDTH/MAX_LAYERS")
+            if (getattr(lib, f"{pre}_max_width")(), getattr(lib, f"{pre}_max_layers")()) != (self.max_width, MAX_LAYERS):
+                raise RuntimeError(f"csrc/{self.name}.cu limits disagree with {self.max_width} / MAX_LAYERS")
             self.built = built
         return self.built
+
+    def smem_limit(self, dev: int) -> int:
+        """The most shared memory one block may opt in to on device `dev`."""
+        if dev not in self._smem_limit:
+            self._smem_limit[dev] = getattr(self.load().lib, f"hp_{self.name}_smem_limit")(dev)
+        return self._smem_limit[dev]
 
     def check_smem(self, dev: int, smem_args, what: str) -> None:
         """Raise unless the kernel's shared memory for `smem_args` fits the
         card's per-block limit."""
-        lib = self.load().lib
-        smem = getattr(lib, f"hp_{self.name}_smem_bytes")(*smem_args)
-        if dev not in self._smem_limit:
-            self._smem_limit[dev] = getattr(lib, f"hp_{self.name}_smem_limit")(dev)
-        if smem > self._smem_limit[dev]:
+        smem = getattr(self.load().lib, f"hp_{self.name}_smem_bytes")(*smem_args)
+        if smem > self.smem_limit(dev):
             raise ValueError(
                 f"{self.name} kernel needs {smem} B of shared memory for {what}; "
-                f"the card allows {self._smem_limit[dev]} B per block"
+                f"the card allows {self.smem_limit(dev)} B per block"
             )
 
 
@@ -158,37 +168,201 @@ def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_LIBRARY = CudaLibrary(
-    "fused_fields", {"hp_fused_fields_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _I32, _VP]}
+    "fused_fields",
+    {
+        "hp_fused_fields_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I64, _VP, _I32, _VP],
+        "hp_fused_fields_staged_points": [],
+        "hp_fused_fields_staged_groups": [],
+    },
+    [_VP, _I32, _I32, _I32, _I32, _I32, _I32], FWD_MAX_WIDTH,
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
     "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_block_points": [],
     "hp_fused_fields_bwd_point_stride": [],
-})
+}, [_I32] * 4, MAX_WIDTH)
+
+
+# B1's launch shape.  FWD_STAGED_POINTS / FWD_STAGED_GROUPS / FWD_TILE must
+# equal kStagedPoints / kStagedGroups / kJT in csrc/fused_fields.cu (the
+# wrapper checks the first two after the build, the C function the plan).
+FWD_TILE = 4  # consecutive output neurons per thread: a row of W is padded to it in shared memory
+FWD_MAX_THREADS = 256
+FWD_RESIDENT_WIDTH = 64  # the resident form's widest layer
+FWD_MIN_BLOCKS = 256  # points per block shrink until the grid has this many blocks: about two per SM of an H100
+FWD_BLOCK_POINTS = (32, 16, 8)
+FWD_STAGED_POINTS = 16
+FWD_STAGED_GROUPS = 16
+FWD_K_TILES = (32, 16, 8)  # input rows of W per shared-memory tile in the staged form, largest first
+# An H100, against which the plans are chosen: its SMs, the staged blocks an
+# SM's registers hold (the lightest staged instantiations take 64-80 a
+# thread), an SM's shared memory, what one block may opt in to, and what the
+# card keeps back per block.
+FWD_SMS = 132
+FWD_STAGED_BLOCKS_PER_SM = 3
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """B1's launch shape for a network, a stream count and P points: the form
+    (staged or resident), block_points points x groups neuron-tile groups per
+    block, k_tile rows of W per tile (staged; else 0), n_blocks blocks and
+    the shared memory one block needs."""
+
+    staged: bool
+    block_points: int
+    groups: int
+    k_tile: int
+    n_blocks: int
+    smem_bytes: int
+
+
+def _padded(n: int) -> int:
+    return -(-n // FWD_TILE) * FWD_TILE
+
+
+def fwd_smem_bytes(layers, n_dirs: int, second: bool, staged: bool, block_points: int, k_tile: int = 0) -> int:
+    """Shared memory of one B1 block (hp_fused_fields_smem_bytes).  Resident:
+    every W at a row pitch padded to FWD_TILE with its b, and two stream
+    buffers of S x widest input x block_points floats.  Staged: one stream
+    buffer of FWD_STAGED_POINTS points, two W tiles of k_tile rows at the
+    widest padded pitch, every padded b and the output layer's weights."""
+    S = 1 + n_dirs * (2 if second else 1)
+    max_w = max(layers[:-1])
+    if not staged:
+        n_net = sum((a + 1) * _padded(b) for a, b in zip(layers[:-1], layers[1:]))
+        return 4 * (n_net + 2 * S * max_w * block_points)
+    small = _padded(layers[-2]) + sum(_padded(b) for b in layers[1:])
+    return 4 * (S * max_w * FWD_STAGED_POINTS + 2 * k_tile * max(_padded(b) for b in layers[1:]) + small)
+
+
+def _staged_k_tile(layers, n_dirs: int, second: bool, n_blocks: int) -> int:
+    """Rows of W per tile in the staged form.  With at most a block per SM
+    the largest tile (fewest barriers); with more, the largest tile that
+    still lets the most blocks share an SM's shared memory: at widths near
+    256 the blocks per SM, not the tile, set the time on an H100."""
+    if n_blocks <= FWD_SMS:
+        return FWD_K_TILES[0]
+
+    def blocks_per_sm(k_tile):
+        return min(FWD_STAGED_BLOCKS_PER_SM, SMEM_PER_SM // (
+            fwd_smem_bytes(layers, n_dirs, second, True, FWD_STAGED_POINTS, k_tile) + SMEM_RESERVED_PER_BLOCK))
+
+    return max(FWD_K_TILES, key=lambda k_tile: (blocks_per_sm(k_tile), k_tile))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(layers: tuple, n_dirs: int, second: bool, P: int, staged: bool | None = None,
+             block_points: int | None = None, k_tile: int | None = None) -> FwdPlan:
+    """B1's plan, from the shapes alone (so it does not depend on the card).
+
+    The resident form where no layer is wider than FWD_RESIDENT_WIDTH and the
+    network fits beside its stream buffers, else the staged form (`staged`,
+    `block_points` and `k_tile` force each: for tests and sweeps).  Resident: the
+    most points per block of FWD_BLOCK_POINTS that still gives
+    FWD_MIN_BLOCKS blocks (else the fewest), and as many neuron-tile groups
+    as the widest hidden layer has tiles, halved (thirded, ...) until the
+    block has at most FWD_MAX_THREADS threads, so that every group has a
+    tile in every round of that layer.  Staged: FWD_STAGED_POINTS points x
+    FWD_STAGED_GROUPS groups, and the tile rows of _staged_k_tile."""
+    if staged is None:
+        staged = max(layers) > FWD_RESIDENT_WIDTH or fwd_smem_bytes(
+            layers, n_dirs, second, False, block_points or FWD_BLOCK_POINTS[-1]) > SMEM_PER_BLOCK
+    if staged:
+        if block_points not in (None, FWD_STAGED_POINTS):
+            raise ValueError(f"the staged form takes {FWD_STAGED_POINTS} points per block; got {block_points}")
+        points, groups = FWD_STAGED_POINTS, FWD_STAGED_GROUPS
+        k_tile = k_tile or _staged_k_tile(layers, n_dirs, second, -(-P // points))
+    else:
+        fits = [n for n in FWD_BLOCK_POINTS if fwd_smem_bytes(layers, n_dirs, second, False, n) <= SMEM_PER_BLOCK]
+        points = block_points or next((n for n in fits if -(-P // n) >= FWD_MIN_BLOCKS), fits[-1] if fits else FWD_BLOCK_POINTS[-1])
+        tiles = max(_padded(b) for b in layers[1:]) // FWD_TILE
+        rounds = -(-tiles // (FWD_MAX_THREADS // points))
+        groups, k_tile = -(-tiles // rounds), 0
+    return FwdPlan(staged, points, groups, k_tile, -(-P // points),
+                   fwd_smem_bytes(layers, n_dirs, second, staged, points, k_tile))
+
+
+class LayerPointers(ctypes.Structure):
+    """The kernel's table of the layers (LayerPtrs in csrc/fused_fields.cu):
+    the device pointers of W_0.. and of b_0.., null beyond the last layer."""
+
+    _fields_ = [("W", ctypes.c_void_p * MAX_LAYERS), ("b", ctypes.c_void_p * MAX_LAYERS)]
+
+
+def layer_pointers(spec: MLP, params, device: torch.device) -> LayerPointers:
+    """Check every layer in one pass (contiguous float32 W [in, out] and b
+    [out] on `device`) and return the table of their pointers: B1 reads the
+    layers where they lie."""
+    layers = spec.layers
+    if len(params) != len(layers) - 1 or len(params) > MAX_LAYERS:
+        raise ValueError(f"expected {len(layers) - 1} layers (at most {MAX_LAYERS}); got {len(params)}")
+    table = LayerPointers()
+    for l, layer in enumerate(params):
+        W, b = layer["W"], layer["b"]
+        if not (W.dtype == b.dtype == torch.float32 and W.device == b.device == device
+                and W.shape == (layers[l], layers[l + 1]) and b.shape == (layers[l + 1],)
+                and W.is_contiguous() and b.is_contiguous()):
+            raise ValueError(
+                f"layer {l}: expected contiguous float32 W {(layers[l], layers[l + 1])} and b {(layers[l + 1],)} on "
+                f"{device}; got W {W.dtype} {tuple(W.shape)} on {W.device} (contiguous: {W.is_contiguous()}), "
+                f"b {b.dtype} {tuple(b.shape)} on {b.device} (contiguous: {b.is_contiguous()})"
+            )
+        table.W[l], table.b[l] = W.data_ptr(), b.data_ptr()
+    return table
+
+
+@functools.lru_cache(maxsize=256)
+def _widths_array(layers: tuple) -> np.ndarray:
+    return np.asarray(layers, dtype=np.int32)
 
 
 class FusedFieldsKernel(KernelWrapper):
-    """B1, the CUDA kernel csrc/fused_fields.cu, built at first use."""
+    """B1, the CUDA kernels of csrc/fused_fields.cu (the resident and the
+    staged form), built at first use."""
 
-    def __call__(self, spec: MLP, params, X: torch.Tensor, n_dirs: int, second: bool) -> torch.Tensor:
-        check_kernel_args(spec, params, X, n_dirs)
-        packed, widths = pack_params(spec, params)
-        dev = _device_index(X)
-        self.library.check_smem(
-            dev, (packed.numel(), max(spec.layers[:-1]), n_dirs, int(second)), f"layers {spec.layers}"
-        )
+    def load(self) -> BuiltLibrary:
+        built = self.library.load()
+        lib = built.lib
+        if (lib.hp_fused_fields_staged_points(), lib.hp_fused_fields_staged_groups()) != (
+            FWD_STAGED_POINTS, FWD_STAGED_GROUPS
+        ):
+            raise RuntimeError("csrc/fused_fields.cu disagrees with FWD_STAGED_POINTS/FWD_STAGED_GROUPS")
+        return built
+
+    def prepare(self, spec: MLP, params, X: torch.Tensor, n_dirs: int, second: bool, plan: FwdPlan | None = None):
+        """Check the arguments, plan the launch (`plan` forces one: for tests
+        and sweeps) and allocate the output: (the C function's arguments and
+        what they point into, out)."""
+        check_kernel_args(spec, (), X, n_dirs, FWD_MAX_WIDTH)
+        table = layer_pointers(spec, params, X.device)
         P = X.shape[0]
+        plan = plan or fwd_plan(spec.layers, n_dirs, bool(second), P)
+        dev = _device_index(X)
+        if plan.smem_bytes > self.library.smem_limit(dev):
+            raise ValueError(
+                f"fused_fields kernel needs {plan.smem_bytes} B of shared memory for layers {spec.layers}; "
+                f"the card allows {self.library.smem_limit(dev)} B per block"
+            )
         out = torch.empty((P, 1 + n_dirs * (2 if second else 1)), dtype=torch.float32, device=X.device)
-        if P == 0:
-            return out
-        self.launch(
-            X.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P, n_dirs,
-            int(second), _ACTIVATION_CODE[spec.activation], out.data_ptr(), dev,
-            torch.cuda.current_stream(X.device).cuda_stream,
+        widths = _widths_array(spec.layers)
+        args = (
+            X.data_ptr(), ctypes.addressof(table), widths.ctypes.data, spec.n_layers, P, n_dirs, int(second),
+            _ACTIVATION_CODE[spec.activation], int(plan.staged), plan.block_points, plan.groups, plan.k_tile,
+            plan.smem_bytes, out.data_ptr(), dev, torch.cuda.current_stream(X.device).cuda_stream,
         )
+        return (args, table, widths), out
+
+    def __call__(self, spec: MLP, params, X: torch.Tensor, n_dirs: int, second: bool, plan: FwdPlan | None = None) -> torch.Tensor:
+        (args, *_keep), out = self.prepare(spec, params, X, n_dirs, second, plan)
+        if X.shape[0]:
+            self.launch(*args)
         return out
 
 
