@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE]]
+    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -30,11 +30,21 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      takes longer to launch B1 than the card to run it);
   4. builds poisson2d_scaled twice, deriv_mode "taylor" and "pallas", and
      checks the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) agree;
-  5. trains poisson2d_scaled under deriv_mode "pallas" for 200 Adam steps
-     (the main path): the loss must be finite and fall, and the kernel must
-     have launched at least 200 times;
-  6. trains poisson2d_quality (Adam only) for 500 steps and prints the loss
-     and the rel-L2 error on the 201 x 201 test grid;
+  5. the main path, the trainer's Adam chunk as CUDA graphs: at
+     poisson2d_scaled var_form 1 and 0 and poisson1d_of_record under
+     "pallas", one chunk of check_every steps captured (_build_chunk) and
+     eager (_build_stepwise_chunk) from the same params with the same
+     capturable Adam must agree bit for bit (else within 1e-6 relative,
+     printed), and the path's kernels must be nodes of the captured step
+     (B1; B2 and the block sum where second derivatives run), counted by
+     name in the graph's DOT dump; then poisson2d_scaled trains 200 steps
+     through `train` (the loss must fall; the wrappers count their host
+     launches, the warm-up and capture, since the steps replay the graph);
+  6. trains poisson2d_quality ("taylor" and "pallas") and poisson1d_quality
+     ("pallas") at their full schedules, Adam then L-BFGS, and prints the
+     rel-L2 error against its target, the final loss, each phase's wall
+     seconds and the L-BFGS closure evaluations per iteration; the L-BFGS
+     loss must not rise from one record to the next;
   7. holds B2 + block sum against its plain version (autograd through the
      plain forward) at the slice's shapes: gW, gb and gX within rtol 2e-4 /
      atol 1e-5 (5e-4 / 1e-4 at width 48), two runs bit-identical, B2's
@@ -43,29 +53,38 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      the shape B2 wrote before its redesign (one row per 16 points,
      n_params wide); times B2, the block sum, both together and the plain
      version as phase 3 does, and B2 and the block sum alone by CUDA events
-     over 50 launches of their C functions, arguments prepared once;
+     over 50 launches of their C functions, arguments prepared once; and
+     the block sum on two streams at once (each launch has its own tickets)
+     bit for bit against one stream;
   8. checks the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under
      "taylor" and "pallas" for poisson1d_of_record forms 1/2/3 and
      poisson2d_quality forms 0 and "2c";
   9. trains poisson1d_of_record under "pallas" for its 1,001 Adam steps (the
      second slice's main path): the loss must fall, B1, B2 and the block sum
-     must each launch at least 1,001 times, and the rel-L2 error must be
-     within 20% of the JAX package's f32 row, 0.2539;
- 10. profiles one eager training step under "taylor" and "pallas" at
-     poisson1d_of_record, poisson2d_scaled var_form 0 and var_form 1:
-     steps/s of 200 Adam steps in turns "taylor", "pallas", "pallas",
-     "taylor"; the median forward, backward and Adam ms of 50 steps, each
-     part followed by a device sync; and, from torch.profiler over 20 steps,
-     the kernels' device µs, kernel launches, busy share and five largest
-     kernels per step.  On poisson2d_scaled var_form 0 under "pallas" the
-     loss must fall and B1, B2 and the block sum must each launch at least
-     200 times;
+     must each launch (the warm-up and capture of the graphs the steps
+     replay), and the rel-L2 error must be within 20% of the JAX package's
+     f32 row, 0.2539;
+ 10. profiles the step under "taylor" and "pallas" at poisson1d_of_record,
+     poisson2d_scaled var_form 0 and var_form 1: steps/s of 200 Adam steps
+     a turn, in chunks of 10, in turns eager, graph, graph, eager; the
+     captured step's nodes; its device µs per step and busy share
+     (torch.profiler over 20 replayed steps); and for the eager step the
+     median forward, backward and Adam ms of 50 steps, each part followed
+     by a device sync, and from torch.profiler over 20 steps the kernels'
+     device µs, kernel launches, busy share and five largest kernels.  On
+     poisson2d_scaled var_form 0 under "pallas" B1, B2 and the block sum
+     must be in the captured step;
  11. builds poisson2d_scaled with the (2, 256, 256, 256, 1) network, checks
      the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under "taylor"
-     and "pallas", and trains 50 Adam steps a turn in turns "taylor",
-     "pallas", "pallas", "taylor": under "pallas" the loss must fall and B1
-     (its staged form) must launch at least 50 times.
+     and "pallas", trains it 50 steps through `train` under "pallas" (the
+     loss must fall; B1's staged form must be in the captured step), and
+     times 50 Adam steps a turn in turns eager, graph, graph, eager under
+     both modes.
 
+With --quality SEED... it runs phases 1 and 2, then phase 6's
+poisson2d_quality under "taylor" and "pallas" once for each seed given in
+place of the preset's (the spread of rel-L2 over seeds), and prints no
+summary.
 With --fwd-only it runs phases 1, 2 and 3 and prints no summary; given also
 the path of an earlier csrc/fused_fields.cu whose C function takes the
 network packed into one buffer (from a `git archive` of the commit before
@@ -243,6 +262,99 @@ def bound_ms(n_bytes: float, flops: float):
     over the non-tensor-core peak."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nodes
+    "fused_fields": ("fused_fields_kernel", "fused_fields_staged_kernel"),
+    "fused_fields_bwd": ("fused_fields_bwd_kernel",),
+    "block_sum": ("block_sum_kernel",),
+}
+GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
+
+
+def graph_nodes(graph, name: str) -> dict:
+    """Nodes of a CUDA graph captured in debug mode, from its DOT dump: all
+    nodes, kernel nodes, and the kernel nodes of each wrapper of
+    KERNEL_NODES."""
+    import os
+    import re
+
+    os.makedirs(GRAPH_DUMPS, exist_ok=True)
+    path = os.path.join(GRAPH_DUMPS, f"{name}.dot")
+    graph.debug_dump(path)
+    with open(path) as f:
+        # a node is defined at the start of a line; an edge line goes on with "->"
+        nodes = re.findall(r'^\s*"graph_\d+_node_\d+"\s*\[(.*?)\];?\s*$', f.read(), re.S | re.M)
+    kernels = [n for n in nodes if "KERNEL" in n]
+    out = {"nodes": len(nodes), "kernels": len(kernels)}
+    for wrapper, names in KERNEL_NODES.items():
+        out[wrapper] = sum(any(k in n for k in names) for n in kernels)
+    return out
+
+
+def zero_counts():
+    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, fused_fields_bwd_kernel, fused_fields_kernel
+
+    for k in (fused_fields_kernel, fused_fields_bwd_kernel, block_sum_kernel):
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, fused_fields_bwd_kernel, fused_fields_kernel
+
+    return {"fused_fields": fused_fields_kernel.launches, "fused_fields_bwd": fused_fields_bwd_kernel.launches,
+            "block_sum": block_sum_kernel.launches}
+
+
+def fresh_state(prob, cfg):
+    """The problem's initial params (seeded) as trainable copies, and a
+    fresh optimizer over them (capturable on the card)."""
+    from hpvpinns_tpu_torch.training.trainer import _copy_params, make_optimizer
+
+    prm = _copy_params(prob.init_params(torch.Generator().manual_seed(cfg.train.seed)), as_parameters=True)
+    return prm, make_optimizer(cfg.train, prm)
+
+
+def chunk_rates(prob, cfg, steps: int, chunk: int = 10):
+    """Adam steps/s of `steps` steps a turn, in chunks of `chunk`, each ended
+    by a device sync (utils/profiling.py::time_fn), in turns eager, graph,
+    graph, eager from the same initial params: ({"eager": [..],
+    "graph": [..]}, the last graph chunk, its params).  The capture is
+    outside the timed window, as the first chunk is in train's steps/s."""
+    from functools import partial
+
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk, _build_stepwise_chunk
+    from hpvpinns_tpu_torch.utils.profiling import time_fn
+
+    rates, last = {"eager": [], "graph": []}, None
+    for kind in ("eager", "graph", "graph", "eager"):
+        prm, opt = fresh_state(prob, cfg)
+        build = partial(_build_chunk, debug=True) if kind == "graph" else _build_stepwise_chunk
+        ch = build(prob.loss_fn, opt, prm, prob.data)
+        t = time_fn(ch, chunk, iters=steps // chunk, warmup=1)
+        rates[kind].append(chunk * t["iters_per_sec"])
+        if kind == "graph":
+            last = (ch, prm)
+    return rates, last
+
+
+def graph_profile(ch, n_chunks: int = 2, chunk: int = 10):
+    """Per Adam step of a graph chunk, from torch.profiler over n_chunks
+    chunks (replays): device µs of the kernels and the busy share (their
+    device time over the window's wall time); None where the profiler
+    records no device activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            ch(chunk)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    steps = n_chunks * chunk
+    return (total / steps, total / wall_us) if total > 0 else (None, None)
 
 
 def fwd_work(layers, P, n_dirs, second):
@@ -585,15 +697,173 @@ def phase3(dev, parent_src=None):
     return max_err, wide_err, times
 
 
+GRAPH_CASES = (  # (label, preset, var_form or None, second derivatives): chunks held against the eager ones
+    ("poisson2d_scaled var_form 1", "poisson2d_scaled", None, False),
+    ("poisson2d_scaled var_form 0", "poisson2d_scaled", 0, True),
+    ("poisson1d_of_record", "poisson1d_of_record", None, True),
+)
+
+
+def phase5(dev):
+    """The main path.  At GRAPH_CASES under "pallas": one chunk of
+    check_every Adam steps from the same params, once as CUDA graphs
+    (_build_chunk) and once eagerly (_build_stepwise_chunk), both with the
+    same capturable Adam: params and metrics bit for bit (else within 1e-6
+    relative, reported), and the path's kernels as nodes of the captured
+    step (B1 also in the metrics graph).  Then poisson2d_scaled trains 200
+    steps through `train`.  Returns (host launches by path, the captured
+    step's nodes by path)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk, _build_stepwise_chunk
+
+    nodes = {}
+    for label, preset, vf, second in GRAPH_CASES:
+        c = dataclasses.replace(getattr(hv, preset)(), deriv_mode="pallas")
+        if vf is not None:
+            c = dataclasses.replace(c, var_form=vf)
+        prob = hv.build(c, device=dev)
+        n, slug, out = c.train.check_every, label.replace(" ", "_"), {}
+        for kind in ("graph", "eager"):
+            prm, opt = fresh_state(prob, c)
+            if kind == "graph":
+                ch = _build_chunk(prob.loss_fn, opt, prm, prob.data, debug=True)
+                step_nodes = graph_nodes(ch.graphs[0], f"phase5_{slug}_step")
+                metric_nodes = graph_nodes(ch.graphs[1], f"phase5_{slug}_metrics")
+            else:
+                ch = _build_stepwise_chunk(prob.loss_fn, opt, prm, prob.data)
+            aux = ch(n)
+            torch.cuda.synchronize()
+            out[kind] = [t.detach().clone() for t in parameters(prm)] + [aux[k].detach().clone() for k in sorted(aux)]
+        same = all(torch.equal(a, b) for a, b in zip(out["graph"], out["eager"]))
+        rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(out["graph"], out["eager"]))
+        if not same and not rel <= 1e-6:
+            fail(f"{label}: the graph chunk differs from the eager chunk (max rel diff {rel:.3e})")
+        need = tuple(KERNEL_NODES) if second else ("fused_fields",)
+        if min(step_nodes[k] for k in need) < 1 or metric_nodes["fused_fields"] < 1:
+            fail(f"{label}: kernels missing from the captured graphs: step {step_nodes}, metrics {metric_nodes}")
+        nodes[label] = step_nodes
+        print(f"phase 5 {label} pallas: one chunk of {n} Adam steps as CUDA graphs against the eager chunk: params and "
+              f"metrics " + ("bit-identical" if same else f"max rel diff {rel:.3e}") + f"; captured step "
+              f"{step_nodes['nodes']} nodes, {step_nodes['kernels']} kernels (B1 {step_nodes['fused_fields']}, B2 "
+              f"{step_nodes['fused_fields_bwd']}, block sum {step_nodes['block_sum']}); metrics graph "
+              f"{metric_nodes['nodes']} nodes (B1 {metric_nodes['fused_fields']})", flush=True)
+
+    cfg = dataclasses.replace(hv.poisson2d_scaled(), deriv_mode="pallas")
+    pp = hv.build(cfg, device=dev)
+    tcfg = dataclasses.replace(cfg.train, iterations=200, check_every=10)
+    zero_counts()
+    res = hv.train(pp, tcfg, verbose=False)
+    counts = read_counts()
+    loss_hist = res.history["loss"]
+    if not np.all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0]:
+        fail(f"poisson2d_scaled loss did not fall: {loss_hist.tolist()}")
+    if counts["fused_fields"] < 1:
+        fail("poisson2d_scaled: B1 did not launch")
+    u = hv.predict(pp, res.params)
+    if u.shape != (pp.test_points.shape[0], 1) or not np.all(np.isfinite(u)):
+        fail(f"prediction has shape {u.shape} or non-finite values")
+    print(
+        f"phase 5 train poisson2d_scaled pallas: {res.iterations_run} steps, loss {loss_hist[0]:.6e} -> "
+        f"{loss_hist[-1]:.6e}, {res.steps_per_sec:.1f} steps/s (host clock, chunks end in a device sync, first "
+        f"chunk excluded), B1 host launches {counts['fused_fields']} (warm-up and capture; the steps replay the graph)",
+        flush=True,
+    )
+    return {"poisson2d_scaled var_form 1": counts}, nodes
+
+
+QUALITY = (  # (label, preset, modes, target rel-L2, the JAX package's row, the kernels of its "pallas" path)
+    ("poisson2d_quality", "poisson2d_quality", ("taylor", "pallas"), 1e-3, "8.6e-4, benchmarks/ACCURACY.json:100-108",
+     ("fused_fields",)),
+    ("poisson1d_quality", "poisson1d_quality", ("pallas",), 1e-2, "4.9-6.1e-3 in f32, hpvpinns_tpu/config.py:704-710",
+     tuple(KERNEL_NODES)),
+)
+
+
+def phase6(dev, seed=None):
+    """Both quality presets at their full schedules (Adam, then L-BFGS, f32)
+    through build, train and evaluate: rel-L2 on the test grid against the
+    target, the final loss, each phase's wall seconds and the L-BFGS closure
+    evaluations per iteration.  It fails on a non-finite result, a short run
+    or an L-BFGS loss that rises from one record to the next; a missed target
+    is printed, not hidden.  `seed` replaces the presets' seed (the seeds
+    study of --quality; only poisson2d_quality then).  Returns
+    {"<preset> <mode>": {"counts", "rel_l2"}}."""
+    import hpvpinns_tpu_torch as hv
+
+    out = {}
+    for label, preset, modes, target, jax_row, kernels in QUALITY[:1] if seed is not None else QUALITY:
+        for mode in modes:
+            c = dataclasses.replace(getattr(hv, preset)(), deriv_mode=mode)
+            if seed is not None:
+                c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+            prob = hv.build(c, device=dev)
+            zero_counts()
+            res = hv.train(prob, verbose=False)
+            counts = read_counts()
+            ev = hv.evaluate_problem(prob, res.eval_params)
+            it, loss = res.history["iteration"], res.history["loss"]
+            rise = float(np.max(np.diff(loss[it >= c.train.iterations]), initial=0.0))
+            if (res.iterations_run != c.train.iterations + c.train.lbfgs_iterations or not np.all(np.isfinite(loss))
+                    or not math.isfinite(ev["rel_l2"])):
+                fail(f"{label} {mode}: {res.iterations_run} iterations, loss {loss.tolist()}, rel_l2 {ev['rel_l2']}")
+            if rise > 0:
+                fail(f"{label} {mode}: the L-BFGS loss rose by {rise:.3e} from one record to the next")
+            if mode == "pallas" and min(counts[k] for k in kernels) < 1:
+                fail(f"{label} {mode}: host launches {counts}: a kernel of the path did not launch")
+            adam, lb = res.phases["adam"], res.phases["lbfgs"]
+            out[f"{label} {mode}"] = {"counts": counts, "rel_l2": ev["rel_l2"]}
+            print(
+                f"phase 6 {label} {mode} seed {c.train.seed}: Adam {c.train.iterations} + L-BFGS "
+                f"{c.train.lbfgs_iterations} (f32, layers "
+                f"{c.layers}): rel_l2 {ev['rel_l2']:.4e} (target < {target:g}: "
+                f"{'met' if ev['rel_l2'] < target else 'MISSED'}; JAX {jax_row}); final loss {loss[-1]:.6e}; wall s "
+                f"Adam {adam['wall_s']:.2f} L-BFGS {lb['wall_s']:.2f}; L-BFGS closure evaluations per iteration "
+                f"{lb['evaluations'] / lb['iterations']:.3f}; loss non-increasing over the L-BFGS records; host "
+                f"launches {counts}",
+                flush=True,
+            )
+    ratio = out["poisson2d_quality pallas"]["rel_l2"] / out["poisson2d_quality taylor"]["rel_l2"]
+    print(f"phase 6 poisson2d_quality rel_l2 pallas / taylor {ratio:.3f} (within 1.5x: {'yes' if ratio <= 1.5 else 'NO'})",
+          flush=True)
+    return out
+
+
+def two_streams(dev):
+    """The block sum's tickets are each launch's own: the same partials
+    summed on two streams at once, 20 rounds, bit-identical to one stream,
+    at B2's p2d_scaled partials shape (8 slabs) and at 8,192 x 7,252 (128
+    slabs)."""
+    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, block_sum_plan
+
+    rng = np.random.default_rng(3)
+    for rows, n in ((512, 924), (8192, 7252)):
+        partials = torch.as_tensor(rng.standard_normal((rows, n)), dtype=torch.float32, device=dev)
+        want = block_sum_kernel(partials)
+        streams, outs = (torch.cuda.Stream(), torch.cuda.Stream()), []
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        for _ in range(20):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    outs.append(block_sum_kernel(partials))
+        for s in streams:
+            torch.cuda.current_stream().wait_stream(s)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, want) for o in outs):
+            fail(f"block sum of [{rows}, {n}] on two streams at once differs from one stream")
+        print(f"phase 7 block sum [{rows}, {n}] ({block_sum_plan(rows, n)[2]} slabs): 40 sums on two streams at once "
+              f"bit-identical to one stream", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only", file=sys.stderr)
         return 1
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
-    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, fused_fields_bwd_kernel, fused_fields_kernel
+    from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_bwd_kernel, fused_fields_kernel
     from hpvpinns_tpu_torch.problems.base import parameters
-    from hpvpinns_tpu_torch.training.trainer import make_optimizer
 
     dev = torch.device("cuda", 0)
     if any(name == "jax" or name.startswith(("jax.", "hpvpinns_tpu.")) or name == "hpvpinns_tpu"
@@ -628,6 +898,11 @@ def main() -> int:
         phase7(dev, sys.argv[2] if len(sys.argv) > 2 else None)
         return 0
 
+    if sys.argv[1:2] == ["--quality"]:  # the seeds study: phases 1, 2 and 6 at each seed given, no summary
+        for seed in sys.argv[2:]:
+            phase6(dev, int(seed))
+        return 0
+
     if sys.argv[1:2] == ["--fwd-only"]:  # for work on B1: phases 1, 2 and 3 only, no summary
         phase3(dev, sys.argv[2] if len(sys.argv) > 2 else None)
         return 0
@@ -649,46 +924,19 @@ def main() -> int:
     gerr = max(check_close(f"loss grad {i}", a, b, rtol=1e-3, atol=1e-4) for i, (a, b) in enumerate(zip(gp, gt)))
     print(f"phase 4 loss: taylor {lt.item():.6e} pallas {lp.item():.6e}; grad max_abs_err {gerr:.3e}", flush=True)
 
-    # 5. the main path: train poisson2d_scaled on the kernel
-    tcfg = dataclasses.replace(cfg.train, iterations=200, check_every=10)
-    fused_fields_kernel.launches = 0
-    res = hv.train(pp, cfg=tcfg, params=params, verbose=False)
-    launches = fused_fields_kernel.launches
-    paths = {"poisson2d_scaled var_form 1": {"fused_fields": launches}}
-    loss_hist = res.history["loss"]
-    if not np.all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0]:
-        fail(f"poisson2d_scaled loss did not fall: {loss_hist.tolist()}")
-    if launches < tcfg.iterations:
-        fail(f"kernel launched {launches} times in {tcfg.iterations} steps")
-    u = hv.predict(pp, res.params)
-    if u.shape != (pp.test_points.shape[0], 1) or not np.all(np.isfinite(u)):
-        fail(f"prediction has shape {u.shape} or non-finite values")
-    print(
-        f"phase 5 train poisson2d_scaled pallas: {res.iterations_run} steps, loss "
-        f"{loss_hist[0]:.6e} -> {loss_hist[-1]:.6e}, {res.steps_per_sec:.1f} steps/s "
-        f"(host clock, chunks end in a device sync, first chunk excluded), kernel launches {launches}",
-        flush=True,
-    )
+    # 5. the main path: one chunk as CUDA graphs against the eager chunk, then
+    # poisson2d_scaled trained through `train`
+    paths, nodes = phase5(dev)
 
-    # 6. poisson2d_quality, Adam only
-    qcfg = hv.poisson2d_quality()
-    qcfg = dataclasses.replace(
-        qcfg, deriv_mode="pallas",
-        train=dataclasses.replace(qcfg.train, iterations=500, lbfgs_iterations=0, check_every=100),
-    )
-    pq = hv.build(qcfg, device=dev)
-    rq = hv.train(pq, verbose=False)
-    ev = hv.evaluate_problem(pq, rq.params)
-    if not all(math.isfinite(v) for v in ev.values()):
-        fail(f"poisson2d_quality evaluation not finite: {ev}")
-    print(
-        f"phase 6 train poisson2d_quality pallas (Adam only): {rq.iterations_run} steps, loss "
-        f"{rq.history['loss'][-1]:.6e}, rel_l2 {ev['rel_l2']:.4e}, {rq.steps_per_sec:.1f} steps/s",
-        flush=True,
-    )
+    # 6. both quality presets at their full schedules (Adam, then L-BFGS)
+    quality = phase6(dev)
+    for label, q in quality.items():
+        paths[label] = q["counts"]
 
-    # 7. B2 and its block sum against the plain backward
+    # 7. B2 and its block sum against the plain backward; the block sum on two
+    # streams at once
     bwd_err, sum_err, bwd_times = phase7(dev)
+    two_streams(dev)
 
     # 8. the second-derivative losses both ways
     for base, forms in ((hv.poisson1d_of_record(), (1, 2, 3)), (hv.poisson2d_quality(), (0, "2c"))):
@@ -706,63 +954,60 @@ def main() -> int:
             print(f"phase 8 {type(c).__name__} var_form {vf}: loss taylor {lt.item():.6e} pallas {lp.item():.6e}; "
                   f"grad max_abs_err {gerr:.3e}", flush=True)
 
-    # 9. the second slice's main path: poisson1d_of_record on B1 + B2
+    # 9. the second slice's path: poisson1d_of_record on B1 + B2
     c1 = dataclasses.replace(hv.poisson1d_of_record(), deriv_mode="pallas")
     p1 = hv.build(c1, device=dev)
-    for k in (fused_fields_kernel, fused_fields_bwd_kernel, block_sum_kernel):
-        k.launches = 0
+    zero_counts()
     r1 = hv.train(p1, verbose=False)
-    counts = {"fused_fields": fused_fields_kernel.launches, "fused_fields_bwd": fused_fields_bwd_kernel.launches,
-              "block_sum": block_sum_kernel.launches}
-    paths["poisson1d_of_record"] = counts
+    counts = paths["poisson1d_of_record"] = read_counts()
     hist = r1.history["loss"]
     if r1.iterations_run != c1.train.iterations or not np.all(np.isfinite(hist)) or not hist[-1] < hist[0]:
         fail(f"poisson1d_of_record: {r1.iterations_run} steps, loss did not fall: {hist[[0, -1]].tolist()}")
-    if min(counts.values()) < c1.train.iterations:
-        fail(f"poisson1d_of_record: kernel launches {counts} in {c1.train.iterations} steps")
+    if min(counts.values()) < 1:
+        fail(f"poisson1d_of_record: kernel launches {counts}")
     ev1 = hv.evaluate_problem(p1, r1.params)
     if not abs(ev1["rel_l2"] - JAX_P1D_RECORD_REL_L2) <= 0.2 * JAX_P1D_RECORD_REL_L2:
         fail(f"poisson1d_of_record rel-L2 {ev1['rel_l2']:.4e} is not within 20% of the JAX row {JAX_P1D_RECORD_REL_L2}")
     print(
         f"phase 9 train poisson1d_of_record pallas: {r1.iterations_run} steps, loss {hist[0]:.6e} -> {hist[-1]:.6e}, "
         f"rel_l2 {ev1['rel_l2']:.4e} (JAX f32 row {JAX_P1D_RECORD_REL_L2}), {r1.steps_per_sec:.1f} steps/s, "
-        f"launches {counts}",
+        f"host launches {counts} (warm-up and capture; the steps replay the graph)",
         flush=True,
     )
 
-    # 10. one eager step under "taylor" and "pallas" at three configurations;
-    # poisson2d_scaled var_form 0 is the path that trains on B2 at n_dirs 2
+    # 10. the step at three configurations, "taylor" and "pallas": steps/s of
+    # the graph chunk against the eager one, the graph's device time and busy
+    # share, and the eager step's parts and profile
     for label, c in (
         ("poisson1d_of_record", hv.poisson1d_of_record()),
         ("poisson2d_scaled var_form 0", dataclasses.replace(hv.poisson2d_scaled(), var_form=0)),
         ("poisson2d_scaled var_form 1", hv.poisson2d_scaled()),
     ):
-        tc = dataclasses.replace(c.train, iterations=200, check_every=10, lbfgs_iterations=0, threshold=None)
-        probs = {m: hv.build(dataclasses.replace(c, deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
-        sps = {"taylor": [], "pallas": []}
-        for turn, mode in enumerate(("taylor", "pallas", "pallas", "taylor")):
-            for k in (fused_fields_kernel, fused_fields_bwd_kernel, block_sum_kernel):
-                k.launches = 0
-            r0 = hv.train(probs[mode], cfg=tc, verbose=False)
-            sps[mode].append(r0.steps_per_sec)
-            if turn == 1 and label == "poisson2d_scaled var_form 0":
-                counts0 = {"fused_fields": fused_fields_kernel.launches,
-                           "fused_fields_bwd": fused_fields_bwd_kernel.launches, "block_sum": block_sum_kernel.launches}
-                paths[label] = counts0
-                h0 = r0.history["loss"]
-                if not np.all(np.isfinite(h0)) or not h0[-1] < h0[0]:
-                    fail(f"{label} loss did not fall: {h0[[0, -1]].tolist()}")
-                if min(counts0.values()) < tc.iterations:
-                    fail(f"{label}: kernel launches {counts0} in {tc.iterations} steps")
-                print(f"phase 10 {label} pallas: loss {h0[0]:.6e} -> {h0[-1]:.6e}, launches {counts0}", flush=True)
-        for mode, prob in probs.items():
-            prm = prob.init_params(torch.Generator().manual_seed(c.train.seed))
-            opt = make_optimizer(tc, prm)
+        c = dataclasses.replace(c, train=dataclasses.replace(
+            c.train, iterations=200, check_every=10, lbfgs_iterations=0, threshold=None))
+        for mode in ("taylor", "pallas"):
+            prob = hv.build(dataclasses.replace(c, deriv_mode=mode), device=dev)
+            zero_counts()
+            rates, (gch, _) = chunk_rates(prob, c, 200)
+            counts = read_counts()
+            gn = graph_nodes(gch.graphs[0], f"phase10_{label.replace(' ', '_')}_{mode}")
+            g_us, g_busy = graph_profile(gch)
+            g_rate = (rates["graph"][0] + rates["graph"][1]) / 2
+            if mode == "pallas" and label == "poisson2d_scaled var_form 0":  # the path that trains on B2 at n_dirs 2
+                if min(counts.values()) < 1 or min(gn[k] for k in KERNEL_NODES) < 1:
+                    fail(f"{label}: host launches {counts}, graph nodes {gn}")
+            prm, opt = fresh_state(prob, c)
             fwd, bwd, adam = part_times(prob, prm, opt)
             prof = step_profile(prob, prm, opt)
+            e, g = rates["eager"], rates["graph"]
             print(
-                f"phase 10 {label} {mode}: steps/s {sps[mode][0]!r} {sps[mode][1]!r} (200 steps per turn, turns "
-                f"t p p t); fwd / bwd / Adam ms {fwd!r} / {bwd!r} / {adam!r}; device us/step "
+                f"phase 10 {label} {mode}: steps/s eager {e[0]!r} {e[1]!r} graph {g[0]!r} {g[1]!r} (200 steps a "
+                f"turn in chunks of 10, turns e g g e; graph / eager {(g[0] + g[1]) / (e[0] + e[1]):.2f}x); graph: "
+                f"{gn['nodes']} nodes a step ({gn['kernels']} kernels; B1 {gn['fused_fields']}, B2 "
+                f"{gn['fused_fields_bwd']}, block sum {gn['block_sum']}), device us/step "
+                + (f"{g_us!r}, busy {g_busy!r} in the profiler's window, {g_us * 1e-6 * g_rate!r} as device "
+                   f"us/step x graph steps/s" if g_us else "not measured")
+                + f"; eager: fwd / bwd / Adam ms {fwd!r} / {bwd!r} / {adam!r}; device us/step "
                 f"{prof['device_us']!r}; launches/step {prof['launches']!r}; busy {prof['busy']!r}; top "
                 + "; ".join(f"{name} {us!r}" for name, us in prof["top"]),
                 flush=True,
@@ -770,6 +1015,8 @@ def main() -> int:
 
     # 11. the wide path: poisson2d_scaled with the 3 x 256 network, on the staged form of B1
     wcfg = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1))
+    wcfg = dataclasses.replace(wcfg, train=dataclasses.replace(
+        wcfg.train, iterations=50, check_every=10, lbfgs_iterations=0, threshold=None))
     wprobs = {m: hv.build(dataclasses.replace(wcfg, deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
     wparams = wprobs["taylor"].init_params(torch.Generator().manual_seed(wcfg.train.seed))
     wleaves = [t for layer in wparams["net"] for t in (layer["W"], layer["b"])]
@@ -779,25 +1026,26 @@ def main() -> int:
     gt = torch.autograd.grad(lt, wleaves)
     gp = torch.autograd.grad(lp, wleaves)
     gerr = max(check_close(f"wide loss grad {i}", a, b, rtol=1e-3, atol=1e-4) for i, (a, b) in enumerate(zip(gp, gt)))
-    wtc = dataclasses.replace(wcfg.train, iterations=50, check_every=10, lbfgs_iterations=0, threshold=None)
-    wsps = {"taylor": [], "pallas": []}
-    for turn, mode in enumerate(("taylor", "pallas", "pallas", "taylor")):
-        fused_fields_kernel.launches = 0
-        rw = hv.train(wprobs[mode], cfg=wtc, verbose=False)
-        wsps[mode].append(rw.steps_per_sec)
-        if turn == 1:
-            wide_launches = fused_fields_kernel.launches
-            paths["poisson2d_scaled 3 x 256"] = {"fused_fields": wide_launches}
-            hw = rw.history["loss"]
-            if not np.all(np.isfinite(hw)) or not hw[-1] < hw[0]:
-                fail(f"poisson2d_scaled 3 x 256 loss did not fall: {hw[[0, -1]].tolist()}")
-            if wide_launches < wtc.iterations:
-                fail(f"poisson2d_scaled 3 x 256: B1 launched {wide_launches} times in {wtc.iterations} steps")
+    zero_counts()
+    rw = hv.train(wprobs["pallas"], verbose=False)
+    wide_launches = read_counts()["fused_fields"]
+    paths["poisson2d_scaled 3 x 256"] = {"fused_fields": wide_launches}
+    hw = rw.history["loss"]
+    if not np.all(np.isfinite(hw)) or not hw[-1] < hw[0]:
+        fail(f"poisson2d_scaled 3 x 256 loss did not fall: {hw[[0, -1]].tolist()}")
+    if wide_launches < 1:
+        fail("poisson2d_scaled 3 x 256: B1 did not launch")
+    wrates = {}
+    for mode, prob in wprobs.items():
+        wrates[mode], (gch, _) = chunk_rates(prob, wcfg, 50)
+        if mode == "pallas" and graph_nodes(gch.graphs[0], "phase11_pallas")["fused_fields"] < 1:
+            fail("poisson2d_scaled 3 x 256: B1 is not in the captured step")
     print(
         f"phase 11 poisson2d_scaled layers {wcfg.layers}: loss taylor {lt.item():.6e} pallas {lp.item():.6e}, grad "
-        f"max_abs_err {gerr:.3e}; 50 Adam steps under pallas: loss {hw[0]:.6e} -> {hw[-1]:.6e}, B1 launches "
-        f"{wide_launches}; steps/s (50 steps per turn, turns t p p t) taylor {wsps['taylor'][0]!r} {wsps['taylor'][1]!r} "
-        f"pallas {wsps['pallas'][0]!r} {wsps['pallas'][1]!r}",
+        f"max_abs_err {gerr:.3e}; 50 Adam steps under pallas: loss {hw[0]:.6e} -> {hw[-1]:.6e}, B1 host launches "
+        f"{wide_launches}; steps/s (50 steps a turn, turns e g g e) "
+        + "; ".join(f"{m} eager {r['eager'][0]!r} {r['eager'][1]!r} graph {r['graph'][0]!r} {r['graph'][1]!r}"
+                    for m, r in wrates.items()),
         flush=True,
     )
 
@@ -808,33 +1056,35 @@ def main() -> int:
     b1_bound = bound_ms(*fwd_work((2, 20, 20, 20, 1), 16384, 2, False))
     b2_bound = bound_ms(*bwd_work((2, 20, 20, 20, 1), 16384, 2))
     sum_bound = bound_ms(4 * (pshape[0] * pshape[1] + pshape[1]), pshape[0] * pshape[1])
+    main_counts = paths["poisson2d_scaled var_form 1"]
     kernels = [
         {"name": "fused_fields", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields.cu",
-         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:48", "launches": launches, "max_abs_err": max_err,
+         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:48", "launches": main_counts["fused_fields"],
+         "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": b1_bound[0], "bound_by": b1_bound[1], "library_ms": None,
          "shape": "poisson2d_scaled firsts, P 16384", "device_us": c_dev, "c_function_graph_us": c_graph,
          "wide": {"shape": "(2, 256, 256, 256, 1) firsts, P 16384, the staged form", "max_abs_err": wide_err,
                   "ms": wide_ms, "plain_ms": wide_plain_ms, "bound_ms": wide_bound[0], "bound_by": wide_bound[1],
                   "device_us": wide_c_dev, "c_function_graph_us": wide_c_graph, "plain_device_us": wide_plain_dev}},
         {"name": "fused_fields_bwd", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
-         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259", "launches": counts["fused_fields_bwd"],
+         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259", "launches": paths["poisson1d_quality pallas"]["fused_fields_bwd"],
          "max_abs_err": bwd_err, "ms": ms7["b2"], "plain_ms": ms7["plain"], "bound_ms": b2_bound[0],
          "bound_by": b2_bound[1], "library_ms": None, "shape": "poisson2d_scaled second, P 16384",
          "device_us": dev7["b2"], "c_function_us": ev7["b2"]},
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
-         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": counts["block_sum"],
+         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": paths["poisson1d_quality pallas"]["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],
          "bound_by": sum_bound[1], "library_ms": ms7["torch.sum"], "shape": f"B2 partials {list(pshape)}",
          "device_us": dev7["sum"], "library_device_us": dev7["torch.sum"]},
     ]
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
+        k["graph_nodes_by_path"] = {path: n.get(k["name"], 0) for path, n in nodes.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

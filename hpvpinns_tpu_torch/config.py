@@ -2,7 +2,7 @@
 hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
-to one.  Fields whose feature is not ported yet (L-BFGS, Gauss-Newton,
+to one.  Fields whose feature is not ported yet (Gauss-Newton,
 checkpointing, hard BC, PINN scheme, matmul precision "high"/"default") are
 kept and rejected with NotImplementedError where they are used; ROADMAP.md
 lists them.
@@ -16,12 +16,13 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimization loop settings: full-batch Adam with the loss polled every
-    `check_every` iterations and an optional threshold early stop."""
+    """Optimization loop settings: full-batch Adam, then optionally L-BFGS,
+    with the loss polled every `check_every` iterations and an optional
+    threshold early stop."""
 
     learning_rate: float = 1e-3
     iterations: int = 1001
-    lbfgs_iterations: int = 0  # second-phase L-BFGS: not ported yet
+    lbfgs_iterations: int = 0  # second-phase full-batch L-BFGS
     gn_iterations: int = 0  # third-phase Gauss-Newton/LM: not ported yet
     gn_damping_init: float = 1e-3
     gn_solve: Optional[str] = None
@@ -101,9 +102,7 @@ def poisson1d_of_record() -> Poisson1DConfig:
 
 def poisson1d_quality() -> Poisson1DConfig:
     """The reference's non-uniform 3-element hp grid (Poisson-1D.py:270-273),
-    p = 30, a (1,30,30,30,1) sin net, Adam 5k + L-BFGS 5k (the L-BFGS phase
-    is not ported yet: pass a TrainConfig with lbfgs_iterations=0 to train
-    with Adam alone)."""
+    p = 30, a (1,30,30,30,1) sin net, Adam 5k + L-BFGS 5k."""
     return Poisson1DConfig(
         grid=(-1.0, -0.1, 0.1, 1.0),
         n_elements=3,
@@ -120,8 +119,7 @@ def poisson2d_of_record() -> Poisson2DConfig:
 
 def poisson2d_quality(hard_bc: bool = False) -> Poisson2DConfig:
     """(2,48x4,1) tanh net, 10x10 test functions, 16-point quadrature,
-    Adam 10k + L-BFGS 5k (the L-BFGS phase is not ported yet: pass a
-    TrainConfig with lbfgs_iterations=0 to train with Adam alone)."""
+    Adam 10k + L-BFGS 5k (hard_bc, 20k L-BFGS, is not ported yet)."""
     return Poisson2DConfig(
         layers=(2, 48, 48, 48, 48, 1),
         n_test_x=10,

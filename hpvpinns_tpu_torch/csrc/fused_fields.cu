@@ -398,6 +398,15 @@ struct Launch {
   cudaStream_t stream;
 };
 
+// Make `device` current unless it is already: a launch then makes no device
+// call it does not need (also while a CUDA graph is being captured).
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 // Opt in to more dynamic shared memory only when a launch needs more than
 // any before it (per kernel and device): the call costs host time.
 template <typename Kernel>
@@ -534,7 +543,7 @@ int hp_fused_fields_f32(const float* X, const void* layers, const int* widths, i
     return (int)cudaErrorInvalidValue;
   if (smem != smem_bytes(a, n_dirs, second)) return (int)cudaErrorInvalidValue;
   a.smem = (size_t)smem;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   switch (n_dirs * 2 + (second ? 1 : 0)) {
     case 2: return (int)launch_act<1, false>(activation, a);

@@ -77,6 +77,7 @@ constexpr int kThreads = 256;
 static_assert(kBlockPoints * 7 <= kThreads, "one thread per value of g in a tile");
 constexpr int kSumThreads = 256;    // block_sum_kernel: lanes x row groups
 constexpr int kMaxSumTiles = 4096;  // block_sum_kernel: column tiles with a ticket
+constexpr int kMaxDevices = 64;
 
 // n rounded up to a multiple of 4 floats: keeps the stream buffers that
 // follow n floats of shared memory 16-byte aligned.
@@ -514,11 +515,11 @@ fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G
 // for its column tile (atomicAdd after __threadfence); the block that draws
 // the last ticket adds the slabs, again by groups and tree, and resets the
 // ticket.  Only the integer ticket is atomic, so the float sums are in a
-// fixed order and repeat bit for bit.  The tickets start at zero and each
-// launch leaves them at zero, so launches on one device must not overlap
-// (one stream does not).  The plan (lanes, slabs) comes from
+// fixed order and repeat bit for bit.  The tickets are the launch's own (one
+// word per column tile, zeroed by the wrapper before the first launch and
+// left at zero by each), so sums in flight at once on other streams, or in
+// replayed CUDA graphs, share nothing.  The plan (lanes, slabs) comes from
 // ops/fused_fields.py::block_sum_plan.
-__device__ unsigned int g_sum_tickets[kMaxSumTiles];
 
 __device__ __forceinline__ void add_to(float4& a, const float4& b) {
   a.x += b.x;
@@ -578,7 +579,8 @@ __device__ __forceinline__ void store4(float* out, int c, int n, const float4& v
 template <bool ALIGNED>
 __global__ void __launch_bounds__(kSumThreads)
 block_sum_kernel(const float* __restrict__ partials, const int n_rows, const int n,
-                 const int rows_per_slab, float4* __restrict__ scratch, float* __restrict__ out) {
+                 const int rows_per_slab, float4* __restrict__ scratch, unsigned int* __restrict__ tickets,
+                 float* __restrict__ out) {
   __shared__ float4 part[kSumThreads];
   __shared__ bool last;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -594,14 +596,14 @@ block_sum_kernel(const float* __restrict__ partials, const int n_rows, const int
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0 && threadIdx.y == 0)
-    last = atomicAdd(&g_sum_tickets[blockIdx.x], 1u) == gridDim.y - 1;
+    last = atomicAdd(&tickets[blockIdx.x], 1u) == gridDim.y - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
   const float4 t = slab_sum<true>(reinterpret_cast<const float*>(scratch), 4 * (size_t)n4, 0, gridDim.y,
                                   4 * n4, c, part);
   if (threadIdx.y == 0 && c < n4) store4<ALIGNED>(out, c, n, t);
-  if (threadIdx.x == 0 && threadIdx.y == 0) g_sum_tickets[blockIdx.x] = 0;
+  if (threadIdx.x == 0 && threadIdx.y == 0) tickets[blockIdx.x] = 0;
 }
 
 struct BwdArgs {
@@ -613,15 +615,32 @@ struct BwdArgs {
   float* partials;
   float* gX;
   size_t smem;
+  int device;
   cudaStream_t stream;
 };
 
+// Make `device` current unless it is already: a launch then makes no device
+// call it does not need (also while a CUDA graph is being captured).
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 template <int ND, int ACT, int MINB>
 cudaError_t launch(const BwdArgs& a) {
+  // Opt in to more dynamic shared memory only when a launch needs more than
+  // any before it (per instantiation and device), as B1 does.
+  static int allowed[kMaxDevices] = {};
   auto kernel = fused_fields_bwd_kernel<ND, ACT, MINB>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (err != cudaSuccess) return err;
+  const bool known = a.device >= 0 && a.device < kMaxDevices;
+  if (!known || (int)a.smem > allowed[a.device]) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
+    if (err != cudaSuccess) return err;
+    if (known) allowed[a.device] = (int)a.smem;
+  }
   const int n_tiles = (a.P + kBlockPoints - 1) / kBlockPoints;
   const dim3 grid((n_tiles + a.tiles - 1) / a.tiles);
   kernel<<<grid, dim3(kThreads), a.smem, a.stream>>>(a.X, a.G, a.params, a.wd, a.n_params, a.max_w, a.P,
@@ -684,7 +703,7 @@ int hp_fused_fields_bwd_f32(const float* X, const float* G, const float* params,
   if (n_layers < 1 || n_layers > kMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
       activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0])
     return (int)cudaErrorInvalidValue;
-  BwdArgs a{X, G, params, Widths{}, 0, 0, P, tiles, partials, gX, 0, static_cast<cudaStream_t>(stream)};
+  BwdArgs a{X, G, params, Widths{}, 0, 0, P, tiles, partials, gX, 0, device, static_cast<cudaStream_t>(stream)};
   a.wd.n_layers = n_layers;
   for (int l = 0; l <= n_layers; ++l) {
     if (widths[l] < 1 || widths[l] > kMaxWidth) return (int)cudaErrorInvalidValue;
@@ -694,7 +713,7 @@ int hp_fused_fields_bwd_f32(const float* X, const float* G, const float* params,
       if (widths[l] > a.max_w) a.max_w = widths[l];
     }
   }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   a.smem = (size_t)hp_fused_fields_bwd_smem_bytes(a.n_params, a.max_w, n_layers, n_dirs);
   switch (n_dirs) {
@@ -710,26 +729,28 @@ int hp_fused_fields_bwd_f32(const float* X, const float* G, const float* params,
 // and stores) or not; `lanes` (a power of two from 1 to 256) lanes of four
 // columns a block; slabs of rows_per_slab rows.  scratch, 16-byte aligned,
 // holds [slabs, 4 ceil(n / 4)] floats when there is more than one slab (else
-// it may be null).  Launches on `stream`, does not synchronise, returns
+// it may be null), and tickets [ceil(ceil(n / 4) / lanes)] zeroed words (may be
+// null with one slab).  Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
 int hp_block_sum_f32(const float* partials, int n_rows, int n, int aligned, int lanes, int rows_per_slab,
-                     float* scratch, float* out, int device, void* stream) {
+                     float* scratch, unsigned int* tickets, float* out, int device, void* stream) {
   if (n_rows < 1 || n < 1 || rows_per_slab < 1 || (aligned && n % 4 != 0) || lanes < 1 ||
       lanes > kSumThreads || (lanes & (lanes - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const int n4 = (n + 3) / 4;
   const dim3 block(lanes, kSumThreads / lanes);
   const dim3 grid((n4 + lanes - 1) / lanes, (n_rows + rows_per_slab - 1) / rows_per_slab);
-  if ((grid.y > 1 && (scratch == nullptr || grid.x > (unsigned)kMaxSumTiles)) || grid.y > 65535)
+  if ((grid.y > 1 && (scratch == nullptr || tickets == nullptr || grid.x > (unsigned)kMaxSumTiles)) ||
+      grid.y > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* sc = reinterpret_cast<float4*>(scratch);
   if (aligned)
-    block_sum_kernel<true><<<grid, block, 0, s>>>(partials, n_rows, n, rows_per_slab, sc, out);
+    block_sum_kernel<true><<<grid, block, 0, s>>>(partials, n_rows, n, rows_per_slab, sc, tickets, out);
   else
-    block_sum_kernel<false><<<grid, block, 0, s>>>(partials, n_rows, n, rows_per_slab, sc, out);
+    block_sum_kernel<false><<<grid, block, 0, s>>>(partials, n_rows, n, rows_per_slab, sc, tickets, out);
   return cudaGetLastError();
 }
 

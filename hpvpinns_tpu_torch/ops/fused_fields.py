@@ -180,7 +180,7 @@ _FWD_LIBRARY = CudaLibrary(
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
-    "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
+    "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_block_points": [],
     "hp_fused_fields_bwd_point_stride": [],
 }, [_I32] * 4, MAX_WIDTH)
@@ -521,7 +521,7 @@ def block_sum_plan(n_rows: int, n: int):
     else:
         groups, rows_per_slab = 16, SUM_SLAB_ROWS
     lanes = SUM_THREADS // groups
-    if -(-n // (4 * lanes)) > SUM_MAX_TILES:  # too many column tiles for the tickets
+    if -(-n // (4 * lanes)) > SUM_MAX_TILES:  # too many column tiles to take a ticket each
         rows_per_slab = n_rows
     return lanes, rows_per_slab, max(1, -(-n_rows // rows_per_slab))
 
@@ -532,7 +532,10 @@ class BlockSumKernel(KernelWrapper):
 
     def prepare(self, partials: torch.Tensor):
         """Check `partials` and allocate the output and scratch of one launch:
-        (the C function's arguments and the tensors they point into, out)."""
+        (the C function's arguments and the tensors they point into, out).
+        With more than one slab the scratch holds the slab sums and the
+        launch's own tickets, one int32 word per column tile, zeroed here (a
+        memset on the stream, captured with the launch in a CUDA graph)."""
         if not partials.is_cuda or partials.dtype != torch.float32 or partials.dim() != 2 or not partials.is_contiguous():
             raise ValueError(
                 f"block_sum kernel takes a contiguous float32 [rows, n] CUDA tensor; got "
@@ -542,13 +545,16 @@ class BlockSumKernel(KernelWrapper):
         out = torch.empty((n,), dtype=torch.float32, device=partials.device)
         lanes, rows_per_slab, slabs = block_sum_plan(n_rows, n)
         aligned = n % 4 == 0 and partials.data_ptr() % 16 == 0
-        scratch = torch.empty((slabs, -(-n // 4) * 4), dtype=torch.float32, device=partials.device) if slabs > 1 else None
+        scratch = tickets = None
+        if slabs > 1:
+            scratch = torch.empty((slabs, -(-n // 4) * 4), dtype=torch.float32, device=partials.device)
+            tickets = torch.zeros((-(-n // (4 * lanes)),), dtype=torch.int32, device=partials.device)
         args = (
             partials.data_ptr(), n_rows, n, int(aligned), lanes, rows_per_slab,
-            None if scratch is None else scratch.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), None if tickets is None else tickets.data_ptr(),
             out.data_ptr(), _device_index(partials), torch.cuda.current_stream(partials.device).cuda_stream,
         )
-        return (args, scratch), out
+        return (args, (scratch, tickets)), out
 
     def __call__(self, partials: torch.Tensor) -> torch.Tensor:
         (args, _scratch), out = self.prepare(partials)

@@ -3,7 +3,7 @@ from hpvpinns_tpu_torch.problems import poisson1d, poisson2d
 from hpvpinns_tpu_torch.problems.base import Problem
 
 
-def build(config, device=None) -> Problem:
+def build(config, *, device=None) -> Problem:
     """Dispatch on config type (Poisson1DConfig, Poisson2DConfig).  The
     problem lives on `device`, by default the card (torch.device("cuda"));
     with no CUDA device, pass device="cpu"."""

@@ -49,8 +49,8 @@ def make_mesh(cfg: Poisson1DConfig) -> Interval1D:
     return Interval1D.uniform(cfg.domain[0], cfg.domain[1], cfg.n_elements)
 
 
-def _check_supported(cfg: Poisson1DConfig) -> None:
-    if cfg.hard_bc:
+def _check_supported(cfg: Poisson1DConfig, hard_bc: bool) -> None:
+    if hard_bc:
         raise NotImplementedError("Poisson-1D hard_bc is not ported yet (ROADMAP.md)")
     if cfg.deriv_mode == "jvp":
         raise NotImplementedError("Poisson-1D deriv_mode='jvp' is not ported yet (ROADMAP.md)")
@@ -58,9 +58,12 @@ def _check_supported(cfg: Poisson1DConfig) -> None:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
 
 
-def build(cfg: Poisson1DConfig, device=None) -> Problem:
+def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = None, *, device=None) -> Problem:
     """The Poisson-1D hp-VPINN problem on `device` (default: the card,
-    torch.device("cuda"); pass device="cpu" for the CPU).
+    torch.device("cuda"); pass device="cpu" for the CPU).  The positional
+    arguments are the JAX package's: `u_fn`/`f_fn` override the exact
+    solution and the forcing (numpy vectorized, f = -u''), and `hard_bc`
+    (default cfg.hard_bc) is not ported yet and raises when true.
 
     deriv_mode "taylor" takes (u, u_x, u_xx) from the plain Taylor
     propagation; "pallas" from the fused CUDA kernels (B1 forward, B2
@@ -68,8 +71,10 @@ def build(cfg: Poisson1DConfig, device=None) -> Problem:
     the CPU their plain versions run.  The offline arrays are assembled in
     float64 on the host, then cast to cfg.dtype.
     """
-    _check_supported(cfg)
+    _check_supported(cfg, cfg.hard_bc if hard_bc is None else hard_bc)
     device = resolve_device(device)
+    u_ex = u_fn or u_exact
+    f_rh = f_fn or f_rhs
     dtype = _DTYPES[cfg.dtype]
     mesh = make_mesh(cfg)
     xq, wq = gauss_lobatto_jacobi(cfg.n_quad, 0.0, 0.0)
@@ -79,7 +84,7 @@ def build(cfg: Poisson1DConfig, device=None) -> Problem:
         else np.full(mesh.n_elem, cfg.n_test)
     )
     basis = make_weighted_basis(int(n_per_elem.max()), xq, wq, dtype, device)
-    elems = build_elements_1d(mesh, xq, wq, f_rhs, n_per_elem, dtype, device)
+    elems = build_elements_1d(mesh, xq, wq, f_rh, n_per_elem, dtype, device)
 
     # Boundary training data: the domain endpoints (Poisson-1D.py:298-299).
     xb = np.asarray(cfg.domain, dtype=np.float64)[:, None]
@@ -87,7 +92,7 @@ def build(cfg: Poisson1DConfig, device=None) -> Problem:
         "elements": elems,
         "basis": basis,
         "xb": torch.as_tensor(xb).to(device=device, dtype=dtype),
-        "ub": torch.as_tensor(u_exact(xb)).to(device=device, dtype=dtype),
+        "ub": torch.as_tensor(u_ex(xb)).to(device=device, dtype=dtype),
     }
 
     spec = MLP(layers=cfg.layers, activation=cfg.activation,
@@ -123,12 +128,12 @@ def build(cfg: Poisson1DConfig, device=None) -> Problem:
         data=data,
         loss_fn=loss_fn,
         init_params=make_net_init(spec, dtype=dtype, device=device),
-        exact=u_exact,
+        exact=u_ex,
         test_points=xt,
-        test_values=u_exact(xt),
+        test_values=u_ex(xt),
         extras={
             "mesh": mesh,
-            "f_rhs": f_rhs,
+            "f_rhs": f_rh,
             "residual_fn": residual_fn,
             "enriched_residual_fn": enriched_residual_fn,
         },

@@ -92,9 +92,22 @@ def _check_supported(cfg: Poisson2DConfig) -> None:
         )
 
 
-def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = None) -> Problem:
+def build(
+    cfg: Poisson2DConfig,
+    rng: np.random.Generator | None = None,
+    u_fn=None,
+    f_fn=None,
+    lift_fn=None,
+    envelope_fn=None,
+    *,
+    device=None,
+) -> Problem:
     """The Poisson-2D hp-VPINN problem on `device` (default: the card,
-    torch.device("cuda"); pass device="cpu" for the CPU).
+    torch.device("cuda"); pass device="cpu" for the CPU).  The positional
+    arguments are the JAX package's: `rng` draws the boundary points,
+    `u_fn`/`f_fn` override the exact solution and the forcing (numpy
+    vectorized (x, y) -> value, f = Delta u), and `lift_fn`/`envelope_fn`
+    (the hard-BC ansatz) are not ported yet and raise.
 
     deriv_mode "taylor" takes the derivative fields from the plain Taylor
     propagation (ops/taylor.py); "pallas" (the JAX package's name, kept so a
@@ -104,8 +117,12 @@ def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = N
     on the CPU their plain versions run.  The offline arrays are assembled
     in float64 on the host, then cast to cfg.dtype.
     """
+    if lift_fn is not None or envelope_fn is not None:
+        raise NotImplementedError("Poisson-2D lift_fn/envelope_fn (hard BC) is not ported yet (ROADMAP.md)")
     _check_supported(cfg)
     device = resolve_device(device)
+    u_ex = u_fn or u_exact
+    f_rh = f_fn or f_rhs
     dtype = _DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     if cfg.grid_x is not None or cfg.grid_y is not None:
@@ -136,9 +153,9 @@ def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = N
     )
     bx = make_weighted_basis(int(ntx.max()), xq, wq, dtype, device)
     by = make_weighted_basis(int(nty.max()), xq, wq, dtype, device)
-    elems = build_elements_2d(mesh, xq, wq, xq, wq, f_rhs, ntx, nty, dtype, device)
+    elems = build_elements_2d(mesh, xq, wq, xq, wq, f_rh, ntx, nty, dtype, device)
 
-    Xb, ub = boundary_points(cfg, rng)
+    Xb, ub = boundary_points(cfg, rng, u_ex)
     data = {
         "elements": elems,
         "basis_x": bx,
@@ -180,7 +197,7 @@ def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = N
     yt = np.arange(cfg.domain_y[0], cfg.domain_y[1] + 0.01, 0.01)
     XT, YT = np.meshgrid(xt, yt)
     test_points = np.stack([XT.reshape(-1), YT.reshape(-1)], axis=-1)
-    test_values = u_exact(test_points[:, 0:1], test_points[:, 1:2])
+    test_values = u_ex(test_points[:, 0:1], test_points[:, 1:2])
 
     return Problem(
         name="poisson2d",
@@ -189,12 +206,12 @@ def build(cfg: Poisson2DConfig, device=None, rng: np.random.Generator | None = N
         data=data,
         loss_fn=loss_fn,
         init_params=make_net_init(spec, dtype=dtype, device=device),
-        exact=u_exact,
+        exact=u_ex,
         test_points=test_points,
         test_values=test_values,
         extras={
             "mesh": mesh,
-            "f_rhs": f_rhs,
+            "f_rhs": f_rh,
             "residual_fn": residual_fn,
             "enriched_residual_fn": enriched_residual_fn,
             "test_grid_shape": (len(yt), len(xt)),

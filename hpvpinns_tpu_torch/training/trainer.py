@@ -1,18 +1,26 @@
-"""Generic trainer: full-batch Adam in chunks of `check_every` steps.
+"""Generic trainer: full-batch Adam, then optionally L-BFGS, in chunks of
+`check_every` iterations.
 
-Counterpart of hpvpinns_tpu/training/trainer.py (the Adam phase).  Each
-chunk runs `check_every` optimizer steps without reading anything back, then
-evaluates the metrics at the updated parameters (as the JAX chunk does,
-trainer.py:170-175) and brings them to the host in one sync.  Threshold
-early stop, loss history and the best-parameter snapshot behave as in the
-JAX package, so the history matches it step for step.
+Counterpart of hpvpinns_tpu/training/trainer.py (its Adam and L-BFGS
+phases).  Each chunk runs `check_every` optimizer iterations without reading
+anything back, then evaluates the metrics at the updated parameters (as the
+JAX chunk does, trainer.py:170-175) and brings them to the host in one sync.
+Threshold early stop, loss history, the best-parameter snapshot and the
+iteration count carried across phases behave as in the JAX package.
+
+On the card the JAX package's `jax.jit(lax.scan(...))` chunk becomes CUDA
+graphs: one Adam step (forward, backward, optimizer update) is captured once
+and a chunk replays it n times, then replays a second graph that evaluates
+the metrics.  The L-BFGS closure (forward and backward) is a captured graph
+too.  A capture failure raises: nothing falls back to the eager loop.  On the
+CPU the chunks run eagerly, step by step.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,6 +41,9 @@ class TrainResult:
     stopped_early: bool
     best_params: Optional[Any] = None
     final_aux: Dict[str, float] = field(default_factory=dict)
+    # per phase ("adam", "lbfgs"): iterations, wall seconds, and for L-BFGS
+    # the closure evaluations (the loss and gradient)
+    phases: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
     @property
     def eval_params(self):
@@ -40,10 +51,24 @@ class TrainResult:
         return self.best_params if self.best_params is not None else self.params
 
 
+def _on_card(params) -> bool:
+    return all(t.is_cuda for t in parameters(params))
+
+
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
     """Adam with the optax/TF1 defaults (betas 0.9/0.999, eps 1e-8) and the
-    configured learning rate, over every leaf of `params`."""
-    return torch.optim.Adam(parameters(params), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    configured learning rate, over every leaf of `params`; `capturable` on the
+    card, so that its step can be captured in a CUDA graph."""
+    return torch.optim.Adam(parameters(params), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=_on_card(params))
+
+
+def make_lbfgs(params) -> torch.optim.LBFGS:
+    """L-BFGS with a memory of 10 (optax.lbfgs's memory_size) and a strong
+    Wolfe line search; one `step` is one iteration (max_iter=1) with up to
+    25 evaluations, and no tolerance stops it early."""
+    return torch.optim.LBFGS(parameters(params), lr=1, max_iter=1, max_eval=25, history_size=10,
+                             tolerance_grad=0, tolerance_change=0, line_search_fn="strong_wolfe")
 
 
 def _copy_params(params, as_parameters: bool):
@@ -57,9 +82,162 @@ def _copy_params(params, as_parameters: bool):
     }
 
 
+def _capture(fn: Callable, debug: bool = False):
+    """Run `fn` twice on a side stream (the kernels build and set their
+    attributes, lazily created state appears), then capture one call of it
+    in a CUDA graph: (graph, what the captured call returned).  The warm-up
+    calls run; the capture runs nothing.  `debug` keeps the captured graph
+    (not only its instantiation) for `debug_dump`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=debug)
+    if debug:
+        graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = fn()
+    if debug:
+        graph.instantiate()
+    return graph, out
+
+
+def _eager_metrics(loss_fn: Callable, params, data):
+    """() -> the metrics (aux) at the current params, without gradients."""
+
+    def aux():
+        with torch.no_grad():
+            return loss_fn(params, data)[1]
+
+    return aux
+
+
+def _graph_metrics(loss_fn: Callable, params, data, debug: bool = False):
+    """The metrics as a replayed CUDA graph: (() -> aux, the graph)."""
+    graph, out = _capture(_eager_metrics(loss_fn, params, data), debug)
+
+    def replay():
+        graph.replay()
+        return out
+
+    return replay, graph
+
+
+class _Chunk:
+    """chunk(n): n optimizer iterations, then the metrics at the updated
+    params (a dict of 0-d tensors).  `graphs` holds the CUDA graphs it
+    replays (empty when it runs eagerly)."""
+
+    def __init__(self, iterate: Callable[[int], None], metrics: Callable, graphs=()):
+        self._iterate, self._metrics, self.graphs = iterate, metrics, tuple(g for g in graphs if g is not None)
+
+    def __call__(self, n: int):
+        self._iterate(n)
+        return self._metrics()
+
+
+def _adam_step(loss_fn: Callable, opt, params, data):
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(params, data)
+        loss.backward()
+        opt.step()
+
+    return step
+
+
+def _build_stepwise_chunk(loss_fn: Callable, opt, params, data) -> _Chunk:
+    """The eager Adam chunk: n steps of zero-grad, forward, backward and
+    update, each with its own launches, then the metrics.  The CPU path, and
+    what the card's graph chunk is held against."""
+    step = _adam_step(loss_fn, opt, params, data)
+
+    def iterate(n):
+        for _ in range(n):
+            step()
+
+    return _Chunk(iterate, _eager_metrics(loss_fn, params, data))
+
+
+def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False) -> _Chunk:
+    """The Adam chunk.  On the CPU the stepwise chunk.  On the card one step
+    captured once as a CUDA graph (`opt` must be capturable), plus a graph
+    of the metrics: a chunk of n steps is n replays of the first and one of
+    the second, so a shorter last chunk needs no new capture.  `debug` keeps
+    the graphs for `debug_dump`.
+
+    The warm-up before the capture steps Adam and moves the parameters, so
+    both are saved before it and written back, into the same tensors, after
+    the capture: the graph then starts where the eager loop would.  The
+    gradients are None when the capture starts, so the captured backward
+    writes them afresh, into buffers of the graph's pool, on every replay.
+    The captured launches keep the addresses of the parameters, the
+    optimizer state and `data`: none of them may be rebound afterwards."""
+    if not _on_card(params):
+        return _build_stepwise_chunk(loss_fn, opt, params, data)
+    leaves = parameters(params)
+    with torch.no_grad():
+        saved = [t.clone() for t in leaves]
+        saved_state = {p: {k: v.clone() for k, v in s.items() if torch.is_tensor(v)} for p, s in opt.state.items()}
+    step_graph, _ = _capture(_adam_step(loss_fn, opt, params, data), debug)
+    with torch.no_grad():
+        for t, s in zip(leaves, saved):
+            t.copy_(s)
+        for p, s in opt.state.items():  # state the warm-up created starts at zero (Adam's step and moments)
+            for k, v in s.items():
+                if torch.is_tensor(v):
+                    v.copy_(saved_state[p][k]) if p in saved_state else v.zero_()
+    metrics, metrics_graph = _graph_metrics(loss_fn, params, data, debug)
+
+    def iterate(n):
+        for _ in range(n):
+            step_graph.replay()
+
+    return _Chunk(iterate, metrics, (step_graph, metrics_graph))
+
+
+def _build_lbfgs_chunk(loss_fn: Callable, opt: torch.optim.LBFGS, params, data) -> _Chunk:
+    """The L-BFGS chunk: n calls of `opt.step(closure)`, one iteration each,
+    then the metrics.  The closure sets the gradients of the loss at the
+    current params and returns the loss; on the card it replays a CUDA graph
+    of the forward and backward, captured once (the optimizer moves the
+    parameters in place, `add_` and `copy_`, so their addresses hold).
+
+    torch's strong Wolfe line search and first step differ from optax's zoom
+    line search and initial scaling (the JAX package's optax.lbfgs()), so this
+    phase follows another trajectory than the JAX one: it is held to the
+    accuracy it reaches and to a loss that does not increase from record to
+    record, not bit for bit.  Each line-search trial reads the loss on the
+    host, so this phase syncs a few times per iteration."""
+
+    def evaluate():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(params, data)
+        loss.backward()
+        return loss.detach()
+
+    graph = metrics_graph = None
+    closure, metrics = evaluate, _eager_metrics(loss_fn, params, data)
+    if _on_card(params):
+        graph, loss = _capture(evaluate)
+
+        def closure():
+            graph.replay()
+            return loss
+
+        metrics, metrics_graph = _graph_metrics(loss_fn, params, data)
+
+    def iterate(n):
+        for _ in range(n):
+            opt.step(closure)
+
+    return _Chunk(iterate, metrics, (graph, metrics_graph))
+
+
 def _check_supported(cfg: TrainConfig, mesh) -> None:
     unported = {
-        "lbfgs_iterations > 0 (the L-BFGS phase)": cfg.lbfgs_iterations > 0,
         "gn_iterations > 0 (the Gauss-Newton/LM phase)": cfg.gn_iterations > 0,
         "checkpoint_dir (checkpointing)": cfg.checkpoint_dir is not None,
         "mesh (multi-device training)": mesh is not None,
@@ -72,13 +250,14 @@ def _check_supported(cfg: TrainConfig, mesh) -> None:
 def train(
     problem: Problem,
     cfg: Optional[TrainConfig] = None,
+    mesh=None,
     params=None,
     verbose: bool = True,
-    mesh=None,
 ) -> TrainResult:
-    """Adam on problem.loss_fn.  `params` (default: problem.init_params from
-    a CPU torch.Generator seeded with cfg.seed) are copied, never updated in
-    place."""
+    """Adam for cfg.iterations, then L-BFGS for cfg.lbfgs_iterations, on
+    problem.loss_fn; the arguments in the JAX package's order.  `params`
+    (default: problem.init_params from a CPU torch.Generator seeded with
+    cfg.seed) are copied, never updated in place.  `mesh` is not ported."""
     cfg = cfg or problem.config.train
     _check_supported(cfg, mesh)
     use_ieee_fp32_matmuls()
@@ -86,57 +265,71 @@ def train(
     if params is None:
         params = problem.init_params(torch.Generator().manual_seed(cfg.seed))
     params = _copy_params(params, as_parameters=True)
-    opt = make_optimizer(cfg, params)
 
     check = max(1, cfg.check_every)
     records: List[Dict[str, float]] = []
+    phases: Dict[str, Dict[str, float]] = {}
     stopped = False
     best_params = None
     min_loss = np.inf
+    total_iters = cfg.iterations + cfg.lbfgs_iterations
     snap_after = (
-        cfg.best_snapshot_fraction * cfg.iterations
+        cfg.best_snapshot_fraction * total_iters
         if cfg.best_snapshot_fraction is not None
         else None
     )
 
-    t0 = t_log = time.perf_counter()
-    t_warm, it_warm = None, 0
-    it = 0
-    aux_host: Dict[str, float] = {}
-    while it < cfg.iterations:
-        n = min(check, cfg.iterations - it)
-        for _ in range(n):
-            opt.zero_grad(set_to_none=True)
-            loss, _ = loss_fn(params, data)
-            loss.backward()
-            opt.step()
-        with torch.no_grad():  # metrics at the UPDATED params
-            _, aux = loss_fn(params, data)
-        keys = list(aux)
-        values = torch.stack([aux[k].detach() for k in keys]).tolist()  # one device sync
-        aux_host = dict(zip(keys, values))
-        it += n
-        if t_warm is None:  # the first chunk carries one-time build/warm-up costs
-            t_warm, it_warm = time.perf_counter(), it
-        records.append({"iteration": it, **aux_host})
-        loss_value = aux_host["loss"]
+    t0 = time.perf_counter()
+    state = {"t_log": t0, "t_warm": None, "it_warm": 0, "it": 0, "aux": {}}
 
-        if snap_after is not None and it > snap_after and loss_value < min_loss:
-            min_loss = loss_value
-            best_params = _copy_params(params, as_parameters=False)
-        if cfg.threshold is not None and loss_value < cfg.threshold:
-            if verbose:
-                print(f"It: {it}, Loss: {loss_value:.3e} (threshold reached)")
-            stopped = True
-            break
-        if verbose and it % cfg.log_every < check:
-            now = time.perf_counter()
-            parts = ", ".join(f"{k}: {v:.3e}" for k, v in aux_host.items() if k != "loss")
-            print(f"It: {it}, Loss: {loss_value:.3e}, {parts}, Time: {now - t_log:.2f}")
-            t_log = now
+    def run_phase(name, build_chunk, opt, n_iters):
+        nonlocal stopped, best_params, min_loss
+        t_phase, it_start = time.perf_counter(), state["it"]
+        chunk = build_chunk(loss_fn, opt, params, data)
+        end = state["it"] + n_iters
+        while state["it"] < end:
+            n = min(check, end - state["it"])
+            aux = chunk(n)
+            keys = list(aux)
+            values = torch.stack([aux[k].detach() for k in keys]).tolist()  # one device sync
+            aux_host = state["aux"] = dict(zip(keys, values))
+            it = state["it"] = state["it"] + n
+            if state["t_warm"] is None:  # the first chunk carries one-time build/capture costs
+                state["t_warm"], state["it_warm"] = time.perf_counter(), it
+            records.append({"iteration": it, **aux_host})
+            loss_value = aux_host["loss"]
 
+            if snap_after is not None and it > snap_after and loss_value < min_loss:
+                min_loss = loss_value
+                best_params = _copy_params(params, as_parameters=False)
+            if cfg.threshold is not None and loss_value < cfg.threshold:
+                if verbose:
+                    print(f"It: {it}, Loss: {loss_value:.3e} (threshold reached)")
+                stopped = True
+                break
+            if verbose and it % cfg.log_every < check:
+                now = time.perf_counter()
+                parts = ", ".join(f"{k}: {v:.3e}" for k, v in aux_host.items() if k != "loss")
+                print(f"It: {it}, Loss: {loss_value:.3e}, {parts}, Time: {now - state['t_log']:.2f}")
+                state["t_log"] = now
+        del chunk  # its graphs, and the gradient buffers in their pools
+        for t in parameters(params):
+            t.grad = None
+        phases[name] = {"iterations": state["it"] - it_start, "wall_s": time.perf_counter() - t_phase}
+
+    if cfg.iterations > 0:
+        run_phase("adam", _build_chunk, make_optimizer(cfg, params), cfg.iterations)
+    if cfg.lbfgs_iterations > 0 and not stopped:
+        # Second-phase full-batch L-BFGS: the standard accelerator once Adam
+        # has found the basin.
+        lbfgs = make_lbfgs(params)
+        run_phase("lbfgs", _build_lbfgs_chunk, lbfgs, cfg.lbfgs_iterations)
+        phases["lbfgs"]["evaluations"] = lbfgs.state[lbfgs.param_groups[0]["params"][0]].get("func_evals", 0)
+
+    it = state["it"]
     t_end = time.perf_counter()
     wall = t_end - t0
+    t_warm, it_warm = state["t_warm"], state["it_warm"]
     if t_warm is not None and it > it_warm and t_end > t_warm:
         sps = (it - it_warm) / (t_end - t_warm)
     else:
@@ -152,5 +345,6 @@ def train(
         steps_per_sec=sps,
         stopped_early=stopped,
         best_params=best_params,
-        final_aux=aux_host,
+        final_aux=state["aux"],
+        phases=phases,
     )

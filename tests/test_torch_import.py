@@ -16,7 +16,7 @@ REPO = Path(__file__).resolve().parent.parent
 def test_port_imports_no_jax():
     code = (
         "import sys, hpvpinns_tpu_torch\n"
-        "import hpvpinns_tpu_torch.ops.fused_fields, hpvpinns_tpu_torch.training.trainer\n"
+        "import hpvpinns_tpu_torch.ops.fused_fields, hpvpinns_tpu_torch.training.trainer, hpvpinns_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'hpvpinns_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

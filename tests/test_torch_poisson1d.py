@@ -170,9 +170,15 @@ def test_unported_options_raise(cfg_kw):
 
 
 def test_quality_lbfgs_phase_raises_and_bad_forms_are_refused():
-    prob = tv.build(dataclasses.replace(tv.poisson1d_quality(), n_quad=8, n_test=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        tv.train(prob, verbose=False)
+    """The quality preset's two phases run (here cut to Adam 4 + L-BFGS 4,
+    records every 2, at a small width): the L-BFGS records go on from the
+    Adam count and its loss does not rise.  Unknown forms are refused."""
+    q = tv.poisson1d_quality()
+    cfg = dataclasses.replace(q, n_quad=8, n_test=4, layers=(1, 8, 8, 1), train=dataclasses.replace(
+        q.train, iterations=4, lbfgs_iterations=4, check_every=2))
+    res = tv.train(tv.build(cfg, device="cpu"), verbose=False)
+    np.testing.assert_array_equal(res.history["iteration"], [2, 4, 6, 8])
+    assert np.all(np.diff(res.history["loss"][1:]) <= 0) and res.phases["lbfgs"]["iterations"] == 4
     bad = tv.build(dataclasses.replace(configs()[1], var_form=4), device="cpu")
     params = bad.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="var_form"):

@@ -149,9 +149,16 @@ def test_threshold_stop_and_best_snapshot():
     assert res.eval_params is res.best_params
 
 
-@pytest.mark.parametrize(
-    "train_kw", [{"lbfgs_iterations": 5}, {"gn_iterations": 5}, {"checkpoint_dir": "ckpt"}]
-)
+def test_lbfgs_phase_runs_and_records_its_iterations():
+    """Adam 20 + L-BFGS 5 with records every 10: the L-BFGS records go on
+    from the Adam count (20 -> 25), and its loss does not rise."""
+    _, tcfg = configs(lbfgs_iterations=5)
+    res = tv.train(tv.build(tcfg, device="cpu"), verbose=False)
+    np.testing.assert_array_equal(res.history["iteration"], [10, 20, 25])
+    assert res.iterations_run == 25 and res.history["loss"][2] <= res.history["loss"][1]
+
+
+@pytest.mark.parametrize("train_kw", [{"gn_iterations": 5}, {"checkpoint_dir": "ckpt"}])
 def test_unported_training_phases_raise(train_kw):
     _, tcfg = configs(**train_kw)
     with pytest.raises(NotImplementedError, match="not ported"):
