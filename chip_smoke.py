@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...]
+    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
+                           | --advdiff-only | --advdiff-quality SEED...]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -40,13 +41,16 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      name in the graph's DOT dump; then poisson2d_scaled trains 200 steps
      through `train` (the loss must fall; the wrappers count their host
      launches, the warm-up and capture, since the steps replay the graph);
-  6. trains poisson2d_quality ("taylor" and "pallas") and poisson1d_quality
-     ("pallas") at their full schedules, Adam then L-BFGS, and prints the
-     rel-L2 error against its target, the final loss, each phase's wall
-     seconds and the L-BFGS closure evaluations per iteration; the L-BFGS
-     loss must not rise from one record to the next;
+  6. trains poisson2d_quality ("taylor" and "pallas"), poisson1d_quality
+     ("pallas") at their full schedules and poisson2d_quality(hard_bc=True)
+     (the lifted ansatz on the JVP engine; its L-BFGS cut from 20k to 5k
+     iterations), Adam then L-BFGS,
+     and prints the rel-L2 error against its target and the JAX package's
+     row, the final loss, each phase's wall seconds and the L-BFGS closure
+     evaluations per iteration; the L-BFGS loss must not rise from one
+     record to the next;
   7. holds B2 + block sum against its plain version (autograd through the
-     plain forward) at the slice's shapes: gW, gb and gX within rtol 2e-4 /
+     plain forward) at the slice's shapes (advdiff_of_record's among them): gW, gb and gX within rtol 2e-4 /
      atol 1e-5 (5e-4 / 1e-4 at width 48), two runs bit-identical, B2's
      launch shape against ops/fused_fields.py::bwd_plan, and the block sum
      against torch's column sum, both on B2's partials and on partials of
@@ -65,26 +69,41 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      replay), and the rel-L2 error must be within 20% of the JAX package's
      f32 row, 0.2539;
  10. profiles the step under "taylor" and "pallas" at poisson1d_of_record,
-     poisson2d_scaled var_form 0 and var_form 1: steps/s of 200 Adam steps
+     poisson2d_scaled var_form 0 and var_form 1 and advdiff_of_record: steps/s of 200 Adam steps
      a turn, in chunks of 10, in turns eager, graph, graph, eager; the
      captured step's nodes; its device µs per step and busy share
      (torch.profiler over 20 replayed steps); and for the eager step the
      median forward, backward and Adam ms of 50 steps, each part followed
      by a device sync, and from torch.profiler over 20 steps the kernels'
      device µs, kernel launches, busy share and five largest kernels.  On
-     poisson2d_scaled var_form 0 under "pallas" B1, B2 and the block sum
-     must be in the captured step;
+     poisson2d_scaled var_form 0 and advdiff_of_record under "pallas" B1,
+     B2 and the block sum must be in the captured step;
  11. builds poisson2d_scaled with the (2, 256, 256, 256, 1) network, checks
      the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under "taylor"
      and "pallas", trains it 50 steps through `train` under "pallas" (the
      loss must fall; B1's staged form must be in the captured step), and
      times 50 Adam steps a turn in turns eager, graph, graph, eager under
-     both modes.
+     both modes;
+ 12. AdvDiff identification (phase12): loss and gradients, eps's included,
+     under "taylor", "pallas" and "jvp" at advdiff_of_record forms 0/1/2 and
+     with a quadratic eps and a linear V (loss rtol 1e-5, gradients rtol
+     1e-3 / atol 1e-4), "pallas" in float64 raising; one chunk as graphs
+     against the eager chunk bit for bit under "pallas" at form 0 (B1, B2
+     and the block sum in the captured step) and under the hard-BC ansatz
+     ("jvp"); advdiff_of_record's 1,501 Adam steps under "taylor" and
+     "pallas" (eps must close at least 75% of its distance to the truth;
+     eps and rel-L2 beside the JAX package's f32 row); the advdiff_lbfgs
+     schedule (f32 "pallas") and advdiff_quality (f64 "taylor"), eps's
+     relative error against its target and the JAX row.
 
+With --advdiff-only it runs phases 1, 2 and 12 and prints no summary; with
+--advdiff-quality SEED... phases 1 and 2, then phase 12's (d) and (e) once
+for each seed given in place of the presets' (the spread of eps's error
+over seeds; the seed also draws the data), and no summary.
 With --quality SEED... it runs phases 1 and 2, then phase 6's
-poisson2d_quality under "taylor" and "pallas" once for each seed given in
-place of the preset's (the spread of rel-L2 over seeds), and prints no
-summary.
+poisson2d_quality under "taylor" and "pallas" and with hard BC ("jvp", its
+whole 20k L-BFGS) once for each seed given in place of the preset's (the
+spread of rel-L2 over seeds), and prints no summary.
 With --fwd-only it runs phases 1, 2 and 3 and prints no summary; given also
 the path of an earlier csrc/fused_fields.cu whose C function takes the
 network packed into one buffer (from a `git archive` of the commit before
@@ -96,8 +115,9 @@ argument (from a `git archive` of the commit before the tiled B2), phase 7
 holds this B2 at one tile per block bit for bit against it on the same
 inputs and times the two in turns.  The
 tolerances are those of tests/test_pallas_fields.py.  It exits non-zero
-at the first failure, and when no CUDA device is present.  Its last two
-lines are a JSON summary of the kernels and `{"ok": true, "device": ...}`.
+at the first failure, and when no CUDA device is present.  Its last three
+lines are the whole run's seconds, a JSON summary of the kernels and
+`{"ok": true, "device": ...}`.
 """
 
 from __future__ import annotations
@@ -132,6 +152,7 @@ BWD_CASES = [  # (name, layers, activation, P, n_dirs): the second slice's shape
     ("p2d_scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2),
     ("p2d_quality", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2),
     ("ragged", (3, 48, 48, 48, 1), "sin", 1003, 3),
+    ("advdiff_record", (2, 5, 5, 5, 1), "tanh", 100, 2),
 ]
 
 
@@ -548,6 +569,7 @@ FWD_CASES = [  # (name, layers, activation, P, n_dirs, second)
     ("p1d_quality", (1, 30, 30, 30, 1), "sin", 240, 1, True),
     ("p2d_scaled_second", (2, 20, 20, 20, 1), "tanh", 16384, 2, True),
     ("p2d_quality_second", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2, True),
+    ("advdiff_record", (2, 5, 5, 5, 1), "tanh", 100, 2, True),  # var_form 0: u_yy computed, then dropped
     # above width 64: the staged form (phase 11 trains on the first)
     ("wide_scaled", (2, 256, 256, 256, 1), "tanh", 16384, 2, False),
     ("wide_one_layer", (2, 256, 1), "tanh", 1000, 2, True),
@@ -704,18 +726,48 @@ GRAPH_CASES = (  # (label, preset, var_form or None, second derivatives): chunks
 )
 
 
-def phase5(dev):
-    """The main path.  At GRAPH_CASES under "pallas": one chunk of
-    check_every Adam steps from the same params, once as CUDA graphs
-    (_build_chunk) and once eagerly (_build_stepwise_chunk), both with the
-    same capturable Adam: params and metrics bit for bit (else within 1e-6
-    relative, reported), and the path's kernels as nodes of the captured
-    step (B1 also in the metrics graph).  Then poisson2d_scaled trains 200
-    steps through `train`.  Returns (host launches by path, the captured
-    step's nodes by path)."""
-    import hpvpinns_tpu_torch as hv
+def graph_against_eager(label: str, prob, c, need) -> dict:
+    """One chunk of check_every Adam steps from the same params, once as CUDA
+    graphs (_build_chunk) and once eagerly (_build_stepwise_chunk), both with
+    the same capturable Adam: params and metrics bit for bit (else within
+    1e-6 relative, reported; `need` empty: bit for bit only), and the
+    kernels of `need` as nodes of the captured step (B1 also in the metrics
+    graph).  Prints one line; returns the captured step's nodes."""
     from hpvpinns_tpu_torch.problems.base import parameters
     from hpvpinns_tpu_torch.training.trainer import _build_chunk, _build_stepwise_chunk
+
+    n, slug, out = c.train.check_every, label.replace(" ", "_").replace(",", ""), {}
+    for kind in ("graph", "eager"):
+        prm, opt = fresh_state(prob, c)
+        if kind == "graph":
+            ch = _build_chunk(prob.loss_fn, opt, prm, prob.data, debug=True)
+            step_nodes = graph_nodes(ch.graphs[0], f"{slug}_step")
+            metric_nodes = graph_nodes(ch.graphs[1], f"{slug}_metrics")
+        else:
+            ch = _build_stepwise_chunk(prob.loss_fn, opt, prm, prob.data)
+        aux = ch(n)
+        torch.cuda.synchronize()
+        out[kind] = [t.detach().clone() for t in parameters(prm)] + [aux[k].detach().clone() for k in sorted(aux)]
+    same = all(torch.equal(a, b) for a, b in zip(out["graph"], out["eager"]))
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(out["graph"], out["eager"]))
+    if not same and (not need or not rel <= 1e-6):
+        fail(f"{label}: the graph chunk differs from the eager chunk (max rel diff {rel:.3e})")
+    if need and (min(step_nodes[k] for k in need) < 1 or metric_nodes["fused_fields"] < 1):
+        fail(f"{label}: kernels missing from the captured graphs: step {step_nodes}, metrics {metric_nodes}")
+    print(f"{label} {c.deriv_mode}: one chunk of {n} Adam steps as CUDA graphs against the eager chunk: params and "
+          f"metrics " + ("bit-identical" if same else f"max rel diff {rel:.3e}") + f"; captured step "
+          f"{step_nodes['nodes']} nodes, {step_nodes['kernels']} kernels (B1 {step_nodes['fused_fields']}, B2 "
+          f"{step_nodes['fused_fields_bwd']}, block sum {step_nodes['block_sum']}); metrics graph "
+          f"{metric_nodes['nodes']} nodes (B1 {metric_nodes['fused_fields']})", flush=True)
+    return step_nodes
+
+
+def phase5(dev):
+    """The main path.  At GRAPH_CASES under "pallas": graph_against_eager,
+    with the path's kernels as nodes of the captured step.  Then
+    poisson2d_scaled trains 200 steps through `train`.  Returns (host
+    launches by path, the captured step's nodes by path)."""
+    import hpvpinns_tpu_torch as hv
 
     nodes = {}
     for label, preset, vf, second in GRAPH_CASES:
@@ -723,31 +775,7 @@ def phase5(dev):
         if vf is not None:
             c = dataclasses.replace(c, var_form=vf)
         prob = hv.build(c, device=dev)
-        n, slug, out = c.train.check_every, label.replace(" ", "_"), {}
-        for kind in ("graph", "eager"):
-            prm, opt = fresh_state(prob, c)
-            if kind == "graph":
-                ch = _build_chunk(prob.loss_fn, opt, prm, prob.data, debug=True)
-                step_nodes = graph_nodes(ch.graphs[0], f"phase5_{slug}_step")
-                metric_nodes = graph_nodes(ch.graphs[1], f"phase5_{slug}_metrics")
-            else:
-                ch = _build_stepwise_chunk(prob.loss_fn, opt, prm, prob.data)
-            aux = ch(n)
-            torch.cuda.synchronize()
-            out[kind] = [t.detach().clone() for t in parameters(prm)] + [aux[k].detach().clone() for k in sorted(aux)]
-        same = all(torch.equal(a, b) for a, b in zip(out["graph"], out["eager"]))
-        rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(out["graph"], out["eager"]))
-        if not same and not rel <= 1e-6:
-            fail(f"{label}: the graph chunk differs from the eager chunk (max rel diff {rel:.3e})")
-        need = tuple(KERNEL_NODES) if second else ("fused_fields",)
-        if min(step_nodes[k] for k in need) < 1 or metric_nodes["fused_fields"] < 1:
-            fail(f"{label}: kernels missing from the captured graphs: step {step_nodes}, metrics {metric_nodes}")
-        nodes[label] = step_nodes
-        print(f"phase 5 {label} pallas: one chunk of {n} Adam steps as CUDA graphs against the eager chunk: params and "
-              f"metrics " + ("bit-identical" if same else f"max rel diff {rel:.3e}") + f"; captured step "
-              f"{step_nodes['nodes']} nodes, {step_nodes['kernels']} kernels (B1 {step_nodes['fused_fields']}, B2 "
-              f"{step_nodes['fused_fields_bwd']}, block sum {step_nodes['block_sum']}); metrics graph "
-              f"{metric_nodes['nodes']} nodes (B1 {metric_nodes['fused_fields']})", flush=True)
+        nodes[label] = graph_against_eager(f"phase 5 {label}", prob, c, tuple(KERNEL_NODES) if second else ("fused_fields",))
 
     cfg = dataclasses.replace(hv.poisson2d_scaled(), deriv_mode="pallas")
     pp = hv.build(cfg, device=dev)
@@ -772,50 +800,75 @@ def phase5(dev):
     return {"poisson2d_scaled var_form 1": counts}, nodes
 
 
-QUALITY = (  # (label, preset, modes, target rel-L2, the JAX package's row, the kernels of its "pallas" path)
-    ("poisson2d_quality", "poisson2d_quality", ("taylor", "pallas"), 1e-3, "8.6e-4, benchmarks/ACCURACY.json:100-108",
-     ("fused_fields",)),
-    ("poisson1d_quality", "poisson1d_quality", ("pallas",), 1e-2, "4.9-6.1e-3 in f32, hpvpinns_tpu/config.py:704-710",
-     tuple(KERNEL_NODES)),
+def train_checked(prob, cfg, label: str, kernels=()):
+    """Train `prob` through `train` (the counts zeroed just before, read just
+    after) and evaluate its best snapshot: (result, host launches, the
+    evaluation).  Fails on a short run (unless the threshold stopped it), a
+    non-finite loss or rel-L2, an L-BFGS loss that rises from one record to
+    the next, or a kernel of `kernels` that did not launch."""
+    import hpvpinns_tpu_torch as hv
+
+    zero_counts()
+    res = hv.train(prob, verbose=False)
+    counts = read_counts()
+    tr = cfg.train
+    it, loss = res.history["iteration"], res.history["loss"]
+    ev = hv.evaluate_problem(prob, res.eval_params)
+    if ((res.iterations_run != tr.iterations + tr.lbfgs_iterations and not res.stopped_early)
+            or not np.all(np.isfinite(loss)) or not math.isfinite(ev["rel_l2"])):
+        fail(f"{label}: {res.iterations_run} iterations, loss {loss.tolist()}, rel_l2 {ev['rel_l2']}")
+    rise = float(np.max(np.diff(loss[it >= tr.iterations]), initial=0.0)) if tr.lbfgs_iterations else 0.0
+    if rise > 0:
+        fail(f"{label}: the L-BFGS loss rose by {rise:.3e} from one record to the next")
+    if kernels and min(counts[k] for k in kernels) < 1:
+        fail(f"{label}: host launches {counts}: a kernel of the path did not launch")
+    return res, counts, ev
+
+
+QUALITY = (  # (label, preset, its arguments, modes, target rel-L2, the JAX package's row, the kernels of its
+    # "pallas" path, the L-BFGS iterations of the whole run (None: the preset's; --quality runs the preset's))
+    ("poisson2d_quality", "poisson2d_quality", {}, ("taylor", "pallas"), 1e-3,
+     "8.6e-4, benchmarks/ACCURACY.json:100-108", ("fused_fields",), None),
+    ("poisson1d_quality", "poisson1d_quality", {}, ("pallas",), 1e-2,
+     "4.9-6.1e-3 in f32, hpvpinns_tpu/config.py:704-710", tuple(KERNEL_NODES), None),
+    # The hard-BC ansatz on the JVP engine, no kernel.  Its preset's 20k
+    # L-BFGS iterations took 277 s on an NVIDIA H100 80GB HBM3 at 700.00 W
+    # (4.5 closure evaluations an iteration), a third of the whole run: the
+    # whole run cuts them to 5k.
+    ("poisson2d_quality hard_bc", "poisson2d_quality", {"hard_bc": True}, ("jvp",), 1e-3,
+     "3.1e-4 after 20k L-BFGS, hpvpinns_tpu/config.py:720-737", (), 5000),
 )
 
 
 def phase6(dev, seed=None):
-    """Both quality presets at their full schedules (Adam, then L-BFGS, f32)
-    through build, train and evaluate: rel-L2 on the test grid against the
-    target, the final loss, each phase's wall seconds and the L-BFGS closure
-    evaluations per iteration.  It fails on a non-finite result, a short run
-    or an L-BFGS loss that rises from one record to the next; a missed target
-    is printed, not hidden.  `seed` replaces the presets' seed (the seeds
-    study of --quality; only poisson2d_quality then).  Returns
-    {"<preset> <mode>": {"counts", "rel_l2"}}."""
+    """The quality presets (Adam, then L-BFGS, f32) through build, train and
+    evaluate: rel-L2 on the test grid against the target, the final loss,
+    each phase's wall seconds and the L-BFGS closure evaluations per
+    iteration.  It fails on a non-finite result, a short run or an L-BFGS
+    loss that rises from one record to the next; a missed target is printed,
+    not hidden.  `seed` replaces the presets' seed (the seeds study of
+    --quality: poisson2d_quality, soft and hard BC, at the presets' whole
+    schedules); without it the hard-BC run's L-BFGS is cut as QUALITY says.
+    Returns {"<preset> <mode>": {"counts", "rel_l2"}}."""
     import hpvpinns_tpu_torch as hv
 
     out = {}
-    for label, preset, modes, target, jax_row, kernels in QUALITY[:1] if seed is not None else QUALITY:
+    for label, preset, preset_kw, modes, target, jax_row, kernels, lbfgs in (
+            (QUALITY[0], QUALITY[2]) if seed is not None else QUALITY):
         for mode in modes:
-            c = dataclasses.replace(getattr(hv, preset)(), deriv_mode=mode)
+            c = dataclasses.replace(getattr(hv, preset)(**preset_kw), deriv_mode=mode)
             if seed is not None:
                 c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+            elif lbfgs is not None:
+                c = dataclasses.replace(c, train=dataclasses.replace(c.train, lbfgs_iterations=lbfgs))
             prob = hv.build(c, device=dev)
-            zero_counts()
-            res = hv.train(prob, verbose=False)
-            counts = read_counts()
-            ev = hv.evaluate_problem(prob, res.eval_params)
-            it, loss = res.history["iteration"], res.history["loss"]
-            rise = float(np.max(np.diff(loss[it >= c.train.iterations]), initial=0.0))
-            if (res.iterations_run != c.train.iterations + c.train.lbfgs_iterations or not np.all(np.isfinite(loss))
-                    or not math.isfinite(ev["rel_l2"])):
-                fail(f"{label} {mode}: {res.iterations_run} iterations, loss {loss.tolist()}, rel_l2 {ev['rel_l2']}")
-            if rise > 0:
-                fail(f"{label} {mode}: the L-BFGS loss rose by {rise:.3e} from one record to the next")
-            if mode == "pallas" and min(counts[k] for k in kernels) < 1:
-                fail(f"{label} {mode}: host launches {counts}: a kernel of the path did not launch")
+            res, counts, ev = train_checked(prob, c, f"{label} {mode}", kernels if mode == "pallas" else ())
+            loss = res.history["loss"]
             adam, lb = res.phases["adam"], res.phases["lbfgs"]
             out[f"{label} {mode}"] = {"counts": counts, "rel_l2": ev["rel_l2"]}
             print(
                 f"phase 6 {label} {mode} seed {c.train.seed}: Adam {c.train.iterations} + L-BFGS "
-                f"{c.train.lbfgs_iterations} (f32, layers "
+                f"{c.train.lbfgs_iterations}{' (cut)' if seed is None and lbfgs else ''} (f32, layers "
                 f"{c.layers}): rel_l2 {ev['rel_l2']:.4e} (target < {target:g}: "
                 f"{'met' if ev['rel_l2'] < target else 'MISSED'}; JAX {jax_row}); final loss {loss[-1]:.6e}; wall s "
                 f"Adam {adam['wall_s']:.2f} L-BFGS {lb['wall_s']:.2f}; L-BFGS closure evaluations per iteration "
@@ -856,7 +909,135 @@ def two_streams(dev):
               f"bit-identical to one stream", flush=True)
 
 
+# The JAX package's AdvDiff rows (benchmarks/ACCURACY.json): advdiff_of_record
+# f32 (:57-70), advdiff_lbfgs f32 (:85-98), advdiff_lbfgs f64 on the CPU (:168-181).
+JAX_ADVDIFF_RECORD = {"epsilon": 0.0992, "rel_l2": 0.303}
+JAX_ADVDIFF_LBFGS_F32_EPS_REL = 0.0255
+JAX_ADVDIFF_LBFGS_F64_EPS_REL = 5.6e-4
+ADVDIFF_FORMS = (  # phase 12 (a): (label, overrides of advdiff_of_record)
+    ("var_form 0", {}),
+    ("var_form 1", {"var_form": 1}),
+    ("var_form 2", {"var_form": 2}),
+    ("var_form 0, quadratic eps, linear V",
+     {"epsilon_model": "quadratic", "velocity_trainable": True, "velocity_model": "linear"}),
+)
+
+
+def identify(prob, cfg, label: str, kernels=()) -> dict:
+    """train_checked, then eps of the best snapshot against the truth: the
+    run's numbers."""
+    res, counts, ev = train_checked(prob, cfg, label, kernels)
+    eps = float(prob.extras["eps_domain_mean"](res.eval_params))
+    eps_true = prob.extras["eps_true"]
+    return {"res": res, "counts": counts, "eps": eps, "eps_rel": abs(eps - eps_true) / eps_true,
+            "closed": 1.0 - abs(eps - eps_true) / abs(cfg.epsilon_init - eps_true), "rel_l2": ev["rel_l2"],
+            "final_loss": float(res.history["loss"][-1])}
+
+
+def identification_schedules(dev, seed=None) -> dict:
+    """Phase 12 (d) and (e): the advdiff_lbfgs schedule (Adam 5k + L-BFGS 10k,
+    f32, "pallas") and advdiff_quality (the same in float64, "taylor"),
+    eps's relative error against its target and the JAX package's row.
+    `seed` replaces the presets' train seed (which draws the data and the
+    init: the seeds study of --advdiff-quality).  Returns the host launches
+    by path."""
+    import hpvpinns_tpu_torch as hv
+
+    paths = {}
+    for label, c, target, jax_row, kernels in (
+        ("advdiff_lbfgs pallas (f32)", dataclasses.replace(hv.advdiff_quality(), dtype="float32", deriv_mode="pallas"),
+         0.10, JAX_ADVDIFF_LBFGS_F32_EPS_REL, tuple(KERNEL_NODES)),
+        ("advdiff_quality taylor (f64)", hv.advdiff_quality(), 2.4e-2, JAX_ADVDIFF_LBFGS_F64_EPS_REL, ()),
+    ):
+        if seed is not None:
+            c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+        r = identify(hv.build(c, device=dev), c, label, kernels)
+        paths[label] = r["counts"]
+        ph = r["res"].phases
+        print(f"phase 12 ({'d' if c.dtype == 'float32' else 'e'}) {label}: Adam {c.train.iterations} + L-BFGS "
+              f"{c.train.lbfgs_iterations}, seed {c.train.seed}: eps {r['eps']:.8g}, relative error "
+              f"{r['eps_rel']:.4e} (target < {target:g}: {'met' if r['eps_rel'] < target else 'MISSED'}; JAX row "
+              f"{jax_row:g}); rel_l2 {r['rel_l2']:.4e}; final "
+              f"loss {r['final_loss']:.6e}; wall s Adam {ph['adam']['wall_s']:.2f} L-BFGS {ph['lbfgs']['wall_s']:.2f}; "
+              f"L-BFGS closure evaluations per iteration {ph['lbfgs']['evaluations'] / ph['lbfgs']['iterations']:.3f}; "
+              f"loss non-increasing over the L-BFGS records; host launches {r['counts']}", flush=True)
+    return paths
+
+
+def phase12(dev):
+    """AdvDiff identification on the card.  (a) loss and gradients, eps's
+    included, under "taylor", "pallas" and "jvp" at advdiff_of_record forms
+    0/1/2 and with a quadratic eps and a linear V at form 0 (loss rtol 1e-5,
+    gradients rtol 1e-3 / atol 1e-4 against "taylor"), and "pallas" in
+    float64 raising; (b) graph_against_eager under "pallas" at form 0 (B1,
+    B2 and the block sum in the captured step) and under the hard-BC
+    ansatz ("jvp"); (c) advdiff_of_record's 1,501 Adam steps under "taylor"
+    and "pallas": eps must close at least 75% of its distance from
+    epsilon_init to the truth; (d) the advdiff_lbfgs schedule (Adam 5k +
+    L-BFGS 10k, f32, "pallas") and (e) advdiff_quality (the same in float64
+    under "taylor"): eps's relative error printed against its target and the
+    JAX package's row (a miss is printed, not hidden).  Returns (host
+    launches by path, the captured step's nodes by path)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+
+    t0 = time.perf_counter()
+    base = hv.advdiff_of_record()
+    for label, kw in ADVDIFF_FORMS:
+        c = dataclasses.replace(base, **kw)
+        probs = {m: hv.build(dataclasses.replace(c, deriv_mode=m), device=dev) for m in ("taylor", "pallas", "jvp")}
+        prm = probs["taylor"].init_params(torch.Generator().manual_seed(c.train.seed))
+        out = {}
+        for m, prob in probs.items():
+            loss, aux = prob.loss_fn(prm, prob.data)
+            out[m] = (loss.detach(), torch.autograd.grad(loss, parameters(prm)))
+        lt, gt = out["taylor"]
+        line = f"phase 12 (a) advdiff_of_record {label}: loss taylor {lt.item():.6e}"
+        for m in ("pallas", "jvp"):
+            lm, gm = out[m]
+            check_close(f"advdiff {label} {m} loss", lm, lt, rtol=1e-5, atol=0.0)
+            gerr = max(check_close(f"advdiff {label} {m} grad {i}", a, b, rtol=1e-3, atol=1e-4)
+                       for i, (a, b) in enumerate(zip(gm, gt)))
+            line += f", {m} {lm.item():.6e} (grad max_abs_err {gerr:.3e})"
+        line += "; d loss / d pde " + " ".join(f"{g.reshape(-1)[0].item():.6e}" for g in gt[2 * (len(c.layers) - 1):])
+        print(line, flush=True)
+    q64 = hv.build(dataclasses.replace(hv.advdiff_quality(), deriv_mode="pallas"), device=dev)
+    try:
+        q64.loss_fn(q64.init_params(torch.Generator().manual_seed(0)), q64.data)
+    except ValueError as e:
+        print(f"phase 12 (a) advdiff_quality pallas (float64) raises: {e}", flush=True)
+    else:
+        fail("advdiff_quality under pallas (float64) ran: the kernels take float32 only")
+
+    nodes = {}
+    for label, c, need in (
+        ("advdiff_of_record var_form 0", dataclasses.replace(base, deriv_mode="pallas"), tuple(KERNEL_NODES)),
+        ("advdiff_of_record hard_bc", dataclasses.replace(base, hard_bc=True, deriv_mode="jvp"), ()),
+    ):
+        nodes[label] = graph_against_eager(f"phase 12 (b) {label}", hv.build(c, device=dev), c, need)
+
+    paths = {}
+    for mode in ("taylor", "pallas"):
+        c = dataclasses.replace(base, deriv_mode=mode)
+        r = identify(hv.build(c, device=dev), c, f"advdiff_of_record {mode}", tuple(KERNEL_NODES) if mode == "pallas" else ())
+        paths[f"advdiff_of_record {mode}"] = r["counts"]
+        if not r["closed"] >= 0.75:
+            fail(f"advdiff_of_record {mode}: eps {r['eps']:.6g} closed {r['closed']:.3f} of its distance to the "
+                 f"truth (need 0.75)")
+        h = r["res"].history
+        print(f"phase 12 (c) advdiff_of_record {mode}: {r['res'].iterations_run} Adam steps, loss {h['loss'][0]:.6e} -> "
+              f"{r['final_loss']:.6e}, {r['res'].steps_per_sec:.1f} steps/s; eps {r['eps']:.6g} (true "
+              f"{c.gamma / np.pi:.6g}, from {c.epsilon_init}: {100 * r['closed']:.1f}% of the distance closed, "
+              f"relative error {r['eps_rel']:.4f}; JAX f32 row eps {JAX_ADVDIFF_RECORD['epsilon']}), rel_l2 "
+              f"{r['rel_l2']:.4f} (JAX f32 row {JAX_ADVDIFF_RECORD['rel_l2']}); host launches {r['counts']}", flush=True)
+
+    paths.update(identification_schedules(dev))
+    print(f"phase 12 advdiff: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths, nodes
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only", file=sys.stderr)
         return 1
@@ -905,6 +1086,16 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--fwd-only"]:  # for work on B1: phases 1, 2 and 3 only, no summary
         phase3(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+
+    if sys.argv[1:2] == ["--advdiff-quality"]:  # the seeds study: phases 1, 2 and 12 (d), (e) at each seed given
+        for seed in sys.argv[2:]:
+            identification_schedules(dev, int(seed))
+        return 0
+
+    if sys.argv[1:2] == ["--advdiff-only"]:  # for work on AdvDiff: phases 1, 2 and 12 only, no summary
+        phase12(dev)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
     # 3. B1 vs plain on the card
@@ -982,6 +1173,7 @@ def main() -> int:
         ("poisson1d_of_record", hv.poisson1d_of_record()),
         ("poisson2d_scaled var_form 0", dataclasses.replace(hv.poisson2d_scaled(), var_form=0)),
         ("poisson2d_scaled var_form 1", hv.poisson2d_scaled()),
+        ("advdiff_of_record", hv.advdiff_of_record()),
     ):
         c = dataclasses.replace(c, train=dataclasses.replace(
             c.train, iterations=200, check_every=10, lbfgs_iterations=0, threshold=None))
@@ -993,7 +1185,7 @@ def main() -> int:
             gn = graph_nodes(gch.graphs[0], f"phase10_{label.replace(' ', '_')}_{mode}")
             g_us, g_busy = graph_profile(gch)
             g_rate = (rates["graph"][0] + rates["graph"][1]) / 2
-            if mode == "pallas" and label == "poisson2d_scaled var_form 0":  # the path that trains on B2 at n_dirs 2
+            if mode == "pallas" and label in ("poisson2d_scaled var_form 0", "advdiff_of_record"):  # B1 + B2 at n_dirs 2
                 if min(counts.values()) < 1 or min(gn[k] for k in KERNEL_NODES) < 1:
                     fail(f"{label}: host launches {counts}, graph nodes {gn}")
             prm, opt = fresh_state(prob, c)
@@ -1049,6 +1241,11 @@ def main() -> int:
         flush=True,
     )
 
+    # 12. AdvDiff identification: forms, graphs, the Adam and L-BFGS schedules
+    adv_paths, adv_nodes = phase12(dev)
+    paths.update(adv_paths)
+    nodes.update(adv_nodes)
+
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
     wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
@@ -1077,9 +1274,23 @@ def main() -> int:
          "bound_by": sum_bound[1], "library_ms": ms7["torch.sum"], "shape": f"B2 partials {list(pshape)}",
          "device_us": dev7["sum"], "library_device_us": dev7["torch.sum"]},
     ]
+    adv_fwd, adv_bwd = times["advdiff_record"], bwd_times["advdiff_record"]
+    adv_sum_rows = adv_bwd[1]
+    adv = {  # the advdiff_of_record var_form 0 shapes: P 100, (2,5,5,5,1) tanh, n_dirs 2, second derivatives
+        "fused_fields": {"ms": adv_fwd[0], "plain_ms": adv_fwd[1], "device_us": adv_fwd[2], "c_function_graph_us": adv_fwd[3],
+                         "bound_ms": bound_ms(*fwd_work((2, 5, 5, 5, 1), 100, 2, True))[0]},
+        "fused_fields_bwd": {"ms": adv_bwd[0]["b2"], "plain_ms": adv_bwd[0]["plain"], "device_us": adv_bwd[2]["b2"],
+                             "c_function_us": adv_bwd[3]["b2"], "bound_ms": bound_ms(*bwd_work((2, 5, 5, 5, 1), 100, 2))[0]},
+        "block_sum": {"ms": adv_bwd[0]["sum"], "plain_ms": adv_bwd[0]["torch.sum"], "device_us": adv_bwd[2]["sum"],
+                      "partials": list(adv_sum_rows),
+                      "bound_ms": bound_ms(4 * (adv_sum_rows[0] * adv_sum_rows[1] + adv_sum_rows[1]),
+                                           adv_sum_rows[0] * adv_sum_rows[1])[0]},
+    }
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
         k["graph_nodes_by_path"] = {path: n.get(k["name"], 0) for path, n in nodes.items()}
+        k["advdiff_of_record"] = adv[k["name"]]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,7 +1,7 @@
 """Variational (weak-form) residual assembly, batched over elements.
 
-Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D and Poisson-2D.
-Res[e, n] (1D) / Res[e, k, r] (2D) = U - F, with F the offline RHS
+Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D, Poisson-2D and
+AdvDiff.  Res[e, n] (1D) / Res[e, k, r] (2D) = U - F, with F the offline RHS
 projection and U the network's derivative fields contracted against the
 quadrature-weighted test basis (weights folded in: Wphi[n, q] = w_q phi_n).
 """
@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from hpvpinns_tpu_torch.ops.contract import contract_1d, contract_2d
+from hpvpinns_tpu_torch.ops.fields import scalar_fields_1d, scalar_fields_2d
 
 
 class _Tensors:
@@ -78,7 +79,7 @@ class Elements2D(_Tensors):
     n_test: torch.Tensor
 
 
-def poisson1d_residual(u_fn, elems: Elements1D, basis: Basis1D, var_form: int, fields_fn):
+def poisson1d_residual(u_fn, elems: Elements1D, basis: Basis1D, var_form: int, fields_fn=None):
     """Res[e, n] for -u'' = f with test functions phi_n.
 
     var_form 1:  U = -jac * sum_q w u_xx phi_n
@@ -86,10 +87,11 @@ def poisson1d_residual(u_fn, elems: Elements1D, basis: Basis1D, var_form: int, f
     var_form 3:  U = -(1/jac) sum_q w u phi''_n
                      + (1/jac) [u(x_r) phi'_n(+1) - u(x_l) phi'_n(-1)]
     `fields_fn(x)` returns (u, u_x, u_xx) (taylor_fields_1d or
-    fused_fields_1d bound to the network); `u_fn` [P, 1] -> [P, 1] gives u
-    at the element bounds for form 3's boundary flux.
+    fused_fields_1d bound to the network; None: the JVP engine on `u_fn`);
+    `u_fn` [P, 1] -> [P, 1] gives u at the element bounds for form 3's
+    boundary flux.
     """
-    u, ux, uxx = fields_fn(elems.x)
+    u, ux, uxx = fields_fn(elems.x) if fields_fn is not None else scalar_fields_1d(u_fn, elems.x)
     if var_form == 1:
         U = -elems.jac[:, None] * contract_1d(basis.wphi, uxx)
     elif var_form == 2:
@@ -131,7 +133,7 @@ def _flux_2d(u_lo, u_hi, wphi_tan, dphi_b):
     return t_hi[:, :, None] * dphi_b[None, None, :, 1] - t_lo[:, :, None] * dphi_b[None, None, :, 0]
 
 
-def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_form, fields_fn):
+def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_form, fields_fn=None):
     """Res[e, k, r] for Delta u = f on tensor-product elements, with
     C(a, b, g) = sum_{qy,qx} w_x a(xi_qx) w_y b(eta_qy) g[qy, qx]:
 
@@ -146,11 +148,12 @@ def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_fo
                   [u phi'] boundary fluxes from u_fn on the element edges).
 
     `fields_fn(x, y, firsts_only=...)` is taylor_fields_2d or
-    fused_fields_2d bound to the network; form 1 needs first derivatives
-    only, so its fields come firsts-only.  `u_fn` [P, 2] -> [P, 1] is used
-    by form "2c" alone.
+    fused_fields_2d bound to the network (None: the JVP engine on `u_fn`);
+    form 1 needs first derivatives only, so its fields come firsts-only.
+    `u_fn` [P, 2] -> [P, 1] is also used by form "2c" for its fluxes.
     """
-    flds = fields_fn(elems.x, elems.y, firsts_only=(var_form == 1))
+    f2d = fields_fn or (lambda *a, **k: scalar_fields_2d(u_fn, *a, **k))
+    flds = f2d(elems.x, elems.y, firsts_only=(var_form == 1))
     jac = (elems.jac_x * elems.jac_y)[:, None, None]
     if var_form == 0:
         U = jac * contract_2d(bx.wphi, by.wphi, flds["uxx"] + flds["uyy"])
@@ -172,6 +175,51 @@ def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_fo
         )
     else:
         raise ValueError(f"Poisson-2D var_form must be 0, 1, 2 or '2c'; got {var_form!r}")
+    return U - elems.f_proj
+
+
+def advdiff_residual(u_fn, elems: Elements2D, bx: Basis1D, bt: Basis1D, var_form: int, velocity, epsilon,
+                     fields_fn=None, epsilon_x=0.0):
+    """Res[e, k, r] for u_t + V u_x - eps u_xx = f in space-time elements
+    (AdvDiff.py:161-180; the reference's F = 0).  The slow axis of
+    Elements2D is time.  `velocity` and `epsilon` are numbers, 0-d tensors
+    (the trainable coefficients) or fields broadcastable to [E, Qt, Qx]
+    (space-dependent coefficients: they multiply the integrand inside the
+    quadrature sum).
+
+    var_form 0:  U = jac * C(phi_r, phi_k, u_t + V u_x - eps u_xx)   (:161-167)
+    var_form 1:  U = jac * C(phi_r, phi_k, u_t + V u_x + eps_x u_x)
+                     + jac_t * C(phi'_r, phi_k, eps u_x)             (:169-174)
+                 (`epsilon_x` = d(eps)/dx; 0 for a constant eps)
+    var_form 2 (scalar eps only): the diffusion term twice integrated by
+                 parts, with the surviving [u phi'] boundary flux live:
+                 U = jac * C(phi_r, phi_k, u_t + V u_x)
+                     - eps (jac_t/jac_x) [C(phi''_r, phi_k, u) - FluxX].
+
+    Form 0 takes its fields with first_y_only (u_xx, and u_t alone in
+    time); forms 1 and 2 take them firsts-only.
+    """
+    f2d = fields_fn or (lambda *a, **k: scalar_fields_2d(u_fn, *a, **k))
+    kw = {"first_y_only": True} if var_form == 0 else {"firsts_only": True}
+    flds = f2d(elems.x, elems.y, **kw)
+    ut, ux = flds["uy"], flds["ux"]
+    jac = (elems.jac_x * elems.jac_y)[:, None, None]
+    if var_form == 0:
+        U = jac * contract_2d(bx.wphi, bt.wphi, ut + velocity * ux - epsilon * flds["uxx"])
+    elif var_form == 1:
+        U = jac * contract_2d(bx.wphi, bt.wphi, ut + velocity * ux + epsilon_x * ux)
+        U = U + elems.jac_y[:, None, None] * contract_2d(bx.wdphi, bt.wphi, epsilon * ux)
+    elif var_form == 2:
+        if not (isinstance(epsilon_x, (int, float)) and epsilon_x == 0.0):
+            raise ValueError("AdvDiff var_form=2 supports scalar epsilon only")
+        u_l, u_r, _, _ = _edge_values_2d(u_fn, elems)
+        flux_x = _flux_2d(u_l, u_r, bt.wphi, bx.dphi_b)
+        U = jac * contract_2d(bx.wphi, bt.wphi, ut + velocity * ux)
+        U = U - epsilon * (elems.jac_y / elems.jac_x)[:, None, None] * (
+            contract_2d(bx.wd2phi, bt.wphi, flds["u"]) - flux_x
+        )
+    else:
+        raise ValueError(f"AdvDiff var_form must be 0, 1 or 2; got {var_form}")
     return U - elems.f_proj
 
 

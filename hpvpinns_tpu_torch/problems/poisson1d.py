@@ -20,7 +20,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson1d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_1d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_1d
-from hpvpinns_tpu_torch.problems.base import Problem, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_1d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 
@@ -28,7 +28,7 @@ OMEGA = 8 * np.pi
 AMP = 1.0
 R1 = 80.0
 
-_FIELDS = {"taylor": taylor_fields_1d, "pallas": fused_fields_1d}
+_FIELDS = {"taylor": taylor_fields_1d, "pallas": fused_fields_1d, "jvp": None}  # None: ops/fields.py on the ansatz
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -49,11 +49,28 @@ def make_mesh(cfg: Poisson1DConfig) -> Interval1D:
     return Interval1D.uniform(cfg.domain[0], cfg.domain[1], cfg.n_elements)
 
 
-def _check_supported(cfg: Poisson1DConfig, hard_bc: bool) -> None:
-    if hard_bc:
-        raise NotImplementedError("Poisson-1D hard_bc is not ported yet (ROADMAP.md)")
-    if cfg.deriv_mode == "jvp":
-        raise NotImplementedError("Poisson-1D deriv_mode='jvp' is not ported yet (ROADMAP.md)")
+def default_lift_1d(domain, u_ex):
+    """Linear interpolant of the Dirichlet data over the domain."""
+    a, b = domain
+    ua, ub = float(u_ex(np.array(a))), float(u_ex(np.array(b)))
+
+    def lift(X):
+        return ua + (ub - ua) * (X - a) / (b - a)
+
+    return lift
+
+
+def default_envelope_1d(domain):
+    """D(x) = (x - a)(b - x), vanishing at both endpoints."""
+    a, b = domain
+
+    def envelope(X):
+        return (X - a) * (b - X)
+
+    return envelope
+
+
+def _check_supported(cfg: Poisson1DConfig) -> None:
     if cfg.deriv_mode not in _FIELDS:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
 
@@ -63,15 +80,19 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
     torch.device("cuda"); pass device="cpu" for the CPU).  The positional
     arguments are the JAX package's: `u_fn`/`f_fn` override the exact
     solution and the forcing (numpy vectorized, f = -u''), and `hard_bc`
-    (default cfg.hard_bc) is not ported yet and raises when true.
+    (default cfg.hard_bc) switches on the lifted ansatz u = g + D N with
+    the linear lift of the boundary data and D = (x - a)(b - x).
 
     deriv_mode "taylor" takes (u, u_x, u_xx) from the plain Taylor
-    propagation; "pallas" from the fused CUDA kernels (B1 forward, B2
-    backward, ops/fused_fields.py), which need float32 on a CUDA device; on
-    the CPU their plain versions run.  The offline arrays are assembled in
-    float64 on the host, then cast to cfg.dtype.
+    propagation; "jvp" from the JVP engine on the ansatz (ops/fields.py;
+    forced by hard_bc, whose ansatz is not a bare MLP); "pallas" from the
+    fused CUDA kernels (B1 forward, B2 backward, ops/fused_fields.py), which
+    need float32 on a CUDA device; on the CPU their plain versions run.  The
+    offline arrays are assembled in float64 on the host, then cast to
+    cfg.dtype.
     """
-    _check_supported(cfg, cfg.hard_bc if hard_bc is None else hard_bc)
+    _check_supported(cfg)
+    hard_bc = cfg.hard_bc if hard_bc is None else hard_bc
     device = resolve_device(device)
     u_ex = u_fn or u_exact
     f_rh = f_fn or f_rhs
@@ -97,20 +118,26 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
 
     spec = MLP(layers=cfg.layers, activation=cfg.activation,
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
-    fields = _FIELDS[cfg.deriv_mode]
+    fields = _FIELDS["jvp" if hard_bc else cfg.deriv_mode]
+    if hard_bc:
+        composite = make_composite_apply(spec, default_lift_1d(cfg.domain, u_ex), default_envelope_1d(cfg.domain))
+
+    def make_u_fn(params):
+        if hard_bc:
+            return composite(params)
+        return lambda X: mlp_apply(spec, params["net"], X)
 
     def residual_fn(params, data):
         """Masked weak residual Res[e, n]."""
         el = data["elements"]
-        u_fn = lambda X: mlp_apply(spec, params["net"], X)
-        fields_fn = lambda x: fields(spec, params["net"], x)
-        return poisson1d_residual(u_fn, el, data["basis"], cfg.var_form, fields_fn) * el.mask
+        fields_fn = None if fields is None else (lambda x: fields(spec, params["net"], x))
+        return poisson1d_residual(make_u_fn(params), el, data["basis"], cfg.var_form, fields_fn) * el.mask
 
     def loss_fn(params, data):
         """lossb_weight lossb + lossv (Poisson-1D.py:98-100)."""
         el = data["elements"]
         lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
-        lossb = torch.mean((data["ub"] - mlp_apply(spec, params["net"], data["xb"])) ** 2)
+        lossb = torch.mean((data["ub"] - make_u_fn(params)(data["xb"])) ** 2)
         loss = cfg.lossb_weight * lossb + lossv
         return loss, {"loss": loss, "lossb": lossb, "lossv": lossv}
 
@@ -128,6 +155,7 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
         data=data,
         loss_fn=loss_fn,
         init_params=make_net_init(spec, dtype=dtype, device=device),
+        apply_override=(lambda params, X: make_u_fn(params)(X)) if hard_bc else None,
         exact=u_ex,
         test_points=xt,
         test_values=u_ex(xt),

@@ -19,18 +19,19 @@ from hpvpinns_tpu_torch.config import Poisson2DConfig
 from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson2d_residual, variational_loss
+from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
-from hpvpinns_tpu_torch.problems.base import Problem, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
-from hpvpinns_tpu_torch.utils.sampling import lhs_interval
+from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
 
 OMEGA_X = 2 * np.pi
 OMEGA_Y = 2 * np.pi
 R1 = 10.0
 
-_FIELDS = {"taylor": taylor_fields_2d, "pallas": fused_fields_2d}
+_FIELDS = {"taylor": taylor_fields_2d, "pallas": fused_fields_2d, "jvp": None}  # None: ops/fields.py on the ansatz
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -66,21 +67,27 @@ def boundary_points(cfg: Poisson2DConfig, rng: np.random.Generator, u_ex=u_exact
     return Xb, ub
 
 
+def default_lift(X):
+    """Boundary interpolant g for the benchmark solution: g = x tanh(10)
+    sin(2 pi y) matches u_exact on all four edges (u vanishes at y = +-1)."""
+    return X[:, 0:1] * np.tanh(R1) * torch.sin(OMEGA_Y * X[:, 1:2])
+
+
+def default_envelope(X):
+    """D(x, y) = (1 - x^2)(1 - y^2): vanishes on the boundary of [-1,1]^2."""
+    return (1.0 - X[:, 0:1] ** 2) * (1.0 - X[:, 1:2] ** 2)
+
+
 def _check_supported(cfg: Poisson2DConfig) -> None:
-    unported = {
-        "hard_bc": cfg.hard_bc,
-        f"scheme={cfg.scheme!r}": cfg.scheme != "VPINNs",
-    }
-    for what, bad in unported.items():
-        if bad:
-            raise NotImplementedError(f"Poisson-2D {what} is not ported yet (ROADMAP.md)")
+    if cfg.scheme not in ("VPINNs", "PINNs"):
+        raise ValueError(f"scheme must be 'VPINNs' or 'PINNs'; got {cfg.scheme!r}")
     if cfg.deriv_mode not in _FIELDS:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
     if cfg.var_form not in (0, 1, 2, "2c"):
         raise ValueError(f"Poisson-2D var_form must be 0, 1, 2 or '2c'; got {cfg.var_form!r}")
     on_ref_elem = (cfg.n_elements_x == 1 and cfg.n_elements_y == 1
                    and cfg.domain_x == (-1.0, 1.0) and cfg.domain_y == (-1.0, 1.0))
-    if cfg.var_form == 2 and not on_ref_elem:
+    if cfg.scheme == "VPINNs" and cfg.var_form == 2 and not on_ref_elem:
         # The verbatim reference form 2 (Poisson-2D.py:108-115) lacks the
         # 1/jac^2 scalings and the boundary flux.
         warnings.warn(
@@ -107,18 +114,21 @@ def build(
     arguments are the JAX package's: `rng` draws the boundary points,
     `u_fn`/`f_fn` override the exact solution and the forcing (numpy
     vectorized (x, y) -> value, f = Delta u), and `lift_fn`/`envelope_fn`
-    (the hard-BC ansatz) are not ported yet and raise.
+    (torch functions [P, 2] -> [P, 1]; cfg.hard_bc takes default_lift and
+    default_envelope) switch on the hard-BC ansatz u = lift + envelope * N,
+    exact on the boundary for any parameters.
 
     deriv_mode "taylor" takes the derivative fields from the plain Taylor
-    propagation (ops/taylor.py); "pallas" (the JAX package's name, kept so a
-    JAX config maps one to one) takes them from the fused CUDA kernels
-    (ops/fused_fields.py: B1 forward, and B2 backward for the
-    second-derivative forms 0/2/"2c"), which need a CUDA device and float32;
-    on the CPU their plain versions run.  The offline arrays are assembled
-    in float64 on the host, then cast to cfg.dtype.
+    propagation (ops/taylor.py); "jvp" from the JVP engine on the ansatz
+    (ops/fields.py; forced by the hard-BC ansatz, which is not a bare MLP);
+    "pallas" (the JAX package's name, kept so a JAX config maps one to one)
+    from the fused CUDA kernels (ops/fused_fields.py: B1 forward, and B2
+    backward for the second-derivative forms 0/2/"2c"), which need a CUDA
+    device and float32; on the CPU their plain versions run.  The PINN
+    scheme's strong-form loss always takes the JVP engine, as the JAX
+    package's does.  The offline arrays are assembled in float64 on the
+    host, then cast to cfg.dtype.
     """
-    if lift_fn is not None or envelope_fn is not None:
-        raise NotImplementedError("Poisson-2D lift_fn/envelope_fn (hard BC) is not ported yet (ROADMAP.md)")
     _check_supported(cfg)
     device = resolve_device(device)
     u_ex = u_fn or u_exact
@@ -156,35 +166,56 @@ def build(
     elems = build_elements_2d(mesh, xq, wq, xq, wq, f_rh, ntx, nty, dtype, device)
 
     Xb, ub = boundary_points(cfg, rng, u_ex)
+    # PINN-mode residual collocation points (Poisson-2D.py:350-356), drawn
+    # after the boundary points from the same rng.
+    Xf = lhs_box([cfg.domain_x, cfg.domain_y], cfg.n_residual, rng)
+    ff = f_rh(Xf[:, 0:1], Xf[:, 1:2])
     data = {
         "elements": elems,
         "basis_x": bx,
         "basis_y": by,
-        "xb": torch.as_tensor(Xb).to(device=device, dtype=dtype),
-        "ub": torch.as_tensor(ub).to(device=device, dtype=dtype),
+        **{k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in (("xb", Xb), ("ub", ub), ("xf", Xf), ("ff", ff))},
     }
 
     spec = MLP(layers=cfg.layers, activation=cfg.activation,
                adaptive_slope=cfg.adaptive_slope, precision=cfg.matmul_precision)
-    fields = _FIELDS[cfg.deriv_mode]
     wb = cfg.lossb_weight
+    hard_bc = cfg.hard_bc or lift_fn is not None or envelope_fn is not None
+    fields = _FIELDS["jvp" if hard_bc else cfg.deriv_mode]
+    if hard_bc:
+        composite = make_composite_apply(spec, lift_fn or default_lift, envelope_fn or default_envelope)
+
+    def make_u_fn(params):
+        if hard_bc:
+            return composite(params)
+        return lambda X: mlp_apply(spec, params["net"], X)
 
     def residual_fn(params, data):
         """Masked weak residual Res[e, k, r]."""
         el = data["elements"]
-        u_fn = lambda X: mlp_apply(spec, params["net"], X)
-        fields_fn = lambda x, y, **kw: fields(spec, params["net"], x, y, **kw)
-        res = poisson2d_residual(u_fn, el, data["basis_x"], data["basis_y"], cfg.var_form, fields_fn)
+        fields_fn = None if fields is None else (lambda x, y, **kw: fields(spec, params["net"], x, y, **kw))
+        res = poisson2d_residual(make_u_fn(params), el, data["basis_x"], data["basis_y"], cfg.var_form, fields_fn)
         return res * el.mask
 
     def loss_fn(params, data):
-        """10 lossb + lossv (Poisson-2D.py:126-129)."""
-        el = data["elements"]
-        ub_pred = mlp_apply(spec, params["net"], data["xb"])
-        lossb = torch.mean((data["ub"] - ub_pred) ** 2)
-        lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
-        loss = wb * lossb + lossv
-        return loss, {"lossb": lossb, "lossv": lossv, "loss": loss}
+        """10 lossb + lossv (Poisson-2D.py:126-129), or under the PINN scheme
+        10 lossb + lossp, lossp the mean squared strong residual at the
+        collocation points (Poisson-2D.py:124,128-129)."""
+        u_fn = make_u_fn(params)
+        lossb = torch.mean((data["ub"] - u_fn(data["xb"])) ** 2)
+        aux = {"lossb": lossb}
+        if cfg.scheme == "VPINNs":
+            el = data["elements"]
+            lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
+            loss = wb * lossb + lossv
+            aux["lossv"] = lossv
+        else:
+            flds = scalar_fields_2d(u_fn, data["xf"][:, 0:1], data["xf"][:, 1:2], second_y=True)
+            lossp = torch.mean((flds["uxx"] + flds["uyy"] - data["ff"]) ** 2)
+            loss = wb * lossb + lossp
+            aux["lossp"] = lossp
+        aux["loss"] = loss
+        return loss, aux
 
     def enriched_residual_fn(params, enrich: int = 3):
         raise NotImplementedError(
@@ -206,6 +237,7 @@ def build(
         data=data,
         loss_fn=loss_fn,
         init_params=make_net_init(spec, dtype=dtype, device=device),
+        apply_override=(lambda params, X: make_u_fn(params)(X)) if hard_bc else None,
         exact=u_ex,
         test_points=test_points,
         test_values=test_values,

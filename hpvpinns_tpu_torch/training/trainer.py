@@ -28,7 +28,7 @@ from torch import nn
 
 from hpvpinns_tpu_torch.config import TrainConfig
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
-from hpvpinns_tpu_torch.problems.base import Problem, parameters
+from hpvpinns_tpu_torch.problems.base import Problem, map_params, parameters
 
 
 @dataclass
@@ -76,10 +76,7 @@ def _copy_params(params, as_parameters: bool):
         t = t.detach().clone()
         return nn.Parameter(t) if as_parameters else t
 
-    return {
-        "net": [{k: copy(v) for k, v in layer.items()} for layer in params["net"]],
-        "pde": {k: copy(v) for k, v in params["pde"].items()},
-    }
+    return map_params(copy, params)
 
 
 def _capture(fn: Callable, debug: bool = False):

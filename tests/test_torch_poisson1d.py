@@ -163,7 +163,7 @@ def test_presets_match_jax_fields():
     assert cfg.layers == (1, 20, 20, 20, 20, 1) and cfg.n_quad == 80 and cfg.activation == "sin"
 
 
-@pytest.mark.parametrize("cfg_kw", [{"hard_bc": True}, {"deriv_mode": "jvp"}])
+@pytest.mark.parametrize("cfg_kw", [{"adaptive_slope": True}, {"matmul_precision": "high"}])
 def test_unported_options_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         tv.build(dataclasses.replace(configs()[1], **cfg_kw), device="cpu")

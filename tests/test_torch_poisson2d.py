@@ -166,7 +166,8 @@ def test_unported_training_phases_raise(train_kw):
 
 
 @pytest.mark.parametrize(
-    "cfg_kw", [{"hard_bc": True}, {"scheme": "PINNs"}, {"adaptive_slope": True}, {"matmul_precision": "high"}]
+    "cfg_kw", [{"hard_bc": True, "adaptive_slope": True}, {"scheme": "PINNs", "matmul_precision": "default"},
+               {"adaptive_slope": True}, {"matmul_precision": "high"}]
 )
 def test_unported_problem_options_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -178,7 +179,9 @@ def test_presets_match_jax_fields():
         t, j = getattr(tv, name)(), getattr(jv, name)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j), name
     with pytest.raises(ValueError, match="deriv_mode"):
-        tv.build(dataclasses.replace(configs()[1], deriv_mode="jvp"), device="cpu")
+        tv.build(dataclasses.replace(configs()[1], deriv_mode="autodiff"), device="cpu")
+    with pytest.raises(ValueError, match="scheme"):
+        tv.build(dataclasses.replace(configs()[1], scheme="PINN"), device="cpu")
     with pytest.raises(ValueError, match="var_form"):
         tv.build(dataclasses.replace(configs()[1], var_form=3), device="cpu")
 

@@ -140,10 +140,17 @@ def test_build_takes_a_manufactured_solution(dim):
 
 
 def test_unported_build_arguments_raise():
-    with pytest.raises(NotImplementedError, match="lift_fn"):
-        tp2d.build(tv.Poisson2DConfig(**SMALL), None, None, None, lambda X: X[:, :1], device="cpu")
-    with pytest.raises(NotImplementedError, match="hard_bc"):
-        tp1d.build(tv.Poisson1DConfig(layers=(1, 4, 1)), None, None, True, device="cpu")
+    """build's lift_fn (Poisson-2D) and hard_bc (Poisson-1D) arguments build
+    the hard-BC ansatz; what still raises is enriched_residual_fn, which
+    waits for adaptive.py."""
+    probs = (tp2d.build(tv.Poisson2DConfig(**SMALL), None, None, None, lambda X: X[:, :1], device="cpu"),
+             tp1d.build(tv.Poisson1DConfig(layers=(1, 4, 1)), None, None, True, device="cpu"))
+    for prob in probs:
+        assert prob.apply_override is not None
+        params = prob.init_params(torch.Generator().manual_seed(0))
+        assert torch.isfinite(prob.loss_fn(params, prob.data)[0])
+        with pytest.raises(NotImplementedError, match="not ported"):
+            prob.extras["enriched_residual_fn"](params)
 
 
 def test_cpu_chunk_is_the_stepwise_chunk(jax_run):
