@@ -3,9 +3,11 @@
 The JAX package `hpvpinns_tpu` is the reference; this package follows its
 layout and names module for module, and never imports JAX or it.  The
 ported slice is the Poisson-1D (forms 1/2/3, hard BC), Poisson-2D (forms
-0/1/2/"2c", hard BC, the PINN scheme) and AdvDiff identification (forms
-0/1/2, scalar/quadratic/network eps, trainable velocity, hard BC) problems
-with the Adam and L-BFGS trainer.  Their derivative fields come from the
+0/1/2/"2c", hard BC, the PINN scheme), Poisson-3D (forms 0/1, hard BC),
+AdvDiff identification (forms 0/1/2, scalar/quadratic/network eps,
+trainable velocity, hard BC) and AdvDiff-2D identification (forms 0/1,
+eps and the velocity vector) problems with the Adam and L-BFGS (optax's)
+trainer.  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
@@ -15,10 +17,13 @@ port.
 """
 
 from hpvpinns_tpu_torch.config import (
+    AdvDiff2DConfig,
     AdvDiffConfig,
     Poisson1DConfig,
     Poisson2DConfig,
+    Poisson3DConfig,
     TrainConfig,
+    advdiff2d_precision,
     advdiff_forward_precision,
     advdiff_of_record,
     advdiff_precision,
@@ -28,6 +33,8 @@ from hpvpinns_tpu_torch.config import (
     poisson2d_of_record,
     poisson2d_quality,
     poisson2d_scaled,
+    poisson3d_precision,
+    poisson3d_quality,
 )
 from hpvpinns_tpu_torch.convert import params_from_jax, params_to_numpy
 from hpvpinns_tpu_torch.evaluate import evaluate as evaluate_problem
@@ -36,11 +43,14 @@ from hpvpinns_tpu_torch.problems import build
 from hpvpinns_tpu_torch.training import TrainResult, train
 
 __all__ = [
+    "AdvDiff2DConfig",
     "AdvDiffConfig",
     "Poisson1DConfig",
     "Poisson2DConfig",
+    "Poisson3DConfig",
     "TrainConfig",
     "TrainResult",
+    "advdiff2d_precision",
     "advdiff_forward_precision",
     "advdiff_of_record",
     "advdiff_precision",
@@ -54,6 +64,8 @@ __all__ = [
     "poisson2d_of_record",
     "poisson2d_quality",
     "poisson2d_scaled",
+    "poisson3d_precision",
+    "poisson3d_quality",
     "predict",
     "rel_l2",
     "strong_residual",

@@ -1,5 +1,5 @@
-"""Configuration objects: the Poisson-1D, Poisson-2D and AdvDiff subset of
-hpvpinns_tpu/config.py.
+"""Configuration objects: the Poisson-1D, Poisson-2D, Poisson-3D, AdvDiff and
+AdvDiff-2D subset of hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
 to one.  Fields whose feature is not ported yet (Gauss-Newton,
@@ -154,6 +154,91 @@ class AdvDiffConfig:
     )
 
 
+@dataclass(frozen=True)
+class Poisson3DConfig:
+    """3D Poisson Delta u = f on [-1, 1]^3: the volumetric generalization of
+    the tensor-product architecture (no reference analog)."""
+
+    layers: Tuple[int, ...] = (3, 20, 20, 20, 1)
+    activation: str = "tanh"
+    var_form: int = 1  # 0 | 1
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    n_elements_x: int = 2
+    n_elements_y: int = 2
+    n_elements_z: int = 2
+    n_test_x: int = 5
+    n_test_y: int = 5
+    n_test_z: int = 5
+    n_test_x_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_y_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_z_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 8  # per axis per element
+    n_bound: int = 100  # boundary points per face (6 faces)
+    lossb_weight: float = 10.0
+    hard_bc: bool = False  # lifted ansatz u = g + D N: all six faces exact ("jvp")
+    domain_x: Tuple[float, float] = (-1.0, 1.0)
+    domain_y: Tuple[float, float] = (-1.0, 1.0)
+    domain_z: Tuple[float, float] = (-1.0, 1.0)
+    dtype: str = "float32"
+    deriv_mode: str = "taylor"  # "taylor" | "jvp" | "pallas" (the fused CUDA kernels)
+    train: TrainConfig = field(default_factory=lambda: TrainConfig(iterations=5001))
+
+
+@dataclass(frozen=True)
+class AdvDiff2DConfig:
+    """2D space-time advection-diffusion
+
+        u_t + vx u_x + vy u_y - eps (u_xx + u_yy) = f
+
+    on [-1, 1]^2 x [0, T], assembled on the 3D tensor machinery (time the
+    slowest axis), with the manufactured solution u = sin(pi x) sin(pi y)
+    e^{-t}; eps (and optionally the velocity vector) are identified from
+    interior sensors."""
+
+    layers: Tuple[int, ...] = (3, 16, 16, 16, 1)
+    activation: str = "tanh"
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    var_form: int = 1  # 0 | 1 (both diffusion terms once integrated by parts)
+    n_elements_x: int = 1
+    n_elements_y: int = 1
+    n_elements_t: int = 1
+    grid_x: Optional[Tuple[float, ...]] = None  # non-uniform element boundaries per axis
+    grid_y: Optional[Tuple[float, ...]] = None
+    grid_t: Optional[Tuple[float, ...]] = None
+    n_test_x: int = 5
+    n_test_y: int = 5
+    n_test_t: int = 5
+    n_test_x_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_y_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_t_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 8  # per axis per element
+    n_bound: int = 80  # per face (4 side walls + the t = 0 face)
+    lossb_weight: float = 10.0
+    velocity: Tuple[float, float] = (1.0, 0.5)  # true (vx, vy)
+    velocity_trainable: bool = False  # also identify (vx, vy), from velocity_init
+    velocity_init: Tuple[float, float] = (0.5, 0.25)
+    gamma: float = 0.1  # true eps = gamma / pi
+    epsilon_init: float = 1.0
+    inverse: bool = True  # eps trainable; False freezes it at the true value
+    sensor_stations: Tuple[Tuple[float, float], ...] = (
+        (-0.5, -0.5), (-0.5, 0.5), (0.0, 0.0), (0.5, -0.5), (0.5, 0.5),
+    )  # interior (x, y) stations
+    n_sensors_per_station: int = 5  # LHS times per station
+    sensor_noise_std: float = 0.0
+    t_final: float = 1.0
+    domain_x: Tuple[float, float] = (-1.0, 1.0)
+    domain_y: Tuple[float, float] = (-1.0, 1.0)
+    dtype: str = "float32"
+    deriv_mode: str = "taylor"  # "taylor" | "jvp" | "pallas" (the fused CUDA kernels)
+    train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(
+            iterations=3000, check_every=100, best_snapshot_fraction=0.9
+        )
+    )
+
+
 def poisson1d_of_record() -> Poisson1DConfig:
     """Poisson-1D.py:231-240."""
     return Poisson1DConfig()
@@ -256,11 +341,64 @@ def advdiff_forward_precision() -> AdvDiffConfig:
     )
 
 
+def poisson3d_quality(hard_bc: bool = False) -> Poisson3DConfig:
+    """(3,48,48,48,1) net, 6^3 test functions, 10^3 quadrature points, 8
+    elements, Adam 10k + L-BFGS 10k; hard_bc=True lifts the ansatz (all six
+    faces exact)."""
+    return Poisson3DConfig(
+        layers=(3, 48, 48, 48, 1),
+        n_test_x=6,
+        n_test_y=6,
+        n_test_z=6,
+        n_quad=10,
+        hard_bc=hard_bc,
+        train=TrainConfig(iterations=10000, lbfgs_iterations=10000, check_every=1000),
+    )
+
+
+def poisson3d_precision(hard_bc: bool = True) -> Poisson3DConfig:
+    """The quality point with 8^3 test functions and a 30-step matrix-free
+    (CG) Gauss-Newton/LM phase; its gn_iterations raise in `train` until the
+    Gauss-Newton phase is ported."""
+    base = poisson3d_quality(hard_bc=hard_bc)
+    return replace(
+        base,
+        n_test_x=8, n_test_y=8, n_test_z=8,
+        train=replace(base.train, gn_iterations=30, gn_solve="cg",
+                      gn_cg_tol=1e-4, gn_cg_maxiter=2000),
+    )
+
+
+def advdiff2d_precision() -> AdvDiff2DConfig:
+    """The forward frontier of the 2D space-time family: eps frozen at truth,
+    a (3,32,32,32,1) net, 8^3 test functions, 10^3 quadrature points, Adam
+    5000 and a 120-step QR-LM phase; its gn_iterations raise in `train`
+    until the Gauss-Newton phase is ported."""
+    return AdvDiff2DConfig(
+        layers=(3, 32, 32, 32, 1),
+        n_test_x=8,
+        n_test_y=8,
+        n_test_t=8,
+        n_quad=10,
+        inverse=False,
+        train=TrainConfig(
+            iterations=5000,
+            gn_iterations=120,
+            gn_solve="qr",
+            check_every=500,
+            best_snapshot_fraction=0.9,
+        ),
+    )
+
+
 __all__ = [
+    "AdvDiff2DConfig",
     "AdvDiffConfig",
     "TrainConfig",
     "Poisson1DConfig",
     "Poisson2DConfig",
+    "Poisson3DConfig",
+    "advdiff2d_precision",
     "advdiff_forward_precision",
     "advdiff_of_record",
     "advdiff_precision",
@@ -270,5 +408,7 @@ __all__ = [
     "poisson2d_of_record",
     "poisson2d_quality",
     "poisson2d_scaled",
+    "poisson3d_precision",
+    "poisson3d_quality",
     "replace",
 ]

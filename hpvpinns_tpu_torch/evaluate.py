@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hpvpinns_tpu_torch.ops.fields import scalar_fields_1d, scalar_fields_2d
+from hpvpinns_tpu_torch.ops.fields import scalar_fields_1d, scalar_fields_2d, scalar_fields_3d
 from hpvpinns_tpu_torch.problems.base import Problem
 
 
@@ -54,10 +54,14 @@ def strong_residual(problem: Problem, params, X: Optional[np.ndarray] = None) ->
     """Pointwise strong-form PDE residual at X [P, d] (default: the test
     grid), as numpy [P, 1]: the reference's `net_f` (Poisson-1D.py:150-155:
     -u_xx; Poisson-2D.py:187-194: u_xx + u_yy; AdvDiff.py:247-253:
-    u_t + V u_x - eps u_xx).  For the Poisson problems it is f_pred - f(X);
-    for AdvDiff the operator value minus the manufactured forcing, if any
-    (F = 0 in the reference).  The JVP engine differentiates the full ansatz
-    (problem.apply), so a hard-BC composite is differentiated correctly."""
+    u_t + V u_x - eps u_xx; AdvDiff-2D: u_t + vx u_x + vy u_y - eps (u_xx +
+    u_yy)).  For the Poisson problems it is f_pred - f(X); for AdvDiff the
+    operator value minus the manufactured forcing, if any (F = 0 in the
+    reference); for AdvDiff-2D minus its manufactured forcing, with eps the
+    trainable scalar, the true map epsilon_fn pointwise (forward runs) or
+    eps_true.  Poisson-3D has no branch, as in the JAX package.  The JVP
+    engine differentiates the full ansatz (problem.apply), so a hard-BC
+    composite is differentiated correctly."""
     if X is None:
         X = problem.test_points
     X = np.asarray(X)
@@ -82,6 +86,18 @@ def strong_residual(problem: Problem, params, X: Optional[np.ndarray] = None) ->
         f_fn = problem.extras.get("f_rhs")
         if f_fn is not None:
             r = r - on_device(f_fn(X[:, 0:1], X[:, 1:2]))
+    elif problem.name == "advdiff2d":
+        eps_fn = problem.extras["epsilon_fn"]
+        if problem.config.inverse:
+            eps = params["pde"]["epsilon"]
+        elif eps_fn is not None:
+            eps = eps_fn(Xt[:, 0:1], Xt[:, 1:2])
+        else:
+            eps = problem.extras["eps_true"]
+        vx, vy = problem.extras["v_of"](params)
+        flds = scalar_fields_3d(u_fn, Xt[:, 0:1], Xt[:, 1:2], Xt[:, 2:3])
+        r = flds["uz"] + vx * flds["ux"] + vy * flds["uy"] - eps * (flds["uxx"] + flds["uyy"])
+        r = r - on_device(problem.extras["f_rhs"](X[:, 0:1], X[:, 1:2], X[:, 2:3]))
     else:
         raise NotImplementedError(f"strong_residual for {problem.name!r} is not ported yet (ROADMAP.md)")
     return r.detach().cpu().numpy()

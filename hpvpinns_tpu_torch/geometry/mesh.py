@@ -1,6 +1,6 @@
 """hp-domain-decomposition geometry: element grids, affine maps, jacobians.
 
-Counterpart of hpvpinns_tpu/geometry/mesh.py (1D and 2D).  The reference
+Counterpart of hpvpinns_tpu/geometry/mesh.py (1D, 2D and 3D).  The reference
 element xi in [-1, 1] maps to x = center_e + jac_e * xi with jacobian
 (x_{e+1} - x_e) / 2 per axis; per-element quantities carry a leading element
 axis.
@@ -105,3 +105,51 @@ class TensorMesh2D:
         X = np.broadcast_to(Xx[:, None, None, :], (Ex, Ey, Qy, Qx)).reshape(Ex * Ey, Qy, Qx)
         Y = np.broadcast_to(Yy[None, :, :, None], (Ex, Ey, Qy, Qx)).reshape(Ex * Ey, Qy, Qx)
         return np.ascontiguousarray(X), np.ascontiguousarray(Y)
+
+
+@dataclass(frozen=True)
+class TensorMesh3D:
+    """Tensor-product 3D partition (x, y, z), elements enumerated flat with
+    e = (ex * E_y + ey) * E_z + ez (x-major, as in 2D).  Each axis is an
+    Interval1D, uniform or not (AdvDiff-2D's grid_x/grid_y/grid_t)."""
+
+    axis_x: Interval1D
+    axis_y: Interval1D
+    axis_z: Interval1D
+
+    @classmethod
+    def uniform(cls, xlo, xhi, nex, ylo, yhi, ney, zlo, zhi, nez) -> "TensorMesh3D":
+        return cls(
+            axis_x=Interval1D.uniform(xlo, xhi, nex),
+            axis_y=Interval1D.uniform(ylo, yhi, ney),
+            axis_z=Interval1D.uniform(zlo, zhi, nez),
+        )
+
+    @property
+    def n_elem(self) -> int:
+        return self.axis_x.n_elem * self.axis_y.n_elem * self.axis_z.n_elem
+
+    @property
+    def shape(self):
+        return (self.axis_x.n_elem, self.axis_y.n_elem, self.axis_z.n_elem)
+
+    def jacobians(self):
+        """Per-axis jacobians for every flat element: ([E], [E], [E])."""
+        Ex, Ey, Ez = self.shape
+        jx = np.repeat(self.axis_x.jacobians, Ey * Ez)
+        jy = np.tile(np.repeat(self.axis_y.jacobians, Ez), Ex)
+        jz = np.tile(self.axis_z.jacobians, Ex * Ey)
+        return jx, jy, jz
+
+    def map_points(self, xi: np.ndarray, eta: np.ndarray, zeta: np.ndarray):
+        """Map the reference tensor grid into every element: (X, Y, Z) each
+        [E, Qz, Qy, Qx], z the slowest point axis and x the fastest."""
+        Xx = self.axis_x.map_points(xi)  # [Ex, Qx]
+        Yy = self.axis_y.map_points(eta)  # [Ey, Qy]
+        Zz = self.axis_z.map_points(zeta)  # [Ez, Qz]
+        (Ex, Qx), (Ey, Qy), (Ez, Qz) = Xx.shape, Yy.shape, Zz.shape
+        E, shape = Ex * Ey * Ez, (Ex, Ey, Ez, Qz, Qy, Qx)
+        X = np.broadcast_to(Xx[:, None, None, None, None, :], shape).reshape(E, Qz, Qy, Qx)
+        Y = np.broadcast_to(Yy[None, :, None, None, :, None], shape).reshape(E, Qz, Qy, Qx)
+        Z = np.broadcast_to(Zz[None, None, :, :, None, None], shape).reshape(E, Qz, Qy, Qx)
+        return np.ascontiguousarray(X), np.ascontiguousarray(Y), np.ascontiguousarray(Z)

@@ -1,7 +1,8 @@
 """Variational (weak-form) residual assembly, batched over elements.
 
-Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D, Poisson-2D and
-AdvDiff.  Res[e, n] (1D) / Res[e, k, r] (2D) = U - F, with F the offline RHS
+Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D/2D/3D, AdvDiff
+and AdvDiff-2D.  Res[e, n] (1D) / Res[e, k, r] (2D) / Res[e, m, k, r] (3D)
+= U - F, with F the offline RHS
 projection and U the network's derivative fields contracted against the
 quadrature-weighted test basis (weights folded in: Wphi[n, q] = w_q phi_n).
 """
@@ -13,8 +14,8 @@ from dataclasses import dataclass
 
 import torch
 
-from hpvpinns_tpu_torch.ops.contract import contract_1d, contract_2d
-from hpvpinns_tpu_torch.ops.fields import scalar_fields_1d, scalar_fields_2d
+from hpvpinns_tpu_torch.ops.contract import contract_1d, contract_2d, contract_3d
+from hpvpinns_tpu_torch.ops.fields import scalar_fields_1d, scalar_fields_2d, scalar_fields_3d
 
 
 class _Tensors:
@@ -74,6 +75,26 @@ class Elements2D(_Tensors):
     bounds_y: torch.Tensor
     jac_x: torch.Tensor
     jac_y: torch.Tensor
+    f_proj: torch.Tensor
+    mask: torch.Tensor
+    n_test: torch.Tensor
+
+
+@dataclass(frozen=True)
+class Elements3D(_Tensors):
+    """Per-element geometry + targets for a tensor-product 3D assembly.
+
+    x, y, z: [E, Qz, Qy, Qx] physical quadrature points (z slowest, x
+    fastest); jac_x, jac_y, jac_z: [E] per-axis jacobians; f_proj, mask:
+    [E, M, K, R]; n_test: [E].
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    jac_x: torch.Tensor
+    jac_y: torch.Tensor
+    jac_z: torch.Tensor
     f_proj: torch.Tensor
     mask: torch.Tensor
     n_test: torch.Tensor
@@ -220,6 +241,76 @@ def advdiff_residual(u_fn, elems: Elements2D, bx: Basis1D, bt: Basis1D, var_form
         )
     else:
         raise ValueError(f"AdvDiff var_form must be 0, 1 or 2; got {var_form}")
+    return U - elems.f_proj
+
+
+def _fields_3d(u_fn, elems: Elements3D, fields_fn, second: bool):
+    if fields_fn is None:
+        return scalar_fields_3d(u_fn, elems.x, elems.y, elems.z, second=second)
+    return fields_fn(elems.x, elems.y, elems.z, second=second)
+
+
+def advdiff2d_residual(u_fn, elems: Elements3D, bx: Basis1D, by: Basis1D, bt: Basis1D, var_form: int,
+                       vx, vy, epsilon, fields_fn=None, epsilon_x=0.0, epsilon_y=0.0):
+    """Res[e, m, k, r] for u_t + vx u_x + vy u_y - eps (u_xx + u_yy) = f on
+    (x, y, t) elements, time the slowest (z) axis; with
+    C3(a, b, c, g) the quadrature sum against phi_a(x) phi_b(y) phi_c(t):
+
+    var_form 0:  U = jac C3(phi_r, phi_k, phi_m, ut + vx ux + vy uy - eps (uxx + uyy))
+    var_form 1:  U = jac C3(phi_r, phi_k, phi_m, ut + vx ux + vy uy + eps_x ux + eps_y uy)
+                     + (jac/jac_x) C3(phi'_r, phi_k, phi_m, eps ux)
+                     + (jac/jac_y) C3(phi_r, phi'_k, phi_m, eps uy)
+
+    vx, vy and epsilon are numbers, 0-d tensors (trainable) or fields
+    broadcastable to [E, Qt, Qy, Qx]; epsilon_x/epsilon_y are the field's
+    derivatives (0 for a scalar).  Form 0 takes the fields with second
+    derivatives (uzz is computed and dropped), form 1 firsts only.
+    `fields_fn(x, y, z, second=...)` is taylor_fields_3d or fused_fields_3d
+    bound to the network (None: the JVP engine on `u_fn`)."""
+    flds = _fields_3d(u_fn, elems, fields_fn, var_form == 0)
+    ut, ux, uy = flds["uz"], flds["ux"], flds["uy"]
+    jac = (elems.jac_x * elems.jac_y * elems.jac_z)[:, None, None, None]
+    adv = ut + vx * ux + vy * uy
+    if var_form == 0:
+        U = jac * contract_3d(bx.wphi, by.wphi, bt.wphi, adv - epsilon * (flds["uxx"] + flds["uyy"]))
+    elif var_form == 1:
+        jx = (elems.jac_y * elems.jac_z)[:, None, None, None]
+        jy = (elems.jac_x * elems.jac_z)[:, None, None, None]
+        U = (
+            jac * contract_3d(bx.wphi, by.wphi, bt.wphi, adv + epsilon_x * ux + epsilon_y * uy)
+            + jx * contract_3d(bx.wdphi, by.wphi, bt.wphi, epsilon * ux)
+            + jy * contract_3d(bx.wphi, by.wdphi, bt.wphi, epsilon * uy)
+        )
+    else:
+        raise ValueError(f"AdvDiff-2D var_form must be 0 or 1; got {var_form}")
+    return U - elems.f_proj
+
+
+def poisson3d_residual(u_fn, elems: Elements3D, bx: Basis1D, by: Basis1D, bz: Basis1D, var_form: int,
+                       fields_fn=None):
+    """Res[e, m, k, r] for Delta u = f on 3D tensor-product elements:
+
+    var_form 0:  U = jac C(phi_r, phi_k, phi_m, u_xx + u_yy + u_zz)
+    var_form 1:  U = -(jac/jac_x) C(phi'_r, phi_k, phi_m, u_x)
+                     -(jac/jac_y) C(phi_r, phi'_k, phi_m, u_y)
+                     -(jac/jac_z) C(phi_r, phi_k, phi'_m, u_z)
+
+    `fields_fn` as for advdiff2d_residual; form 1 takes firsts only."""
+    flds = _fields_3d(u_fn, elems, fields_fn, var_form == 0)
+    jac = (elems.jac_x * elems.jac_y * elems.jac_z)[:, None, None, None]
+    if var_form == 0:
+        U = jac * contract_3d(bx.wphi, by.wphi, bz.wphi, flds["uxx"] + flds["uyy"] + flds["uzz"])
+    elif var_form == 1:
+        jx = (elems.jac_y * elems.jac_z)[:, None, None, None]
+        jy = (elems.jac_x * elems.jac_z)[:, None, None, None]
+        jz = (elems.jac_x * elems.jac_y)[:, None, None, None]
+        U = -(
+            jx * contract_3d(bx.wdphi, by.wphi, bz.wphi, flds["ux"])
+            + jy * contract_3d(bx.wphi, by.wdphi, bz.wphi, flds["uy"])
+            + jz * contract_3d(bx.wphi, by.wphi, bz.wdphi, flds["uz"])
+        )
+    else:
+        raise ValueError(f"Poisson-3D var_form must be 0 or 1; got {var_form}")
     return U - elems.f_proj
 
 

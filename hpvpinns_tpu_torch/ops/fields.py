@@ -1,8 +1,8 @@
 """Batched evaluation of an ansatz and its PDE derivatives at quadrature
 points, by the JVP engine (ops/derivatives.py).
 
-Counterpart of hpvpinns_tpu/ops/fields.py (the scalar engines; the vector
-ones wait for the vector problems).  All elements' points are batched into
+Counterpart of hpvpinns_tpu/ops/fields.py (the scalar engines in 1, 2 and 3
+dimensions; the vector ones wait for the vector problems).  All elements' points are batched into
 one flat [P, d] array and the derivatives come from nested forward-mode JVPs
 of the whole ansatz: `deriv_mode="jvp"`, the engine for any ansatz that is
 not a bare MLP (the hard-BC composite, an input feature) and for the strong
@@ -52,4 +52,23 @@ def scalar_fields_2d(
         _, uy, uyy = value_and_dir_derivs2(u_fn, X, vy)
         out["uy"] = uy.reshape(shape)
         out["uyy"] = uyy.reshape(shape)
+    return out
+
+
+def scalar_fields_3d(u_fn, x, y, z, *, second: bool = True):
+    """The ansatz and its per-axis derivatives at 3D points x, y, z (identical
+    shapes [..., Qz, Qy, Qx]); u_fn maps [P, 3] -> [P, 1].  {u, ux, uy, uz}
+    plus {uxx, uyy, uzz} when `second`."""
+    shape = x.shape
+    X = torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=-1)
+    out = {}
+    for k, name1, name2 in ((0, "ux", "uxx"), (1, "uy", "uyy"), (2, "uz", "uzz")):
+        v = coord_tangent(X, k)
+        if second:
+            u, d1, d2 = value_and_dir_derivs2(u_fn, X, v)
+            out[name2] = d2.reshape(shape)
+        else:
+            u, d1 = torch.func.jvp(u_fn, (X,), (v,))
+        out[name1] = d1.reshape(shape)
+    out["u"] = u.reshape(shape)
     return out

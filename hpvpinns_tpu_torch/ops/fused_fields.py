@@ -475,7 +475,8 @@ class FusedFieldsBwdKernel(KernelWrapper):
         dev = _device_index(X)
         self.load()
         self.library.check_smem(
-            dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs), f"layers {spec.layers} and n_dirs {n_dirs}"
+            dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs),
+            f"layers {spec.layers} and n_dirs {n_dirs} (above B2's shared-memory ceiling: ROADMAP.md queue B item 1)",
         )
         plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block)
         partials = torch.empty((plan.n_blocks, plan.row_pitch), dtype=torch.float32, device=X.device)
@@ -637,3 +638,14 @@ def fused_fields_2d(
     if not first_y_only:
         flds["uyy"] = out[:, 4].reshape(shape)
     return flds
+
+
+def fused_fields_3d(spec: MLP, params, x, y, z, *, second: bool = True):
+    """Fused-kernel twin of taylor_fields_3d (the pallas_fields_3d contract):
+    n_dirs 3, the columns u, ux, uy, uz[, uxx, uyy, uzz] with x the first
+    input."""
+    shape = x.shape
+    X = torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=-1)
+    out = fields_flat(spec, params, X, 3, second)
+    names = ("u", "ux", "uy", "uz") + (("uxx", "uyy", "uzz") if second else ())
+    return {k: out[:, c].reshape(shape) for c, k in enumerate(names)}

@@ -104,3 +104,15 @@ def taylor_fields_2d(
         return out
     u, (ux,), (uxx,) = mlp_fields(spec, params, X, (0,))
     return {"u": u.reshape(shape), "ux": ux.reshape(shape), "uxx": uxx.reshape(shape)}
+
+
+def taylor_fields_3d(spec: MLP, params, x, y, z, *, second: bool = True):
+    """Fields of the 3D ansatz at x, y, z (same shape): {u, ux, uy, uz} plus
+    {uxx, uyy, uzz} when `second`."""
+    shape = x.shape
+    X = torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=-1)
+    u, firsts, seconds = mlp_fields(spec, params, X, (0, 1, 2), second=second)
+    out = {"u": u.reshape(shape)}
+    out.update({name: t.reshape(shape) for name, t in zip(("ux", "uy", "uz"), firsts)})
+    out.update({name: t.reshape(shape) for name, t in zip(("uxx", "uyy", "uzz"), seconds)})
+    return out

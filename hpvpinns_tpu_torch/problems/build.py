@@ -1,7 +1,7 @@
 """Offline assembly: host-side float64 precomputation of basis tensors,
 element geometry and RHS projections.
 
-Counterpart of hpvpinns_tpu/problems/build.py (1D and 2D).  Everything is assembled
+Counterpart of hpvpinns_tpu/problems/build.py (1D, 2D and 3D).  Everything is assembled
 in float64 numpy and only then cast to the training dtype and moved to the
 device: the network forward and its derivatives are the only live compute.
 """
@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
-from hpvpinns_tpu_torch.ops.assembly import Basis1D, Elements1D, Elements2D
+from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D, TensorMesh3D
+from hpvpinns_tpu_torch.ops.assembly import Basis1D, Elements1D, Elements2D, Elements3D
 from hpvpinns_tpu_torch.spectral.basis import make_test_basis
 
 
@@ -113,3 +113,48 @@ def build_elements_2d(
         f_proj=f_proj, mask=mask, n_test=n_test,
     )
     return Elements2D(**{k: _tensor(v, dtype, device) for k, v in arrays.items()})
+
+
+def build_elements_3d(
+    mesh: TensorMesh3D,
+    xq: np.ndarray,
+    wq: np.ndarray,
+    f_fn,
+    n_test_x,
+    n_test_y,
+    n_test_z,
+    dtype,
+    device=None,
+) -> Elements3D:
+    """3D element batch (the same quadrature rule on every axis) with RHS
+    projections
+    F[e, m, k, r] = jac_e sum_q wx wy wz f(x, y, z) phi_r(xi) phi_k(eta) phi_m(zeta)
+    (flat element order e = (ex*Ey + ey)*Ez + ez).  n_test_* are ints or
+    per-axis-element arrays, masked as in 1D/2D; f_fn=None gives F = 0."""
+    xq = np.asarray(xq, dtype=np.float64).reshape(-1)
+    wq = np.asarray(wq, dtype=np.float64).reshape(-1)
+    Ex, Ey, Ez = mesh.shape
+    ntx = np.broadcast_to(np.asarray(n_test_x, dtype=np.int64), (Ex,))
+    nty = np.broadcast_to(np.asarray(n_test_y, dtype=np.int64), (Ey,))
+    ntz = np.broadcast_to(np.asarray(n_test_z, dtype=np.int64), (Ez,))
+    n_max_x, n_max_y, n_max_z = int(ntx.max()), int(nty.max()), int(ntz.max())
+    tbx, tby, tbz = (make_test_basis(n, xq) for n in (n_max_x, n_max_y, n_max_z))
+
+    X, Y, Z = mesh.map_points(xq, xq, xq)  # [E, Qz, Qy, Qx]
+    jx, jy, jz = mesh.jacobians()
+    E = mesh.n_elem
+
+    w = wq[None, :]
+    if f_fn is None:
+        f_proj = np.zeros((E, n_max_z, n_max_y, n_max_x))
+    else:
+        t = np.einsum("rx,ezyx->ezyr", tbx.phi * w, f_fn(X, Y, Z))
+        t = np.einsum("ky,ezyr->ezkr", tby.phi * w, t)
+        f_proj = (jx * jy * jz)[:, None, None, None] * np.einsum("mz,ezkr->emkr", tbz.phi * w, t)
+    mx = (np.arange(n_max_x)[None, :] < ntx[:, None]).astype(np.float64)  # [Ex, R]
+    my = (np.arange(n_max_y)[None, :] < nty[:, None]).astype(np.float64)  # [Ey, K]
+    mz = (np.arange(n_max_z)[None, :] < ntz[:, None]).astype(np.float64)  # [Ez, M]
+    mask = np.einsum("cm,bk,ar->abcmkr", mz, my, mx).reshape(E, n_max_z, n_max_y, n_max_x)
+    n_test = (ntx[:, None, None] * nty[None, :, None] * ntz[None, None, :]).reshape(E).astype(np.float64)
+    arrays = dict(x=X, y=Y, z=Z, jac_x=jx, jac_y=jy, jac_z=jz, f_proj=f_proj * mask, mask=mask, n_test=n_test)
+    return Elements3D(**{k: _tensor(v, dtype, device) for k, v in arrays.items()})

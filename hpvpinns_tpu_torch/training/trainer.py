@@ -29,6 +29,7 @@ from torch import nn
 from hpvpinns_tpu_torch.config import TrainConfig
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
 from hpvpinns_tpu_torch.problems.base import Problem, map_params, parameters
+from hpvpinns_tpu_torch.training.lbfgs import LBFGS
 
 
 @dataclass
@@ -42,8 +43,10 @@ class TrainResult:
     best_params: Optional[Any] = None
     final_aux: Dict[str, float] = field(default_factory=dict)
     # per phase ("adam", "lbfgs"): iterations, wall seconds, and for L-BFGS
-    # the closure evaluations (the loss and gradient)
-    phases: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    # the closure evaluations (the loss and gradient), the failed line
+    # searches, and under "unsafe_at" the iterations (counted as in
+    # history["iteration"]) that ended with an unsafe step (training/lbfgs.py)
+    phases: Dict[str, Dict[str, Any]] = field(default_factory=dict)
 
     @property
     def eval_params(self):
@@ -63,12 +66,11 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
                             capturable=_on_card(params))
 
 
-def make_lbfgs(params) -> torch.optim.LBFGS:
-    """L-BFGS with a memory of 10 (optax.lbfgs's memory_size) and a strong
-    Wolfe line search; one `step` is one iteration (max_iter=1) with up to
-    25 evaluations, and no tolerance stops it early."""
-    return torch.optim.LBFGS(parameters(params), lr=1, max_iter=1, max_eval=25, history_size=10,
-                             tolerance_grad=0, tolerance_change=0, line_search_fn="strong_wolfe")
+def make_lbfgs(params) -> LBFGS:
+    """optax.lbfgs() (training/lbfgs.py): a memory of 10, the zoom line
+    search with at most 20 trials, over every leaf of `params`; one `step`
+    is one iteration, and no tolerance stops it early."""
+    return LBFGS(parameters(params))
 
 
 def _copy_params(params, as_parameters: bool):
@@ -195,19 +197,17 @@ def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False) -> _
     return _Chunk(iterate, metrics, (step_graph, metrics_graph))
 
 
-def _build_lbfgs_chunk(loss_fn: Callable, opt: torch.optim.LBFGS, params, data) -> _Chunk:
+def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
     """The L-BFGS chunk: n calls of `opt.step(closure)`, one iteration each,
     then the metrics.  The closure sets the gradients of the loss at the
     current params and returns the loss; on the card it replays a CUDA graph
-    of the forward and backward, captured once (the optimizer moves the
-    parameters in place, `add_` and `copy_`, so their addresses hold).
+    of the forward and backward, captured once (the optimizer writes each
+    trial point into the parameters with `copy_`, so their addresses hold).
 
-    torch's strong Wolfe line search and first step differ from optax's zoom
-    line search and initial scaling (the JAX package's optax.lbfgs()), so this
-    phase follows another trajectory than the JAX one: it is held to the
-    accuracy it reaches and to a loss that does not increase from record to
-    record, not bit for bit.  Each line-search trial reads the loss on the
-    host, so this phase syncs a few times per iteration."""
+    The optimizer is the JAX package's optax.lbfgs() (training/lbfgs.py), so
+    this phase follows the JAX trajectory: in float64 on the CPU its records
+    equal the JAX package's to rounding (tests/test_torch_trainer.py).  Each
+    line-search trial reads its value and slope on the host in one sync."""
 
     def evaluate():
         opt.zero_grad(set_to_none=True)
@@ -265,7 +265,7 @@ def train(
 
     check = max(1, cfg.check_every)
     records: List[Dict[str, float]] = []
-    phases: Dict[str, Dict[str, float]] = {}
+    phases: Dict[str, Dict[str, Any]] = {}
     stopped = False
     best_params = None
     min_loss = np.inf
@@ -321,7 +321,8 @@ def train(
         # has found the basin.
         lbfgs = make_lbfgs(params)
         run_phase("lbfgs", _build_lbfgs_chunk, lbfgs, cfg.lbfgs_iterations)
-        phases["lbfgs"]["evaluations"] = lbfgs.state[lbfgs.param_groups[0]["params"][0]].get("func_evals", 0)
+        phases["lbfgs"].update(evaluations=lbfgs.evaluations, failed_searches=lbfgs.failed_searches,
+                               unsafe_at=[cfg.iterations + c + 1 for c in lbfgs.unsafe_at])
 
     it = state["it"]
     t_end = time.perf_counter()

@@ -18,9 +18,11 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, hpvpinns_tpu_torch, chip_smoke\n"
         "import hpvpinns_tpu_torch.ops.fused_fields, hpvpinns_tpu_torch.training.trainer, hpvpinns_tpu_torch.utils.profiling\n"
         "import hpvpinns_tpu_torch.ops.derivatives, hpvpinns_tpu_torch.ops.fields, hpvpinns_tpu_torch.problems.advdiff\n"
+        "import hpvpinns_tpu_torch.problems.poisson3d, hpvpinns_tpu_torch.problems.advdiff2d, hpvpinns_tpu_torch.training.lbfgs\n"
         "names = [m.name for m in pkgutil.walk_packages(hpvpinns_tpu_torch.__path__, 'hpvpinns_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
-        "assert 'hpvpinns_tpu_torch.problems.advdiff' in names and 'hpvpinns_tpu_torch.ops.fields' in names, names\n"
+        "new = ('problems.advdiff', 'ops.fields', 'problems.poisson3d', 'problems.advdiff2d', 'training.lbfgs')\n"
+        "assert all('hpvpinns_tpu_torch.' + n in names for n in new), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'hpvpinns_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

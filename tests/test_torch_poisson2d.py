@@ -191,7 +191,7 @@ def test_multi_device_mesh_raises():
         tv.train(tv.build(configs()[1], device="cpu"), verbose=False, mesh=object())
 
 
-@pytest.mark.parametrize("preset", ["poisson1d_of_record", "poisson2d_scaled"])
+@pytest.mark.parametrize("preset", ["poisson1d_of_record", "poisson2d_scaled", "poisson3d_quality", "AdvDiff2DConfig"])
 def test_build_defaults_to_the_card(preset):
     """With no `device`, problems are built on the card; with no CUDA device
     that raises and names device="cpu" (it never moves to the CPU itself)."""
