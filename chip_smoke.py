@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
                            | --advdiff-only | --advdiff-quality SEED... | --volumetric-only
-                           | --poisson3d-quality [SEED...]]
+                           | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -104,8 +104,9 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      points (P 8,000, (3,48,48,48,1) tanh), firsts and second derivatives
      (fields rtol 2e-5, gradients through B2 at phase 7's tolerance), each
      kernel's device us beside its bound and the plain version's, B2 at
-     (3,52,52,52,1) against its plain version and at (3,56,56,56,1)
-     raising (its shared memory is above the card's limit); (b) one chunk
+     (3,52,52,52,1) (the resident form) and at (3,56,56,56,1) and
+     (3,64,64,64,1) (the wide form: the resident form's shared memory is
+     above the card's limit) against its plain version; (b) one chunk
      as graphs against the eager chunk bit for bit at form 0 "pallas" (B1,
      B2, block sum in the captured step), form 1 "pallas" and hard BC
      ("jvp"); (c) poisson3d_quality under "pallas" at its full schedule
@@ -119,6 +120,27 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      and (vx, vy), Adam 5k + L-BFGS 5k) under "pallas": eps's and |V|'s
      relative errors beside 0.13% / 0.17%, rel-L2 beside 2.9e-2; (d)
      AdvDiff2DConfig() as it stands and under "pallas", 3,000 Adam steps.
+ 15. B2's wide form (phase15): (a) against its plain version (WIDE_GRAD_TOL)
+     at (2,128,128,128,1) and (2,256,256,256,1) at P 16,384, n_dirs 2,
+     the JAX test's (2,256,1) and (1,200,40,1), and (3,56,56,56,1) and
+     (3,64,64,64,1) at poisson3d_quality's P 8,000, n_dirs 3; two runs
+     bit-identical; bwd_plan's form and scratch against the kernel's own
+     count; its device us beside its bound, the plain version's and the
+     block sum's; (b) forced at (2,20,20,20,1) and (3,48,48,48,1), bit
+     for bit against the resident form, both timed in turns; (d)
+     poisson2d_scaled var_form 0 with the (2,256,256,256,1) network: 50
+     steps through `train` under "pallas" (the loss must fall; B1, the wide
+     B2 and the block sum nodes of the captured step), graph steps/s of
+     "pallas" and "taylor" in turns.
+ 16. Helmholtz-2D and Burgers (phase16): (a) loss and gradients, k^2's
+     included, under "taylor", "pallas" and "jvp" at forms 0/1 of
+     Helmholtz2DConfig(), its inverse and BurgersConfig(); (b) one chunk as
+     graphs against the eager chunk bit for bit at form 0 "pallas" of both
+     (B1, B2 and the block sum in the captured step); (c) BurgersConfig()
+     under "pallas", 5,000 Adam steps, rel-L2 beside the JAX package's
+     0.525 (within 20%, or printed as a miss); Helmholtz2DConfig() and its
+     inverse under "pallas", 10,001 Adam steps: rel-L2, loss, k^2's
+     relative error and closed_form_k_sq from the trained net.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -126,6 +148,12 @@ and prints no summary; with --poisson3d-quality [SEED...] phases 1 and 2,
 then phase 13 (c)'s poisson3d_quality under "pallas" and with hard BC
 ("jvp") at their full schedules, once for each seed given (default: the
 preset's).
+With --wide-only it runs phases 1, 2 and 15 and prints no summary; with
+--families-quality [SEED...] phases 1 and 2, then burgers_quality (hard BC
+on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
+JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
+(gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
+once for each seed given (default: the presets').
 With --advdiff-only it runs phases 1, 2 and 12 and prints no summary; with
 --advdiff-quality SEED... phases 1 and 2, then phase 12's (d) and (e) once
 for each seed given in place of the presets' (the spread of eps's error
@@ -318,8 +346,11 @@ def bound_ms(n_bytes: float, flops: float):
 KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nodes
     "fused_fields": ("fused_fields_kernel", "fused_fields_staged_kernel"),
     "fused_fields_bwd": ("fused_fields_bwd_kernel",),
+    "fused_fields_bwd_wide": ("fused_fields_bwd_wide_kernel",),
     "block_sum": ("block_sum_kernel",),
 }
+SECOND_PATH = ("fused_fields", "fused_fields_bwd", "block_sum")  # second derivatives, B2's resident form
+WIDE_PATH = ("fused_fields", "fused_fields_bwd_wide", "block_sum")  # second derivatives, B2's wide form
 GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
 
 
@@ -343,18 +374,21 @@ def graph_nodes(graph, name: str) -> dict:
     return out
 
 
-def zero_counts():
-    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, fused_fields_bwd_kernel, fused_fields_kernel
+def wrappers() -> dict:
+    """Each kernel's wrapper by the name of KERNEL_NODES."""
+    from hpvpinns_tpu_torch.ops import fused_fields as ff
 
-    for k in (fused_fields_kernel, fused_fields_bwd_kernel, block_sum_kernel):
+    return {"fused_fields": ff.fused_fields_kernel, "fused_fields_bwd": ff.fused_fields_bwd_kernel,
+            "fused_fields_bwd_wide": ff.fused_fields_bwd_wide_kernel, "block_sum": ff.block_sum_kernel}
+
+
+def zero_counts():
+    for k in wrappers().values():
         k.launches = 0
 
 
 def read_counts() -> dict:
-    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, fused_fields_bwd_kernel, fused_fields_kernel
-
-    return {"fused_fields": fused_fields_kernel.launches, "fused_fields_bwd": fused_fields_bwd_kernel.launches,
-            "block_sum": block_sum_kernel.launches}
+    return {name: k.launches for name, k in wrappers().items()}
 
 
 def fresh_state(prob, cfg):
@@ -787,7 +821,8 @@ def graph_against_eager(label: str, prob, c, need) -> dict:
     print(f"{label} {c.deriv_mode}: one chunk of {n} Adam steps as CUDA graphs against the eager chunk: params and "
           f"metrics " + ("bit-identical" if same else f"max rel diff {rel:.3e}") + f"; captured step "
           f"{step_nodes['nodes']} nodes, {step_nodes['kernels']} kernels (B1 {step_nodes['fused_fields']}, B2 "
-          f"{step_nodes['fused_fields_bwd']}, block sum {step_nodes['block_sum']}); metrics graph "
+          f"{step_nodes['fused_fields_bwd']}, wide B2 {step_nodes['fused_fields_bwd_wide']}, block sum "
+          f"{step_nodes['block_sum']}); metrics graph "
           f"{metric_nodes['nodes']} nodes (B1 {metric_nodes['fused_fields']})", flush=True)
     return step_nodes
 
@@ -855,7 +890,7 @@ def phase5(dev):
         if vf is not None:
             c = dataclasses.replace(c, var_form=vf)
         prob = hv.build(c, device=dev)
-        nodes[label] = graph_against_eager(f"phase 5 {label}", prob, c, tuple(KERNEL_NODES) if second else ("fused_fields",))
+        nodes[label] = graph_against_eager(f"phase 5 {label}", prob, c, SECOND_PATH if second else ("fused_fields",))
         if vf == 0:
             lbfgs_graph_against_eager(f"phase 5 {label}", prob, c)
 
@@ -960,7 +995,7 @@ QUALITY = (  # (label, preset, its arguments, modes, target rel-L2, the JAX pack
     ("poisson2d_quality", "poisson2d_quality", {}, ("taylor", "pallas"), 1e-3,
      "8.6e-4, benchmarks/ACCURACY.json:100-108", ("fused_fields",), None),
     ("poisson1d_quality", "poisson1d_quality", {}, ("pallas",), 1e-2,
-     "4.9-6.1e-3 in f32, hpvpinns_tpu/config.py:704-710", tuple(KERNEL_NODES), None),
+     "4.9-6.1e-3 in f32, hpvpinns_tpu/config.py:704-710", SECOND_PATH, None),
     # The hard-BC ansatz on the JVP engine, no kernel.  Its preset's 20k
     # L-BFGS iterations took 296-379 s at seeds 0-3 on an NVIDIA H100 80GB
     # HBM3 at 700.00 W (12.6-15.6 closure evaluations an iteration: the
@@ -1078,7 +1113,7 @@ def identification_schedules(dev, seed=None) -> dict:
     paths = {}
     for label, c, target, jax_row, kernels in (
         ("advdiff_lbfgs pallas (f32)", dataclasses.replace(hv.advdiff_quality(), dtype="float32", deriv_mode="pallas"),
-         0.10, JAX_ADVDIFF_LBFGS_F32_EPS_REL, tuple(KERNEL_NODES)),
+         0.10, JAX_ADVDIFF_LBFGS_F32_EPS_REL, SECOND_PATH),
         ("advdiff_quality taylor (f64)", hv.advdiff_quality(), 2.4e-2, JAX_ADVDIFF_LBFGS_F64_EPS_REL, ()),
     ):
         if seed is not None:
@@ -1143,7 +1178,7 @@ def phase12(dev):
 
     nodes = {}
     for label, c, need in (
-        ("advdiff_of_record var_form 0", dataclasses.replace(base, deriv_mode="pallas"), tuple(KERNEL_NODES)),
+        ("advdiff_of_record var_form 0", dataclasses.replace(base, deriv_mode="pallas"), SECOND_PATH),
         ("advdiff_of_record hard_bc", dataclasses.replace(base, hard_bc=True, deriv_mode="jvp"), ()),
     ):
         nodes[label] = graph_against_eager(f"phase 12 (b) {label}", hv.build(c, device=dev), c, need)
@@ -1151,7 +1186,7 @@ def phase12(dev):
     paths = {}
     for mode in ("taylor", "pallas"):
         c = dataclasses.replace(base, deriv_mode=mode)
-        r = identify(hv.build(c, device=dev), c, f"advdiff_of_record {mode}", tuple(KERNEL_NODES) if mode == "pallas" else ())
+        r = identify(hv.build(c, device=dev), c, f"advdiff_of_record {mode}", SECOND_PATH if mode == "pallas" else ())
         paths[f"advdiff_of_record {mode}"] = r["counts"]
         if not r["closed"] >= 0.75:
             fail(f"advdiff_of_record {mode}: eps {r['eps']:.6g} closed {r['closed']:.3f} of its distance to the "
@@ -1174,7 +1209,9 @@ def phase12(dev):
 JAX_P3D_QUALITY_REL_L2 = 1.34e-2
 JAX_P3D_QUALITY_HARDBC_REL_L2 = 8.6e-3
 JAX_ADVDIFF2D_JOINT = {"eps_rel": 1.3e-3, "velocity_rel": 1.7e-3, "rel_l2": 2.9e-2}
-P3D_B2_CEILING = (3, 56, 56, 56, 1)  # B2 at n_dirs 3 needs 241,504 B of shared memory: above the opt-in limit
+# B2 at n_dirs 3 from width 56 (241,504 B of shared memory in the resident
+# form, above the opt-in limit): bwd_plan gives the wide form.
+P3D_WIDE_B2 = ((3, 56, 56, 56, 1), (3, 64, 64, 64, 1))
 
 
 def with_check_every(c, n: int):
@@ -1201,12 +1238,14 @@ def volumetric_kernels(dev):
     0): fields at FIELD_TOL, gradients (autograd through B1 firsts-only;
     B2 + block sum for second derivatives) at phase 7's tolerance for the
     width; each kernel's device us per call against its bound and the plain
-    version's; B2 at width 52 against its plain version and at
-    P3D_B2_CEILING raising.  Returns {kernel: timings} for the kernels line."""
+    version's; B2 at width 52 (the resident form) and at P3D_WIDE_B2 (the
+    wide form) against its plain version.  Returns {kernel: timings} for the
+    kernels line."""
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.models.mlp import MLP
     from hpvpinns_tpu_torch.ops.fused_fields import (
         block_sum_kernel,
+        bwd_plan,
         fields_flat_bwd_reference,
         fused_fields_3d,
         fused_fields_bwd,
@@ -1273,24 +1312,24 @@ def volumetric_kernels(dev):
           + " ".join(f"{k} {v:.2f}" if v else f"{k} not measured" for k, v in dev_us.items())
           + f"; bound B2 {1e3 * b2_bound[0]:.3f} us ({b2_bound[1]}), block sum {1e3 * sum_bound[0]:.3f} us "
           f"({sum_bound[1]}); block sum max_abs_err {serr:.3e}", flush=True)
-    for wide in ((3, 52, 52, 52, 1), P3D_B2_CEILING):
+    for wide in ((3, 52, 52, 52, 1), *P3D_WIDE_B2):
         wspec = MLP(layers=wide, activation="tanh")
         wnet = random_net(wspec, rng, dev)
-        try:
-            got, got_x = fused_fields_bwd(wspec, wnet, X, g7, 3)
-        except ValueError as e:
-            if wide != P3D_B2_CEILING:
-                fail(f"B2 at {wide}, n_dirs 3 raised: {e}")
-            print(f"phase 13 (a) B2 at {wide}, n_dirs 3 raises: {e}", flush=True)
-            continue
-        if wide == P3D_B2_CEILING:
-            fail(f"B2 at {wide}, n_dirs 3 launched above its shared-memory ceiling")
+        form = bwd_plan(wide, 3, P).form
+        if form != ("resident" if wide[1] <= 52 else "wide"):
+            fail(f"bwd_plan gives B2 at {wide}, n_dirs 3 the {form} form")
+        zero_counts()
+        got, got_x = fused_fields_bwd(wspec, wnet, X, g7, 3)
+        counts = read_counts()
+        if counts["fused_fields_bwd" if form == "resident" else "fused_fields_bwd_wide"] != 1:
+            fail(f"B2 at {wide}, n_dirs 3: host launches {counts}")
         want, want_x = fields_flat_bwd_reference(wspec, wnet, X, g7, 3)
         werr = check_close(f"B2 {wide} gX", got_x, want_x, **WIDE_GRAD_TOL)
         for l, (a, b) in enumerate(zip(got, want)):
             for k in ("W", "b"):
                 werr = max(werr, check_close(f"B2 {wide} g{k}_{l}", a[k], b[k], **WIDE_GRAD_TOL))
-        print(f"phase 13 (a) B2 at {wide}, n_dirs 3 (below the ceiling): max_abs_err {werr:.3e}", flush=True)
+        print(f"phase 13 (a) B2 at {wide}, n_dirs 3, the {form} form: max_abs_err {werr:.3e} against its plain "
+              f"version", flush=True)
     return out
 
 
@@ -1355,7 +1394,7 @@ def phase13(dev):
     base = hv.poisson3d_quality()
     nodes = {}
     for label, c, need in (
-        ("poisson3d_quality var_form 0", dataclasses.replace(base, var_form=0, deriv_mode="pallas"), tuple(KERNEL_NODES)),
+        ("poisson3d_quality var_form 0", dataclasses.replace(base, var_form=0, deriv_mode="pallas"), SECOND_PATH),
         ("poisson3d_quality var_form 1", dataclasses.replace(base, deriv_mode="pallas"), ("fused_fields",)),
         ("poisson3d_quality hard_bc", dataclasses.replace(hv.poisson3d_quality(hard_bc=True), deriv_mode="jvp"), ()),
     ):
@@ -1409,7 +1448,7 @@ def phase14(dev):
     c = with_check_every(advdiff2d_joint(var_form=0, deriv_mode="pallas"), 10)
     prob = hv.build(c, device=dev)
     nodes = {"advdiff2d joint var_form 0": graph_against_eager("phase 14 (b) advdiff2d joint var_form 0", prob, c,
-                                                               tuple(KERNEL_NODES))}
+                                                               SECOND_PATH)}
     lbfgs_graph_against_eager("phase 14 (b) advdiff2d joint var_form 0", prob, c)
     paths = {}
     for label, c, kernels in (
@@ -1437,6 +1476,279 @@ def phase14(dev):
                  + f"; {r['res'].steps_per_sec:.1f} steps/s; host launches {r['counts']}")
         print(line, flush=True)
     print(f"phase 14 advdiff2d: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths, nodes
+
+
+WIDE_B2_CASES = [  # phase 15: (name, layers, activation, P, n_dirs), each on B2's wide form
+    ("p2d_scaled 3 x 128", (2, 128, 128, 128, 1), "tanh", 16384, 2),
+    ("p2d_scaled 3 x 256", (2, 256, 256, 256, 1), "tanh", 16384, 2),
+    ("jax_one_layer", (2, 256, 1), "tanh", 1000, 2),  # tests/test_pallas_fields.py:131-151's shapes
+    ("jax_mixed", (1, 200, 40, 1), "tanh", 1000, 1),
+    ("p3d_quality 3 x 56", (3, 56, 56, 56, 1), "tanh", 8000, 3),  # poisson3d_quality's points
+    ("p3d_quality 3 x 64", (3, 64, 64, 64, 1), "tanh", 8000, 3),
+]
+WIDE_FORCED_CASES = [  # phase 15: the wide form forced where the resident form runs
+    ("p2d_scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2),
+    ("p3d_quality", (3, 48, 48, 48, 1), "tanh", 8000, 3),
+]
+
+
+def b2_inputs(layers, act, P, nd, rng, dev):
+    """A random network, points in [-1, 1]^d and the cotangents of a mean
+    over the points (phase 7's)."""
+    from hpvpinns_tpu_torch.models.mlp import MLP
+
+    spec = MLP(layers=layers, activation=act)
+    net = random_net(spec, rng, dev)
+    X = torch.as_tensor(rng.uniform(-1.0, 1.0, (P, layers[0])), dtype=torch.float32, device=dev)
+    g = torch.as_tensor(rng.standard_normal((P, 1 + 2 * nd)) / math.sqrt(P), dtype=torch.float32, device=dev)
+    return spec, net, X, g
+
+
+def wide_b2_kernels(dev) -> dict:
+    """Phase 15 (a)-(c): B2's wide form against its plain version at
+    WIDE_B2_CASES (WIDE_GRAD_TOL; two runs bit-identical; bwd_plan's form and
+    scratch against the kernel's own count), then forced at
+    WIDE_FORCED_CASES against the resident form (it adds in the same order:
+    bit for bit), and its times: the C function alone by CUDA events over 50
+    launches, device us by torch.profiler, the block sum on its partials, the
+    plain version, and the bound.  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        block_sum_kernel,
+        bwd_plan,
+        fields_flat_bwd_reference,
+        fused_fields_bwd,
+        fused_fields_bwd_kernel,
+        fused_fields_bwd_wide_kernel,
+    )
+
+    rng = np.random.default_rng(15)
+    out = {}
+    for name, layers, act, P, nd in WIDE_B2_CASES:
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
+        plan = bwd_plan(layers, nd, P)
+        c_scratch = fused_fields_bwd_wide_kernel.load().lib.hp_fused_fields_bwd_wide_scratch_bytes(
+            max(layers[:-1]), len(layers) - 1, nd, plan.n_blocks)
+        if plan.form != "wide" or c_scratch != plan.scratch_bytes:
+            fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
+        zero_counts()
+        got, got_x = fused_fields_bwd(spec, net, X, g, nd)
+        again, again_x = fused_fields_bwd(spec, net, X, g, nd)
+        counts = read_counts()
+        if counts["fused_fields_bwd_wide"] != 2 or counts["fused_fields_bwd"] != 0 or counts["block_sum"] != 2:
+            fail(f"{name}: host launches {counts}")
+        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} gX", got_x, want_x, **WIDE_GRAD_TOL)
+        same = torch.equal(got_x, again_x)
+        for l, (a, b, c) in enumerate(zip(got, want, again)):
+            for k in ("W", "b"):
+                err = max(err, check_close(f"{name} g{k}_{l}", a[k], b[k], **WIDE_GRAD_TOL))
+                same = same and torch.equal(a[k], c[k])
+        if not same:
+            fail(f"{name}: two runs of the wide B2 + block sum differ")
+        (args, *keep), partials, _ = fused_fields_bwd_wide_kernel.prepare(spec, net, X, g, nd)
+        c_fn = lambda: fused_fields_bwd_wide_kernel.launch(*args)  # noqa: E731
+        c_fn()
+        plain = lambda: fields_flat_bwd_reference(spec, net, X, g, nd)  # noqa: E731
+        sum_fn = lambda: block_sum_kernel(partials)  # noqa: E731
+        ev = [1e3 * cuda_ms(f) for f in (c_fn, c_fn)]
+        p_ms = cuda_ms(plain)
+        b2_dev, sum_dev, p_dev = device_us(c_fn), device_us(sum_fn), device_us(plain)
+        sum_us = 1e3 * cuda_ms(sum_fn)
+        bound, by = bound_ms(*bwd_work(layers, P, nd))
+        rows, cols = partials.shape
+        s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
+        out[name] = {"us": (ev[0] + ev[1]) / 2, "device_us": b2_dev, "plain_ms": p_ms, "plain_device_us": p_dev,
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us, "sum_device_us": sum_dev,
+                     "sum_bound_ms": s_bound, "partials": [rows, cols], "scratch_bytes": plan.scratch_bytes}
+        print(f"phase 15 (a) wide B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {plan.n_blocks} blocks x "
+              f"{plan.tiles_per_block} tiles, scratch {plan.scratch_bytes} B, partials [{rows}, {cols}]; max_abs_err "
+              f"{err:.3e} (rtol {WIDE_GRAD_TOL['rtol']} atol {WIDE_GRAD_TOL['atol']}), two runs bit-identical; C function "
+              f"us/launch (CUDA events, 50 launches) {ev[0]:.2f} {ev[1]:.2f}, device us (torch.profiler) "
+              + (f"{b2_dev:.2f}" if b2_dev else "not measured") + f"; bound {1e3 * bound:.3f} us ({by}); plain ms/call "
+              f"{p_ms:.4f}, device us " + (f"{p_dev:.2f}" if p_dev else "not measured") + f"; block sum us/call "
+              f"{sum_us:.2f}, device us " + (f"{sum_dev:.2f}" if sum_dev else "not measured")
+              + f", bound {1e3 * s_bound:.3f} us ({s_by})", flush=True)
+    for name, layers, act, P, nd in WIDE_FORCED_CASES:
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
+        res_p, res_x = fused_fields_bwd_kernel(spec, net, X, g, nd)
+        wide_p, wide_x = fused_fields_bwd_wide_kernel(spec, net, X, g, nd)
+        torch.cuda.synchronize()
+        if not (torch.equal(res_p, wide_p) and torch.equal(res_x, wide_x)):
+            d = max((res_p - wide_p).abs().max().item(), (res_x - wide_x).abs().max().item())
+            fail(f"{name}: the wide form forced at {layers} differs from the resident form (max abs diff {d:.3e})")
+        (ra, *rk), _, _ = fused_fields_bwd_kernel.prepare(spec, net, X, g, nd)
+        (wa, *wk), _, _ = fused_fields_bwd_wide_kernel.prepare(spec, net, X, g, nd)
+        res_fn = lambda: fused_fields_bwd_kernel.launch(*ra)  # noqa: E731
+        wide_fn = lambda: fused_fields_bwd_wide_kernel.launch(*wa)  # noqa: E731
+        ev = [1e3 * cuda_ms(f) for f in (res_fn, wide_fn, wide_fn, res_fn)]
+        out[f"forced {name}"] = {"resident_us": (ev[0] + ev[3]) / 2, "wide_us": (ev[1] + ev[2]) / 2}
+        print(f"phase 15 (b) the wide form forced at {name} {layers} P={P} n_dirs={nd}: partials and gX bit-identical "
+              f"to the resident form; C function us/launch in turns resident, wide, wide, resident {ev[0]:.2f} "
+              f"{ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f}", flush=True)
+    return out
+
+
+def phase15(dev):
+    """B2's wide form.  wide_b2_kernels; then (d) poisson2d_scaled var_form 0
+    with the (2, 256, 256, 256, 1) network: 50 steps through `train` under
+    "pallas" (the loss must fall; B1, the wide B2 and the block sum launch
+    and are nodes of the captured step), and graph steps/s of "pallas" and
+    "taylor" in turns.  Returns (timings, host launches by path, the captured
+    step's nodes by path)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk
+
+    t0 = time.perf_counter()
+    times = wide_b2_kernels(dev)
+    label = "poisson2d_scaled var_form 0 3 x 256"
+    c = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1), var_form=0)
+    c = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=50, check_every=10, lbfgs_iterations=0,
+                                                         threshold=None))
+    probs = {m: hv.build(dataclasses.replace(c, deriv_mode=m), device=dev) for m in ("pallas", "taylor")}
+    zero_counts()
+    res = hv.train(probs["pallas"], verbose=False)
+    counts = read_counts()
+    hist = res.history["loss"]
+    if not np.all(np.isfinite(hist)) or not hist[-1] < hist[0]:
+        fail(f"{label}: the loss did not fall: {hist.tolist()}")
+    if min(counts[k] for k in WIDE_PATH) < 1 or counts["fused_fields_bwd"] != 0:
+        fail(f"{label}: host launches {counts}")
+    prm, opt = fresh_state(probs["pallas"], c)
+    ch = _build_chunk(probs["pallas"].loss_fn, opt, prm, probs["pallas"].data, debug=True)
+    gn = graph_nodes(ch.graphs[0], "phase15_pallas")
+    if min(gn[k] for k in WIDE_PATH) < 1:
+        fail(f"{label}: kernels missing from the captured step: {gn}")
+    rates, prof = graph_rates(probs, c, steps=100, chunk=10)
+    print(f"phase 15 (d) {label} pallas: 50 Adam steps through train, loss {hist[0]:.6e} -> {hist[-1]:.6e}, "
+          f"{res.steps_per_sec:.1f} steps/s; host launches {counts}; captured step {gn['nodes']} nodes (B1 "
+          f"{gn['fused_fields']}, wide B2 {gn['fused_fields_bwd_wide']}, block sum {gn['block_sum']})", flush=True)
+    for m, r in rates.items():
+        us, busy = prof[m]
+        print(f"phase 15 (d) {label} {m}: graph steps/s {r[0]!r} {r[1]!r} (100 Adam steps a turn in chunks of 10, "
+              f"turns pallas taylor taylor pallas); device us/step "
+              + (f"{us!r}, busy {busy!r} in the profiler's window" if us else "not measured"), flush=True)
+    times["train"] = {"steps_per_s": {m: r for m, r in rates.items()}, "device_us_per_step": {m: v[0] for m, v in prof.items()}}
+    print(f"phase 15 wide B2: {time.perf_counter() - t0:.1f} s", flush=True)
+    return times, {label: counts}, {label: gn}
+
+
+# The JAX package's rows for Helmholtz-2D and Burgers (benchmarks/ACCURACY.json;
+# accuracy comparators only): burgers_default_f32_tpu (:249-259),
+# burgers_quality_f32_tpu (:260-270), helmholtz2d_quality_f32_tpu (:548-559,
+# with its 10-step LM tail).
+JAX_BURGERS_DEFAULT_REL_L2 = 0.525
+JAX_BURGERS_QUALITY_REL_L2 = 8.6e-3
+BURGERS_QUALITY_TARGET = 1.3e-2
+JAX_HELMHOLTZ_QUALITY_REL_L2 = 1.23e-3
+
+
+def family_configs() -> list:
+    """Phase 16 (a)'s configurations: (label, config)."""
+    import hpvpinns_tpu_torch as hv
+
+    return [(f"{name} var_form {vf}", dataclasses.replace(c, var_form=vf))
+            for name, c in (("Helmholtz2DConfig()", hv.Helmholtz2DConfig()),
+                            ("Helmholtz2DConfig(inverse=True)", hv.Helmholtz2DConfig(inverse=True)),
+                            ("BurgersConfig()", hv.BurgersConfig()))
+            for vf in (0, 1)]
+
+
+def families_quality(dev, seed=None) -> dict:
+    """Phase 16 (d), behind --families-quality: burgers_quality (hard BC on
+    "jvp", Adam 10k + L-BFGS 20k) against its target and the JAX row, and
+    helmholtz2d_quality with its LM tail cut (gn_iterations=0; the JAX row
+    includes the tail, so it is a comparator, not a target).  Returns the
+    host launches by path."""
+    import hpvpinns_tpu_torch as hv
+
+    paths = {}
+    for label, c, jax_row, target in (
+        ("burgers_quality jvp", hv.burgers_quality(), JAX_BURGERS_QUALITY_REL_L2, BURGERS_QUALITY_TARGET),
+        ("helmholtz2d_quality jvp (LM tail cut: gn_iterations=0)",
+         dataclasses.replace(hv.helmholtz2d_quality(), train=dataclasses.replace(hv.helmholtz2d_quality().train,
+                                                                                gn_iterations=0)),
+         JAX_HELMHOLTZ_QUALITY_REL_L2, None),
+    ):
+        if seed is not None:
+            c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+        res, counts, ev = train_checked(hv.build(c, device=dev), c, label)
+        paths[label] = counts
+        adam, lb = res.phases["adam"], res.phases["lbfgs"]
+        verdict = (f"target < {target:g}: {'met' if ev['rel_l2'] < target else 'MISSED'}; " if target else
+                   "a comparator: the JAX row has a 10-step LM tail; ")
+        print(f"phase 16 (d) {label} seed {c.train.seed}: Adam {c.train.iterations} + L-BFGS "
+              f"{c.train.lbfgs_iterations} (f32, layers {c.layers}): rel_l2 {ev['rel_l2']:.4e} ({verdict}JAX f32 row "
+              f"{jax_row:g}); final loss {res.history['loss'][-1]:.6e}; wall s Adam {adam['wall_s']:.2f} L-BFGS "
+              f"{lb['wall_s']:.2f}; {lbfgs_note(lb)}", flush=True)
+    return paths
+
+
+def phase16(dev):
+    """Helmholtz-2D and Burgers through B1/B2.  (a) loss and gradients, k^2's
+    included, under "taylor", "pallas" and "jvp" at forms 0 and 1 of
+    Helmholtz2DConfig(), its inverse and BurgersConfig() (loss rtol 1e-5,
+    gradients rtol 1e-3 / atol 1e-4 against "taylor"); (b)
+    graph_against_eager at form 0 "pallas" of both families (B1, B2 and the
+    block sum nodes of the captured step); (c) BurgersConfig() under
+    "pallas" (5,000 Adam steps: rel-L2 beside the JAX row, within 20% or
+    printed as a miss), Helmholtz2DConfig() and its inverse under "pallas"
+    (10,001 Adam steps: rel-L2, loss, k^2's relative error and
+    closed_form_k_sq from the trained net).  Returns (host launches by
+    path, the captured step's nodes by path)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+    from hpvpinns_tpu_torch.problems.helmholtz import closed_form_k_sq
+
+    t0 = time.perf_counter()
+    for label, c in family_configs():
+        probs = {m: hv.build(dataclasses.replace(c, deriv_mode=m), device=dev) for m in ("taylor", "pallas", "jvp")}
+        prm = probs["taylor"].init_params(torch.Generator().manual_seed(c.train.seed))
+        out = {}
+        for m, prob in probs.items():
+            loss, _ = prob.loss_fn(prm, prob.data)
+            out[m] = (loss.detach(), torch.autograd.grad(loss, parameters(prm)))
+        lt, gt = out["taylor"]
+        line = f"phase 16 (a) {label}: loss taylor {lt.item():.6e}"
+        for m in ("pallas", "jvp"):
+            lm, gm = out[m]
+            check_close(f"{label} {m} loss", lm, lt, rtol=1e-5, atol=0.0)
+            gerr = max(check_close(f"{label} {m} grad {i}", a, b, rtol=1e-3, atol=1e-4)
+                       for i, (a, b) in enumerate(zip(gm, gt)))
+            line += f", {m} {lm.item():.6e} (grad max_abs_err {gerr:.3e})"
+        if getattr(c, "inverse", False):
+            line += f"; d loss / d k_sq {gt[-1].item():.6e}"
+        print(line, flush=True)
+    nodes = {}
+    for label, c in (("Helmholtz2DConfig() var_form 0", hv.Helmholtz2DConfig(var_form=0, deriv_mode="pallas")),
+                     ("BurgersConfig() var_form 0", hv.BurgersConfig(var_form=0, deriv_mode="pallas"))):
+        c = with_check_every(c, 10)
+        nodes[label] = graph_against_eager(f"phase 16 (b) {label}", hv.build(c, device=dev), c, SECOND_PATH)
+    paths = {}
+    for label, c in (("BurgersConfig() pallas", hv.BurgersConfig(deriv_mode="pallas")),
+                     ("Helmholtz2DConfig() pallas", hv.Helmholtz2DConfig(deriv_mode="pallas")),
+                     ("Helmholtz2DConfig(inverse=True) pallas", hv.Helmholtz2DConfig(inverse=True, deriv_mode="pallas"))):
+        prob = hv.build(c, device=dev)
+        res, counts, ev = train_checked(prob, c, label, ("fused_fields",))
+        paths[label] = counts
+        line = (f"phase 16 (c) {label}: {res.iterations_run} Adam steps (f32, layers {c.layers}, var_form {c.var_form}, "
+                f"P {prob.data['elements'].x.numel()}): rel_l2 {ev['rel_l2']:.4e}")
+        if c.__class__.__name__ == "BurgersConfig":
+            within = abs(ev["rel_l2"] - JAX_BURGERS_DEFAULT_REL_L2) <= 0.2 * JAX_BURGERS_DEFAULT_REL_L2
+            line += (f" (JAX f32 row {JAX_BURGERS_DEFAULT_REL_L2}: within 20% "
+                     + ("met" if within else "MISSED") + ")")
+        if getattr(c, "inverse", False):
+            k_sq = res.eval_params["pde"]["k_sq"].item()
+            k_true = prob.extras["k_sq_true"]
+            k_cf = closed_form_k_sq(prob, res.eval_params)
+            line += (f"; k_sq {k_sq:.8g} (true {k_true:g}, from {c.k_sq_init:g}: relative error "
+                     f"{abs(k_sq - k_true) / k_true:.4e}); closed_form_k_sq from the trained net {k_cf:.8g} "
+                     f"(relative error {abs(k_cf - k_true) / k_true:.4e})")
+        line += (f"; final loss {res.history['loss'][-1]:.6e}; wall s Adam {res.phases['adam']['wall_s']:.2f}; "
+                 f"{res.steps_per_sec:.1f} steps/s; host launches {counts}")
+        print(line, flush=True)
+    print(f"phase 16 helmholtz and burgers: {time.perf_counter() - t0:.1f} s", flush=True)
     return paths, nodes
 
 
@@ -1481,6 +1793,16 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--bwd-only"]:  # for work on B2: phases 1, 2 and 7 only, no summary
         phase7(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+
+    if sys.argv[1:2] == ["--wide-only"]:  # for work on B2's wide form: phases 1, 2 and 15 only, no summary
+        phase15(dev)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--families-quality"]:  # phase 16 (d) at each seed given (default: the presets')
+        for seed in sys.argv[2:] or [None]:
+            families_quality(dev, None if seed is None else int(seed))
         return 0
 
     if sys.argv[1:2] == ["--quality"]:  # the seeds study: phases 1, 2 and 6 at each seed given, no summary
@@ -1569,7 +1891,7 @@ def main() -> int:
     hist = r1.history["loss"]
     if r1.iterations_run != c1.train.iterations or not np.all(np.isfinite(hist)) or not hist[-1] < hist[0]:
         fail(f"poisson1d_of_record: {r1.iterations_run} steps, loss did not fall: {hist[[0, -1]].tolist()}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in SECOND_PATH) < 1:
         fail(f"poisson1d_of_record: kernel launches {counts}")
     ev1 = hv.evaluate_problem(p1, r1.params)
     if not abs(ev1["rel_l2"] - JAX_P1D_RECORD_REL_L2) <= 0.2 * JAX_P1D_RECORD_REL_L2:
@@ -1601,7 +1923,7 @@ def main() -> int:
             g_us, g_busy = graph_profile(gch)
             g_rate = (rates["graph"][0] + rates["graph"][1]) / 2
             if mode == "pallas" and label in ("poisson2d_scaled var_form 0", "advdiff_of_record"):  # B1 + B2 at n_dirs 2
-                if min(counts.values()) < 1 or min(gn[k] for k in KERNEL_NODES) < 1:
+                if min(counts[k] for k in SECOND_PATH) < 1 or min(gn[k] for k in SECOND_PATH) < 1:
                     fail(f"{label}: host launches {counts}, graph nodes {gn}")
             prm, opt = fresh_state(prob, c)
             fwd, bwd, adam = part_times(prob, prm, opt)
@@ -1672,6 +1994,17 @@ def main() -> int:
     paths.update(a2_paths)
     nodes.update(a2_nodes)
 
+    # 15. B2's wide form: against its plain version and the resident form,
+    # then poisson2d_scaled var_form 0 with the 3 x 256 network
+    wide_times, w_paths, w_nodes = phase15(dev)
+    paths.update(w_paths)
+    nodes.update(w_nodes)
+
+    # 16. Helmholtz-2D and Burgers: modes, graphs, the default runs
+    f_paths, f_nodes = phase16(dev)
+    paths.update(f_paths)
+    nodes.update(f_nodes)
+
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
     wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
@@ -1694,6 +2027,15 @@ def main() -> int:
          "max_abs_err": bwd_err, "ms": ms7["b2"], "plain_ms": ms7["plain"], "bound_ms": b2_bound[0],
          "bound_by": b2_bound[1], "library_ms": None, "shape": "poisson2d_scaled second, P 16384",
          "device_us": dev7["b2"], "c_function_us": ev7["b2"]},
+        {"name": "fused_fields_bwd_wide", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
+         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
+         "launches": paths["poisson2d_scaled var_form 0 3 x 256"]["fused_fields_bwd_wide"],
+         "max_abs_err": max(v["max_abs_err"] for k, v in wide_times.items() if "max_abs_err" in v),
+         "ms": wide_times["p2d_scaled 3 x 256"]["us"] * 1e-3, "plain_ms": wide_times["p2d_scaled 3 x 256"]["plain_ms"],
+         "bound_ms": wide_times["p2d_scaled 3 x 256"]["bound_ms"], "bound_by": wide_times["p2d_scaled 3 x 256"]["bound_by"],
+         "library_ms": None, "shape": "(2, 256, 256, 256, 1) second, P 16384 (C function, CUDA events)",
+         "device_us": wide_times["p2d_scaled 3 x 256"]["device_us"],
+         "by_shape": {k: v for k, v in wide_times.items() if k != "train"}, "train": wide_times["train"]},
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": paths["poisson1d_quality pallas"]["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],
@@ -1715,11 +2057,12 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
         k["graph_nodes_by_path"] = {path: n.get(k["name"], 0) for path, n in nodes.items()}
-        k["advdiff_of_record"] = adv[k["name"]]
-        k["poisson3d_quality"] = {  # P 8,000, (3,48,48,48,1) tanh, n_dirs 3
-            "fused_fields": {"firsts": p3d_times["B1 firsts"], "second": p3d_times["B1 second"]},
-            "fused_fields_bwd": p3d_times["B2"], "block_sum": p3d_times["block sum"],
-        }[k["name"]]
+        if k["name"] in adv:
+            k["advdiff_of_record"] = adv[k["name"]]
+            k["poisson3d_quality"] = {  # P 8,000, (3,48,48,48,1) tanh, n_dirs 3
+                "fused_fields": {"firsts": p3d_times["B1 firsts"], "second": p3d_times["B1 second"]},
+                "fused_fields_bwd": p3d_times["B2"], "block_sum": p3d_times["block sum"],
+            }[k["name"]]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

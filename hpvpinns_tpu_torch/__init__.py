@@ -4,10 +4,11 @@ The JAX package `hpvpinns_tpu` is the reference; this package follows its
 layout and names module for module, and never imports JAX or it.  The
 ported slice is the Poisson-1D (forms 1/2/3, hard BC), Poisson-2D (forms
 0/1/2/"2c", hard BC, the PINN scheme), Poisson-3D (forms 0/1, hard BC),
-AdvDiff identification (forms 0/1/2, scalar/quadratic/network eps,
-trainable velocity, hard BC) and AdvDiff-2D identification (forms 0/1,
-eps and the velocity vector) problems with the Adam and L-BFGS (optax's)
-trainer.  Their derivative fields come from the
+Helmholtz-2D (forms 0/1, hard BC, k^2 identification), AdvDiff
+identification (forms 0/1/2, scalar/quadratic/network eps, trainable
+velocity, hard BC), AdvDiff-2D identification (forms 0/1, eps and the
+velocity vector) and Burgers (forms 0/1, hard BC, the front feature, strong
+collocation) problems with the Adam and L-BFGS (optax's) trainer.  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
@@ -19,6 +20,8 @@ port.
 from hpvpinns_tpu_torch.config import (
     AdvDiff2DConfig,
     AdvDiffConfig,
+    BurgersConfig,
+    Helmholtz2DConfig,
     Poisson1DConfig,
     Poisson2DConfig,
     Poisson3DConfig,
@@ -28,6 +31,10 @@ from hpvpinns_tpu_torch.config import (
     advdiff_of_record,
     advdiff_precision,
     advdiff_quality,
+    burgers_precision,
+    burgers_quality,
+    helmholtz2d_precision,
+    helmholtz2d_quality,
     poisson1d_of_record,
     poisson1d_quality,
     poisson2d_of_record,
@@ -45,6 +52,8 @@ from hpvpinns_tpu_torch.training import TrainResult, train
 __all__ = [
     "AdvDiff2DConfig",
     "AdvDiffConfig",
+    "BurgersConfig",
+    "Helmholtz2DConfig",
     "Poisson1DConfig",
     "Poisson2DConfig",
     "Poisson3DConfig",
@@ -56,7 +65,11 @@ __all__ = [
     "advdiff_precision",
     "advdiff_quality",
     "build",
+    "burgers_precision",
+    "burgers_quality",
     "evaluate_problem",
+    "helmholtz2d_precision",
+    "helmholtz2d_quality",
     "params_from_jax",
     "params_to_numpy",
     "poisson1d_of_record",

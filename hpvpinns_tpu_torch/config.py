@@ -1,5 +1,5 @@
-"""Configuration objects: the Poisson-1D, Poisson-2D, Poisson-3D, AdvDiff and
-AdvDiff-2D subset of hpvpinns_tpu/config.py.
+"""Configuration objects: the Poisson-1D, Poisson-2D, Poisson-3D, Helmholtz-2D,
+AdvDiff, AdvDiff-2D and Burgers subset of hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
 to one.  Fields whose feature is not ported yet (Gauss-Newton,
@@ -88,6 +88,47 @@ class Poisson2DConfig:
     n_residual: int = 100  # PINN-mode collocation points
     lossb_weight: float = 10.0
     hard_bc: bool = False  # lifted ansatz u = g + D N (the fields then come from "jvp")
+    domain_x: Tuple[float, float] = (-1.0, 1.0)
+    domain_y: Tuple[float, float] = (-1.0, 1.0)
+    dtype: str = "float32"
+    deriv_mode: str = "taylor"  # "taylor" | "jvp" | "pallas" (the fused CUDA kernels)
+    train: TrainConfig = field(default_factory=lambda: TrainConfig(iterations=10001))
+
+
+@dataclass(frozen=True)
+class Helmholtz2DConfig:
+    """2D Helmholtz Delta u + k^2 u = f on [-1, 1]^2: the oscillatory,
+    indefinite extension of the Poisson family.  The benchmark solution is
+    the tilted plane wave u = sin(k (x cos th + y sin th) + phase), an exact
+    homogeneous solution (f = 0) driven through its boundary trace; k = 9
+    puts k^2 = 81 between two Dirichlet-Laplacian eigenvalues.
+    `inverse=True` makes k^2 a trainable pde leaf identified from interior
+    sensors."""
+
+    layers: Tuple[int, ...] = (2, 30, 30, 30, 1)
+    activation: str = "tanh"
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    var_form: int = 1  # 0 | 1 (Laplacian once integrated by parts; the mass term needs no derivatives)
+    n_elements_x: int = 4
+    n_elements_y: int = 4
+    grid_x: Optional[Tuple[float, ...]] = None  # non-uniform x boundaries (overrides n_elements_x)
+    grid_y: Optional[Tuple[float, ...]] = None
+    n_test_x: int = 10
+    n_test_y: int = 10
+    n_test_x_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_y_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 16  # per axis per element
+    n_bound: int = 80  # boundary points per edge
+    lossb_weight: float = 10.0
+    k: float = 9.0  # true wavenumber (k^2 is the PDE coefficient)
+    wave_angle_deg: float = 30.0  # plane-wave direction
+    wave_phase: float = 0.3
+    inverse: bool = False  # k^2 trainable from interior sensors
+    k_sq_init: float = 60.0  # trainable start (true k^2 = 81)
+    n_sensors: int = 60  # LHS interior sensor points when inverse
+    sensor_noise_std: float = 0.0  # additive N(0, std) on the sensor readings
+    hard_bc: bool = False  # lifted ansatz u = Coons(boundary trace) + (1-xi^2)(1-eta^2) N (the fields then come from "jvp")
     domain_x: Tuple[float, float] = (-1.0, 1.0)
     domain_y: Tuple[float, float] = (-1.0, 1.0)
     dtype: str = "float32"
@@ -239,6 +280,45 @@ class AdvDiff2DConfig:
     )
 
 
+@dataclass(frozen=True)
+class BurgersConfig:
+    """Viscous Burgers u_t + u u_x = nu u_xx on [-1, 1] x [0, T],
+    u(x, 0) = -sin(pi x), u(+-1, t) = 0: the nonlinear space-time family
+    (nu = 0.01/pi develops a steep interior front at x = 0)."""
+
+    layers: Tuple[int, ...] = (2, 20, 20, 20, 20, 1)
+    activation: str = "tanh"
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    var_form: int = 1  # 0 | 1 (conservation-form convection integrated by parts)
+    n_elements_x: int = 4
+    n_elements_t: int = 2
+    grid_x: Optional[Tuple[float, ...]] = None  # non-uniform x boundaries (overrides n_elements_x)
+    grid_t: Optional[Tuple[float, ...]] = None  # non-uniform t boundaries (overrides n_elements_t)
+    n_test_x: int = 8
+    n_test_t: int = 8
+    n_test_x_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_t_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 16
+    n_bound: int = 80  # per side and on the initial edge
+    lossb_weight: float = 10.0
+    nu: float = 0.01 / 3.141592653589793
+    hard_bc: bool = False  # lifted ansatz: IC and BC exact (the fields then come from "jvp")
+    front_feature: bool = False  # append tanh(x / delta) as a network input (forces "jvp")
+    front_feature_scale: Optional[float] = None  # delta; None: 2 nu
+    n_strong: int = 0  # strong-form collocation points (a weak + strong loss); 0: pure variational
+    strong_weight: float = 1.0  # weight of the strong-residual term
+    strong_window: Optional[Tuple[float, float]] = None  # x-range of the collocation points; None: the domain
+    t_final: float = 1.0
+    t_start: float = 0.0  # time-slab lower edge (IC at t_start: Cole-Hopf values, or build(..., ic_fn=))
+    domain_x: Tuple[float, float] = (-1.0, 1.0)
+    dtype: str = "float32"
+    deriv_mode: str = "taylor"  # "taylor" | "jvp" | "pallas" (the fused CUDA kernels)
+    train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(iterations=5000, check_every=100)
+    )
+
+
 def poisson1d_of_record() -> Poisson1DConfig:
     """Poisson-1D.py:231-240."""
     return Poisson1DConfig()
@@ -341,6 +421,49 @@ def advdiff_forward_precision() -> AdvDiffConfig:
     )
 
 
+def helmholtz2d_quality() -> Helmholtz2DConfig:
+    """A sin net, the hard-BC Coons trace lift, Adam 5k + L-BFGS 5k and a
+    10-step QR-LM tail; its gn_iterations raise in `train` until the
+    Gauss-Newton phase is ported (ROADMAP.md queue A item 8)."""
+    return Helmholtz2DConfig(
+        activation="sin",
+        hard_bc=True,
+        train=TrainConfig(iterations=5000, lbfgs_iterations=5000,
+                          gn_iterations=10, gn_solve="qr", check_every=1000),
+    )
+
+
+def helmholtz2d_precision() -> Helmholtz2DConfig:
+    """The quality point at Adam 10k + L-BFGS 10k and a 50-step QR-LM phase;
+    its gn_iterations raise in `train` (ROADMAP.md queue A item 8)."""
+    base = helmholtz2d_quality()
+    return replace(
+        base,
+        hard_bc=True,
+        train=replace(base.train, iterations=10000, lbfgs_iterations=10000,
+                      gn_iterations=50, gn_solve="qr"),
+    )
+
+
+def burgers_quality() -> BurgersConfig:
+    """The hard-BC lifted ansatz, a front-clustered 5-element x-grid,
+    10 x 8 test functions, 20-point quadrature, Adam 10k + L-BFGS 20k."""
+    return BurgersConfig(
+        grid_x=(-1.0, -0.3, -0.08, 0.08, 0.3, 1.0),
+        n_test_x=10,
+        n_quad=20,
+        hard_bc=True,
+        train=TrainConfig(iterations=10000, lbfgs_iterations=20000, check_every=1000),
+    )
+
+
+def burgers_precision() -> BurgersConfig:
+    """The quality point with a 40-step QR-LM phase; its gn_iterations raise
+    in `train` (ROADMAP.md queue A item 8)."""
+    base = burgers_quality()
+    return replace(base, train=replace(base.train, gn_iterations=40, gn_solve="qr"))
+
+
 def poisson3d_quality(hard_bc: bool = False) -> Poisson3DConfig:
     """(3,48,48,48,1) net, 6^3 test functions, 10^3 quadrature points, 8
     elements, Adam 10k + L-BFGS 10k; hard_bc=True lifts the ansatz (all six
@@ -394,6 +517,8 @@ def advdiff2d_precision() -> AdvDiff2DConfig:
 __all__ = [
     "AdvDiff2DConfig",
     "AdvDiffConfig",
+    "BurgersConfig",
+    "Helmholtz2DConfig",
     "TrainConfig",
     "Poisson1DConfig",
     "Poisson2DConfig",
@@ -403,6 +528,10 @@ __all__ = [
     "advdiff_of_record",
     "advdiff_precision",
     "advdiff_quality",
+    "burgers_precision",
+    "burgers_quality",
+    "helmholtz2d_precision",
+    "helmholtz2d_quality",
     "poisson1d_of_record",
     "poisson1d_quality",
     "poisson2d_of_record",

@@ -53,15 +53,18 @@ def evaluate(problem: Problem, params) -> dict:
 def strong_residual(problem: Problem, params, X: Optional[np.ndarray] = None) -> np.ndarray:
     """Pointwise strong-form PDE residual at X [P, d] (default: the test
     grid), as numpy [P, 1]: the reference's `net_f` (Poisson-1D.py:150-155:
-    -u_xx; Poisson-2D.py:187-194: u_xx + u_yy; AdvDiff.py:247-253:
-    u_t + V u_x - eps u_xx; AdvDiff-2D: u_t + vx u_x + vy u_y - eps (u_xx +
-    u_yy)).  For the Poisson problems it is f_pred - f(X); for AdvDiff the
-    operator value minus the manufactured forcing, if any (F = 0 in the
-    reference); for AdvDiff-2D minus its manufactured forcing, with eps the
-    trainable scalar, the true map epsilon_fn pointwise (forward runs) or
-    eps_true.  Poisson-3D has no branch, as in the JAX package.  The JVP
-    engine differentiates the full ansatz (problem.apply), so a hard-BC
-    composite is differentiated correctly."""
+    -u_xx; Poisson-2D.py:187-194: u_xx + u_yy; Helmholtz-2D: u_xx + u_yy +
+    k^2 u; AdvDiff.py:247-253: u_t + V u_x - eps u_xx; Burgers: u_t + u u_x
+    - nu u_xx; AdvDiff-2D: u_t + vx u_x + vy u_y - eps (u_xx + u_yy)).  For
+    the Poisson problems it is f_pred - f(X); for Helmholtz-2D the operator
+    value minus its forcing, with k^2 the trainable leaf or the truth; for
+    AdvDiff the operator value minus the manufactured forcing, if any (F = 0
+    in the reference); for Burgers the operator value; for AdvDiff-2D minus
+    its manufactured forcing, with eps the trainable scalar, the true map
+    epsilon_fn pointwise (forward runs) or eps_true.  Poisson-3D has no
+    branch, as in the JAX package.  The JVP engine differentiates the full
+    ansatz (problem.apply), so a hard-BC composite is differentiated
+    correctly."""
     if X is None:
         X = problem.test_points
     X = np.asarray(X)
@@ -78,6 +81,13 @@ def strong_residual(problem: Problem, params, X: Optional[np.ndarray] = None) ->
     elif problem.name == "poisson2d":
         flds = scalar_fields_2d(u_fn, Xt[:, 0:1], Xt[:, 1:2])
         r = flds["uxx"] + flds["uyy"] - on_device(problem.extras["f_rhs"](X[:, 0:1], X[:, 1:2]))
+    elif problem.name == "helmholtz2d":
+        k_sq = params["pde"]["k_sq"] if problem.config.inverse else problem.extras["k_sq_true"]
+        flds = scalar_fields_2d(u_fn, Xt[:, 0:1], Xt[:, 1:2])
+        r = flds["uxx"] + flds["uyy"] + k_sq * flds["u"] - on_device(problem.extras["f_rhs"](X[:, 0:1], X[:, 1:2]))
+    elif problem.name == "burgers":
+        flds = scalar_fields_2d(u_fn, Xt[:, 0:1], Xt[:, 1:2], first_y_only=True)
+        r = flds["uy"] + flds["u"] * flds["ux"] - problem.config.nu * flds["uxx"]
     elif problem.name == "advdiff":
         eps = problem.extras["eps_of"](params, Xt[:, 0:1])
         V = problem.extras["v_of"](params, Xt[:, 0:1])

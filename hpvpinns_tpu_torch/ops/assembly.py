@@ -1,7 +1,7 @@
 """Variational (weak-form) residual assembly, batched over elements.
 
-Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D/2D/3D, AdvDiff
-and AdvDiff-2D.  Res[e, n] (1D) / Res[e, k, r] (2D) / Res[e, m, k, r] (3D)
+Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D/2D/3D,
+Helmholtz-2D, AdvDiff, AdvDiff-2D and Burgers.  Res[e, n] (1D) / Res[e, k, r] (2D) / Res[e, m, k, r] (3D)
 = U - F, with F the offline RHS
 projection and U the network's derivative fields contracted against the
 quadrature-weighted test basis (weights folded in: Wphi[n, q] = w_q phi_n).
@@ -199,6 +199,32 @@ def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_fo
     return U - elems.f_proj
 
 
+def helmholtz2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, k_sq, var_form: int, fields_fn=None):
+    """Res[e, k, r] for Delta u + k^2 u = f on tensor-product elements: the
+    Poisson weak forms plus the zeroth-order mass term.
+
+    var_form 0:  U = jac * C(phi_r, phi_k, u_xx + u_yy + k^2 u)
+    var_form 1:  U = -jac_y * C(phi'_r, phi_k, u_x) - jac_x * C(phi_r, phi'_k, u_y)
+                     + jac * k^2 * C(phi_r, phi_k, u)
+                 (its fields come firsts-only)
+
+    `k_sq` is a number or the trainable 0-d tensor params["pde"]["k_sq"];
+    `fields_fn` as for poisson2d_residual."""
+    f2d = fields_fn or (lambda *a, **k: scalar_fields_2d(u_fn, *a, **k))
+    flds = f2d(elems.x, elems.y, firsts_only=(var_form == 1))
+    jac = (elems.jac_x * elems.jac_y)[:, None, None]
+    if var_form == 0:
+        U = jac * contract_2d(bx.wphi, by.wphi, flds["uxx"] + flds["uyy"] + k_sq * flds["u"])
+    elif var_form == 1:
+        U = -(
+            elems.jac_y[:, None, None] * contract_2d(bx.wdphi, by.wphi, flds["ux"])
+            + elems.jac_x[:, None, None] * contract_2d(bx.wphi, by.wdphi, flds["uy"])
+        ) + k_sq * jac * contract_2d(bx.wphi, by.wphi, flds["u"])
+    else:
+        raise ValueError(f"Helmholtz-2D var_form must be 0 or 1; got {var_form}")
+    return U - elems.f_proj
+
+
 def advdiff_residual(u_fn, elems: Elements2D, bx: Basis1D, bt: Basis1D, var_form: int, velocity, epsilon,
                      fields_fn=None, epsilon_x=0.0):
     """Res[e, k, r] for u_t + V u_x - eps u_xx = f in space-time elements
@@ -241,6 +267,36 @@ def advdiff_residual(u_fn, elems: Elements2D, bx: Basis1D, bt: Basis1D, var_form
         )
     else:
         raise ValueError(f"AdvDiff var_form must be 0, 1 or 2; got {var_form}")
+    return U - elems.f_proj
+
+
+def burgers_residual(u_fn, elems: Elements2D, bx: Basis1D, bt: Basis1D, var_form: int, nu, fields_fn=None):
+    """Res[e, k, r] for u_t + u u_x = nu u_xx in space-time elements (F = 0),
+    the convection in conservation form (u u_x = (u^2/2)_x):
+
+    var_form 0:  U = jac * C(phi_r, phi_k, u_t + u u_x - nu u_xx)
+    var_form 1:  U = jac * C(phi_r, phi_k, u_t) - (1/2) jac_t * C(phi'_r, phi_k, u^2)
+                     + nu jac_t * C(phi'_r, phi_k, u_x)
+                 (the x-integrations by parts drop their fluxes: phi_r(+-1) = 0)
+
+    Form 0 takes its fields with first_y_only (u_xx, and u_t alone in time),
+    form 1 firsts-only."""
+    f2d = fields_fn or (lambda *a, **k: scalar_fields_2d(u_fn, *a, **k))
+    kw = {"first_y_only": True} if var_form == 0 else {"firsts_only": True}
+    flds = f2d(elems.x, elems.y, **kw)
+    u, ut, ux = flds["u"], flds["uy"], flds["ux"]
+    jac = (elems.jac_x * elems.jac_y)[:, None, None]
+    jt = elems.jac_y[:, None, None]
+    if var_form == 0:
+        U = jac * contract_2d(bx.wphi, bt.wphi, ut + u * ux - nu * flds["uxx"])
+    elif var_form == 1:
+        U = (
+            jac * contract_2d(bx.wphi, bt.wphi, ut)
+            - 0.5 * jt * contract_2d(bx.wdphi, bt.wphi, u * u)
+            + nu * jt * contract_2d(bx.wdphi, bt.wphi, ux)
+        )
+    else:
+        raise ValueError(f"Burgers var_form must be 0 or 1; got {var_form}")
     return U - elems.f_proj
 
 

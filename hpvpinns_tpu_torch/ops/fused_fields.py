@@ -7,10 +7,11 @@ seconds...).  Its forward is the hand-written CUDA kernel
 csrc/fused_fields.cu on a CUDA tensor, and the plain PyTorch version
 `fields_flat_reference` on a CPU tensor; on a CUDA tensor the kernel
 launches or the call raises, it never falls back.  The kernels take float32,
-sin/tanh, a scalar output, n_dirs 1-3 and up to MAX_LAYERS = 16 layers; B1
-takes layer widths up to FWD_MAX_WIDTH = 256, B2 up to MAX_WIDTH = 64 (its
-stash), and each raises above its own.  B1's launch shape comes from
-`fwd_plan`, B2's from `bwd_plan`: functions of the shapes alone.
+sin/tanh, a scalar output, n_dirs 1-3, up to MAX_LAYERS = 16 layers and layer
+widths up to FWD_MAX_WIDTH = 256, and raise above.  Each has two forms: B1
+resident or staged, chosen by `fwd_plan`; B2 resident (everything in shared
+memory, widths up to BWD_RESIDENT_WIDTH = 64) or wide (its stash in device
+memory), chosen by `bwd_plan`.  Both plans are functions of the shapes alone.
 
 The gradient: for second=False it is autograd through the plain Taylor
 propagation (ops/taylor.py::mlp_fields), which is what the JAX package does
@@ -36,11 +37,12 @@ from hpvpinns_tpu_torch.models.mlp import MLP
 from hpvpinns_tpu_torch.ops.cuda_build import CSRC_DIR, BuiltLibrary, build_library
 from hpvpinns_tpu_torch.ops.taylor import mlp_fields
 
-# Must equal kMaxWidth / kMaxLayers in csrc/fused_fields_bwd.cu (B2) and, for
-# FWD_MAX_WIDTH, kMaxWidth in csrc/fused_fields.cu (B1); the kernels reject
-# wider or deeper networks too.
-MAX_WIDTH = 64
+# FWD_MAX_WIDTH / MAX_LAYERS must equal kMaxWidth / kMaxLayers in both
+# csrc/fused_fields.cu (B1) and csrc/fused_fields_bwd.cu (B2), and
+# BWD_RESIDENT_WIDTH kResidentMaxWidth in the latter; the kernels reject wider
+# or deeper networks too.
 FWD_MAX_WIDTH = 256
+BWD_RESIDENT_WIDTH = 64
 MAX_LAYERS = 16
 _ACTIVATION_CODE = {"tanh": 0, "sin": 1}
 
@@ -66,7 +68,7 @@ def pack_params(spec: MLP, params):
     return packed.contiguous(), np.asarray(spec.layers, dtype=np.int32)
 
 
-def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int, max_width: int = MAX_WIDTH) -> None:
+def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int, max_width: int = FWD_MAX_WIDTH) -> None:
     """Raise on anything a kernel does not take: widths above max_width (the
     limit of the kernel that is served), more than MAX_LAYERS layers, a
     non-scalar output, activations other than sin/tanh, X that is not
@@ -100,10 +102,11 @@ def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int, max_width
 class CudaLibrary:
     """A library csrc/<name>.cu behind a ctypes handle, built with nvcc at
     first use.  `signatures` maps each exported function to its ctypes
-    argument types (each returns an int: a launch returns a CUDA error
-    code); every library also exports hp_<name>_smem_bytes (its argument
-    types are `smem_bytes_args`), _smem_limit, _max_width and _max_layers,
-    and its limits must equal `max_width` / MAX_LAYERS."""
+    argument types (it returns an int: a launch returns a CUDA error code)
+    or to (argument types, return type); every library also exports
+    hp_<name>_smem_bytes (its argument types are `smem_bytes_args`),
+    _smem_limit, _max_width and _max_layers, and its limits must equal
+    `max_width` / MAX_LAYERS."""
 
     def __init__(self, name: str, signatures: dict, smem_bytes_args: list, max_width: int):
         self.name, self._signatures, self._smem_bytes_args = name, signatures, smem_bytes_args
@@ -116,7 +119,7 @@ class CudaLibrary:
             built = build_library(self.name, [CSRC_DIR / f"{self.name}.cu"])
             lib, i32, pre = built.lib, ctypes.c_int, f"hp_{self.name}"
             signatures = {
-                **{fn: (args, i32) for fn, args in self._signatures.items()},
+                **{fn: (args if isinstance(args, tuple) else (args, i32)) for fn, args in self._signatures.items()},
                 f"{pre}_smem_bytes": (self._smem_bytes_args, ctypes.c_longlong),
                 f"{pre}_smem_limit": ([i32], i32),
                 f"{pre}_max_width": ([], i32),
@@ -180,10 +183,13 @@ _FWD_LIBRARY = CudaLibrary(
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_wide_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_wide_scratch_bytes": ([_I32] * 4, _I64),
     "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_block_points": [],
     "hp_fused_fields_bwd_point_stride": [],
-}, [_I32] * 4, MAX_WIDTH)
+    "hp_fused_fields_bwd_resident_max_width": [],
+}, [_I32] * 4, FWD_MAX_WIDTH)
 
 
 # B1's launch shape.  FWD_STAGED_POINTS / FWD_STAGED_GROUPS / FWD_TILE must
@@ -404,19 +410,24 @@ BWD_TILE_POINTS = 16
 BWD_POINT_STRIDE = 20
 BWD_BLOCKS = 512  # T grows only above this many blocks: four per SM of an H100
 BWD_MAX_TILES = 8
+BWD_FORMS = ("resident", "wide")
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """B2's launch shape for a network and P points: tiles_per_block tiles
-    of BWD_TILE_POINTS points per block, n_blocks blocks, each writing one
-    partial row of row_pitch floats (n_params rounded up to a multiple of 4),
-    and the shared memory one block needs."""
+    """B2's launch shape for a network and P points: the form (resident or
+    wide), tiles_per_block tiles of BWD_TILE_POINTS points per block,
+    n_blocks blocks, each writing one partial row of row_pitch floats
+    (n_params rounded up to a multiple of 4), the shared memory one resident
+    block needs (bwd_smem_bytes, whatever the form) and the wide form's
+    scratch in device memory (0 for the resident form)."""
 
     tiles_per_block: int
     n_blocks: int
     row_pitch: int
     smem_bytes: int
+    form: str
+    scratch_bytes: int
 
 
 def _row_pitch(layers) -> int:
@@ -425,45 +436,83 @@ def _row_pitch(layers) -> int:
 
 
 def bwd_smem_bytes(layers, n_dirs: int) -> int:
-    """Shared memory of one B2 block (hp_fused_fields_bwd_smem_bytes): the
-    packed network and the block's gradient sums (row_pitch floats each),
-    the stash of every hidden layer and three stream buffers, each
+    """Shared memory of one resident B2 block (hp_fused_fields_bwd_smem_bytes):
+    the packed network and the block's gradient sums (row_pitch floats
+    each), the stash of every hidden layer and three stream buffers, each
     (1 + 2 n_dirs) x max width x BWD_POINT_STRIDE floats."""
     n_layers = len(layers) - 1
     return 4 * (2 * _row_pitch(layers) + (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_POINT_STRIDE)
 
 
-def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None) -> BwdPlan:
-    """T = tiles_per_block, by default as many tiles per block as keep at
-    least BWD_BLOCKS blocks (at most BWD_MAX_TILES): a function of P alone,
-    so the summation order, and the gradient, do not depend on the card."""
+def bwd_wide_scratch_bytes(layers, n_dirs: int, n_blocks: int) -> int:
+    """Device memory of the wide form's scratch
+    (hp_fused_fields_bwd_wide_scratch_bytes): per block the stash of every
+    hidden layer and three stream buffers, each (1 + 2 n_dirs) x max width x
+    BWD_TILE_POINTS floats."""
+    n_layers = len(layers) - 1
+    return 4 * n_blocks * (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_TILE_POINTS
+
+
+def bwd_resident_fits(layers, n_dirs: int) -> bool:
+    """Whether the resident form takes the network: no layer wider than
+    BWD_RESIDENT_WIDTH and one block's shared memory within an H100's
+    per-block opt-in."""
+    return max(layers) <= BWD_RESIDENT_WIDTH and bwd_smem_bytes(layers, n_dirs) <= SMEM_PER_BLOCK
+
+
+def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, form: str | None = None) -> BwdPlan:
+    """B2's plan, from the shapes alone (so the summation order, and the
+    gradient, do not depend on the card).  The resident form where
+    bwd_resident_fits, else the wide form (`form` forces one: for tests and
+    chip_smoke.py; forcing the resident form where it does not fit raises).
+    T = tiles_per_block, by default as many tiles per block as keep at least
+    BWD_BLOCKS blocks (at most BWD_MAX_TILES): a function of P alone, the
+    same for both forms, so that both add in one order."""
+    fits = bwd_resident_fits(layers, n_dirs)
+    form = form or ("resident" if fits else "wide")
+    if form not in BWD_FORMS:
+        raise ValueError(f"B2's form is one of {BWD_FORMS}; got {form!r}")
+    if form == "resident" and not fits:
+        raise ValueError(
+            f"B2's resident form takes widths <= {BWD_RESIDENT_WIDTH} and <= {SMEM_PER_BLOCK} B of shared memory; "
+            f"layers {tuple(layers)} at n_dirs {n_dirs} need {bwd_smem_bytes(layers, n_dirs)} B"
+        )
     n_tiles = -(-P // BWD_TILE_POINTS)
     T = tiles_per_block or max(1, min(BWD_MAX_TILES, n_tiles // BWD_BLOCKS))
-    return BwdPlan(T, -(-n_tiles // T), _row_pitch(layers), bwd_smem_bytes(layers, n_dirs))
+    n_blocks = -(-n_tiles // T)
+    scratch = bwd_wide_scratch_bytes(layers, n_dirs, n_blocks) if form == "wide" else 0
+    return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs), form, scratch)
 
 
 class FusedFieldsBwdKernel(KernelWrapper):
-    """B2, the CUDA kernel csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel,
-    built at first use.  A call returns the per-block partial sums
-    [n_blocks, row_pitch] of the weight gradients (packed as pack_params
-    packs the weights, then zero pad columns; bwd_plan gives the shape) and
-    gX (or None)."""
+    """One form of B2 (`form`): the CUDA kernel
+    csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident) or
+    ::fused_fields_bwd_wide_kernel (wide), built at first use.  A call
+    returns the per-block partial sums [n_blocks, row_pitch] of the weight
+    gradients (packed as pack_params packs the weights, then zero pad
+    columns; bwd_plan gives the shape) and gX (or None).  The resident form
+    raises for a network it cannot hold; the wide form takes any (the tests
+    and chip_smoke.py force it at resident widths)."""
+
+    def __init__(self, library: CudaLibrary, fn: str, form: str):
+        super().__init__(library, fn)
+        self.form = form
 
     def load(self) -> BuiltLibrary:
         built = self.library.load()
         lib = built.lib
-        if (lib.hp_fused_fields_bwd_block_points(), lib.hp_fused_fields_bwd_point_stride()) != (
-            BWD_TILE_POINTS, BWD_POINT_STRIDE
-        ):
-            raise RuntimeError("csrc/fused_fields_bwd.cu disagrees with BWD_TILE_POINTS/BWD_POINT_STRIDE")
+        if (lib.hp_fused_fields_bwd_block_points(), lib.hp_fused_fields_bwd_point_stride(),
+                lib.hp_fused_fields_bwd_resident_max_width()) != (BWD_TILE_POINTS, BWD_POINT_STRIDE, BWD_RESIDENT_WIDTH):
+            raise RuntimeError(
+                "csrc/fused_fields_bwd.cu disagrees with BWD_TILE_POINTS/BWD_POINT_STRIDE/BWD_RESIDENT_WIDTH")
         return built
 
     def prepare(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
                 tiles_per_block: int | None = None):
-        """Check the arguments and allocate the outputs of one launch:
-        (the C function's arguments and the buffers they point into,
-        partials, gX or None)."""
-        check_kernel_args(spec, params, X, n_dirs)
+        """Check the arguments and allocate the outputs (and the wide form's
+        scratch) of one launch: (the C function's arguments and the buffers
+        they point into, partials, gX or None)."""
+        check_kernel_args(spec, params, X, n_dirs, FWD_MAX_WIDTH)
         P = X.shape[0]
         n_fields = 1 + 2 * n_dirs
         if g.device != X.device or g.dtype != torch.float32 or tuple(g.shape) != (P, n_fields) or not g.is_contiguous():
@@ -471,22 +520,25 @@ class FusedFieldsBwdKernel(KernelWrapper):
                 f"g must be contiguous float32 [{P}, {n_fields}] on {X.device}; "
                 f"got {g.dtype} {tuple(g.shape)} on {g.device}"
             )
+        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block, self.form)
         packed, widths = pack_params(spec, params)
         dev = _device_index(X)
         self.load()
-        self.library.check_smem(
-            dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs),
-            f"layers {spec.layers} and n_dirs {n_dirs} (above B2's shared-memory ceiling: ROADMAP.md queue B item 1)",
-        )
-        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block)
+        scratch = None
+        if self.form == "resident":
+            self.library.check_smem(
+                dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs),
+                f"layers {spec.layers} and n_dirs {n_dirs} in the resident form")
+        else:
+            scratch = torch.empty((plan.scratch_bytes // 4,), dtype=torch.float32, device=X.device)
         partials = torch.empty((plan.n_blocks, plan.row_pitch), dtype=torch.float32, device=X.device)
         gX = torch.empty_like(X) if want_x else None
-        args = (
-            X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P,
-            n_dirs, _ACTIVATION_CODE[spec.activation], plan.tiles_per_block, partials.data_ptr(),
-            gX.data_ptr() if want_x else None, dev, torch.cuda.current_stream(X.device).cuda_stream,
-        )
-        return (args, packed, widths), partials, gX
+        head = (X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P,
+                n_dirs, _ACTIVATION_CODE[spec.activation], plan.tiles_per_block)
+        tail = (partials.data_ptr(), gX.data_ptr() if want_x else None, dev,
+                torch.cuda.current_stream(X.device).cuda_stream)
+        args = head + ((scratch.data_ptr(),) if scratch is not None else ()) + tail
+        return (args, packed, widths, scratch), partials, gX
 
     def __call__(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
                  tiles_per_block: int | None = None):
@@ -496,7 +548,8 @@ class FusedFieldsBwdKernel(KernelWrapper):
         return partials, gX
 
 
-fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32")
+fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32", "resident")
+fused_fields_bwd_wide_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_wide_f32", "wide")
 
 
 # Must equal kSumThreads / kMaxSumTiles in csrc/fused_fields_bwd.cu.
@@ -572,8 +625,9 @@ block_sum_kernel = BlockSumKernel(_BWD_LIBRARY, "hp_block_sum_f32")
 
 def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True):
     """(gparams, gX) of sum(g * fields_flat(..., second=True)) on the card:
-    B2, then the block sum."""
-    partials, gX = fused_fields_bwd_kernel(spec, params, X, g, n_dirs, want_x)
+    B2 in the form bwd_plan gives, then the block sum."""
+    kernel = fused_fields_bwd_kernel if bwd_resident_fits(spec.layers, n_dirs) else fused_fields_bwd_wide_kernel
+    partials, gX = kernel(spec, params, X, g, n_dirs, want_x)
     return unpack_params(spec, block_sum_kernel(partials)), gX  # the pad columns are left out
 
 

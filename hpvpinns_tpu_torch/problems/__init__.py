@@ -1,20 +1,32 @@
-from hpvpinns_tpu_torch.config import AdvDiff2DConfig, AdvDiffConfig, Poisson1DConfig, Poisson2DConfig, Poisson3DConfig
-from hpvpinns_tpu_torch.problems import advdiff, advdiff2d, poisson1d, poisson2d, poisson3d
+from hpvpinns_tpu_torch.config import (
+    AdvDiff2DConfig,
+    AdvDiffConfig,
+    BurgersConfig,
+    Helmholtz2DConfig,
+    Poisson1DConfig,
+    Poisson2DConfig,
+    Poisson3DConfig,
+)
+from hpvpinns_tpu_torch.problems import advdiff, advdiff2d, burgers, helmholtz, poisson1d, poisson2d, poisson3d
 from hpvpinns_tpu_torch.problems.base import Problem
+
+_BUILDERS = (
+    (Poisson1DConfig, poisson1d.build),
+    (Poisson2DConfig, poisson2d.build),
+    (Poisson3DConfig, poisson3d.build),
+    (Helmholtz2DConfig, helmholtz.build),
+    (AdvDiffConfig, advdiff.build),
+    (AdvDiff2DConfig, advdiff2d.build),
+    (BurgersConfig, burgers.build),
+)
 
 
 def build(config, *, device=None) -> Problem:
     """Dispatch on config type (Poisson1DConfig, Poisson2DConfig,
-    Poisson3DConfig, AdvDiffConfig, AdvDiff2DConfig).  The problem lives on `device`, by default the card
+    Poisson3DConfig, Helmholtz2DConfig, AdvDiffConfig, AdvDiff2DConfig,
+    BurgersConfig).  The problem lives on `device`, by default the card
     (torch.device("cuda")); with no CUDA device, pass device="cpu"."""
-    if isinstance(config, Poisson1DConfig):
-        return poisson1d.build(config, device=device)
-    if isinstance(config, Poisson2DConfig):
-        return poisson2d.build(config, device=device)
-    if isinstance(config, Poisson3DConfig):
-        return poisson3d.build(config, device=device)
-    if isinstance(config, AdvDiffConfig):
-        return advdiff.build(config, device=device)
-    if isinstance(config, AdvDiff2DConfig):
-        return advdiff2d.build(config, device=device)
+    for cls, build_fn in _BUILDERS:
+        if isinstance(config, cls):
+            return build_fn(config, device=device)
     raise TypeError(f"unknown or not yet ported problem config type: {type(config).__name__}")

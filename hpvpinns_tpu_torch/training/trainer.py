@@ -235,7 +235,7 @@ def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
 
 def _check_supported(cfg: TrainConfig, mesh) -> None:
     unported = {
-        "gn_iterations > 0 (the Gauss-Newton/LM phase)": cfg.gn_iterations > 0,
+        "gn_iterations > 0 (the Gauss-Newton/LM phase, queue A item 8)": cfg.gn_iterations > 0,
         "checkpoint_dir (checkpointing)": cfg.checkpoint_dir is not None,
         "mesh (multi-device training)": mesh is not None,
     }

@@ -21,17 +21,19 @@ from hpvpinns_tpu.ops.pallas_fields import pallas_fields_2d  # noqa: E402
 from hpvpinns_tpu_torch.convert import params_from_jax  # noqa: E402
 from hpvpinns_tpu_torch.models.mlp import MLP, init_mlp  # noqa: E402
 from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
+    BWD_RESIDENT_WIDTH,
     FWD_MAX_WIDTH,
     FWD_MIN_BLOCKS,
     MAX_LAYERS,
-    MAX_WIDTH,
     SMEM_PER_BLOCK,
+    bwd_plan,
     check_kernel_args,
     fields_flat,
     fields_flat_bwd_reference,
     fields_flat_reference,
     fused_fields_2d,
     fused_fields_bwd_kernel,
+    fused_fields_bwd_wide_kernel,
     fused_fields_kernel,
     fwd_plan,
     fwd_smem_bytes,
@@ -171,21 +173,23 @@ def test_kernel_rejects_what_it_does_not_take():
 
 
 def test_each_kernel_has_its_own_width_limit():
-    """B1 takes width 256 (on a CPU tensor it gets as far as the device
-    check) and raises at 257; B2 still raises at 65."""
+    """B1 and B2 take width 256 (on a CPU tensor they get as far as the
+    device check) and raise at 257; B2's resident form takes width 64 and
+    refuses 65, which its wide form takes."""
     X = torch.as_tensor(inputs(4, 2))
-    assert (FWD_MAX_WIDTH, MAX_WIDTH) == (256, 64)
+    assert (FWD_MAX_WIDTH, BWD_RESIDENT_WIDTH) == (256, 64)
     for width, match in ((FWD_MAX_WIDTH, "CUDA"), (FWD_MAX_WIDTH + 1, f"widths <= {FWD_MAX_WIDTH}")):
         spec = MLP(layers=(2, width, 1))
         tp = init_mlp(spec, torch.Generator().manual_seed(0))
         with pytest.raises(ValueError, match=match):
             fused_fields_kernel(spec, tp, X, 2, True)
-    for width, match in ((MAX_WIDTH, "CUDA"), (MAX_WIDTH + 1, f"widths <= {MAX_WIDTH}")):
-        spec = MLP(layers=(2, width, 1))
-        tp = init_mlp(spec, torch.Generator().manual_seed(0))
         with pytest.raises(ValueError, match=match):
-            fused_fields_bwd_kernel.prepare(spec, tp, X, torch.zeros(4, 5), 2)
-    assert fused_fields_kernel.launches == fused_fields_bwd_kernel.launches == 0
+            fused_fields_bwd_wide_kernel.prepare(spec, tp, X, torch.zeros(4, 5), 2)
+    for width, form in ((BWD_RESIDENT_WIDTH, "resident"), (BWD_RESIDENT_WIDTH + 1, "wide")):
+        assert bwd_plan((2, width, 1), 2, 4).form == form
+    with pytest.raises(ValueError, match=f"widths <= {BWD_RESIDENT_WIDTH}"):
+        bwd_plan((2, BWD_RESIDENT_WIDTH + 1, 1), 2, 4, form="resident")
+    assert fused_fields_kernel.launches == fused_fields_bwd_kernel.launches == fused_fields_bwd_wide_kernel.launches == 0
 
 
 # chip_smoke.py phase 3's shapes: (layers, n_dirs, second, P) and the plan

@@ -58,16 +58,17 @@ def jax_loss_and_grads(prob, params):
     return aux, grads
 
 
-def compare_loss_and_grads(jprob, tprob, tree=None, dtype=torch.float64, tight=TIGHT):
+def compare_loss_and_grads(jprob, tprob, tree=None, dtype=torch.float64, tight=TIGHT, jax_out=None):
     """Loss, every aux key (each a 0-d tensor of `dtype` in the port) and
     the gradient of every net and PDE leaf, by name, at the same numpy
-    parameters `tree` (default: shared_params(tprob)).  Returns the port's
-    params."""
+    parameters `tree` (default: shared_params(tprob)).  `jax_out` is JAX's
+    (aux, grads) at `tree` where the caller has them already (jprob is then
+    not run).  Returns the port's params."""
     tree = shared_params(tprob) if tree is None else tree
     tparams = tv.params_from_jax(tree, dtype=dtype)
     tloss, taux = tprob.loss_fn(tparams, tprob.data)
     tgrads = torch.autograd.grad(tloss, parameters(tparams))
-    jaux, jgrads = jax_loss_and_grads(jprob, to_jax(tree))
+    jaux, jgrads = jax_out if jax_out is not None else jax_loss_and_grads(jprob, to_jax(tree))
     assert sorted(taux) == sorted(jaux)
     for k, v in taux.items():
         assert v.dim() == 0 and v.dtype == dtype, k
