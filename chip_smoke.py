@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
                            | --advdiff-only | --advdiff-quality SEED... | --volumetric-only
-                           | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]]
+                           | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]
+                           | --gn-only | --precision [PRESET...] [SEED...]]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -141,6 +142,25 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      0.525 (within 20%, or printed as a miss); Helmholtz2DConfig() and its
      inverse under "pallas", 10,001 Adam steps: rel-L2, loss, k^2's
      relative error and closed_form_k_sq from the trained net.
+ 17. Gauss-Newton/LM (phase17): (a) one LM step of each solve ("normal",
+     "host", "qr", "cg", "lsqr") in float64 on the card against the same
+     step on the CPU (r and J, then delta, the predicted decrease and
+     |J^T r|_inf at rtol 1e-9, CG/LSQR at the same iteration) at a dual
+     Poisson-1D and a primal Poisson-2D; (b) the dual Jacobian under
+     "pallas" (B1, then B2 and the block sum once for each cotangent)
+     against "taylor" at advdiff_forward_precision's sizes in float32
+     without its layer feature (which forces the JVP engine): J within 2e-4
+     of each column's largest entry, the launches of one build (counts
+     zeroed just before, read just after) and its seconds beside
+     "taylor"'s, two LM steps on "pallas", and the forward-mode cases (the
+     primal Jacobian of poisson2d_scaled, "cg") raising the documented
+     TypeError; (c) helmholtz2d_quality whole (Adam 5k, L-BFGS 5k, the
+     10-step QR LM tail): rel-L2 against 2.5e-3, JAX's 1.23e-3 and the
+     port's 8.69e-3 without the tail, each phase's wall, the LM steps
+     accepted and rejected, the final lambda and the LM records; (e)
+     checkpoints of poisson2d_scaled under the graph (asynchronous, every
+     100 steps, keep 2), the latest restored bit for bit, and a run
+     resumed from step 100.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -154,6 +174,15 @@ on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
+With --gn-only it runs phases 1, 2 and 17 and prints no summary; with
+--precision [PRESET...] [SEED...] phases 1 and 2, then phase 17 (d): the
+Gauss-Newton presets named (default all: advdiff_precision,
+poisson1d_precision, advdiff2d_precision, poisson2d_precision,
+helmholtz2d_precision, burgers_precision, poisson3d_precision) at their
+whole schedules beside the JAX rows, and after poisson2d_precision
+polish_f64 of its trained net (30 float64 LM steps on the card) beside
+poisson2d_hybrid_polish, once for each seed given (default: the
+presets').
 With --advdiff-only it runs phases 1, 2 and 12 and prints no summary; with
 --advdiff-quality SEED... phases 1 and 2, then phase 12's (d) and (e) once
 for each seed given in place of the presets' (the spread of eps's error
@@ -934,7 +963,8 @@ def train_checked(prob, cfg, label: str, kernels=()):
     tr = cfg.train
     it, loss = res.history["iteration"], res.history["loss"]
     ev = hv.evaluate_problem(prob, res.eval_params)
-    if ((res.iterations_run != tr.iterations + tr.lbfgs_iterations and not res.stopped_early)
+    n_gn = res.phases["gn"]["iterations"] if tr.gn_iterations else 0
+    if ((res.iterations_run != tr.iterations + tr.lbfgs_iterations + n_gn and not res.stopped_early)
             or not np.all(np.isfinite(loss)) or not math.isfinite(ev["rel_l2"])):
         fail(f"{label}: {res.iterations_run} iterations, loss {loss.tolist()}, rel_l2 {ev['rel_l2']}")
     if tr.lbfgs_iterations:
@@ -1752,6 +1782,289 @@ def phase16(dev):
     return paths, nodes
 
 
+# Phase 17: the Gauss-Newton/LM phase, the float64 polish and checkpoints.
+GN_STEP_RTOL = 1e-9  # (a): one LM step on the card in float64 against the CPU
+GN_JAC_TOL = 2e-4  # (b): the kernels' gradient tolerance, against each column's largest entry
+PORT_HELMHOLTZ_NO_TAIL_REL_L2 = 8.69e-3  # the port without the LM tail (PERF.md section 5, PR 9)
+HELMHOLTZ_QUALITY_TARGET = 2.5e-3  # twice JAX's 1.23e-3
+# (d): (preset, what JAX reached, where), benchmarks/ACCURACY.json; the
+# shortest first (on an NVIDIA H100 80GB HBM3 at 700.00 W the six before
+# poisson3d_precision take about 17 minutes, the three L-BFGS schedules of
+# 10k-20k iterations 220-335 s each; poisson3d_precision's matrix-free CG
+# did not end within the hour a call may take)
+PRECISION_ROWS = (
+    ("advdiff_precision", 1.51e-3, "ACCURACY.json:440, f64: eps's relative error"),
+    ("poisson1d_precision", 1.09e-4, "ACCURACY.json:429, f64"),
+    ("advdiff2d_precision", 1.86e-3, "ACCURACY.json:487, f32"),
+    ("poisson2d_precision", 7.3e-5, "ACCURACY.json:454, f32"),
+    ("helmholtz2d_precision", 3.41e-4, "ACCURACY.json:561, f32"),
+    ("burgers_precision", 1.58e-3, "ACCURACY.json:465, f32"),
+    ("poisson3d_precision", 1.06e-3, "ACCURACY.json:476, f32, cg"),
+)
+JAX_P2D_POLISH = {"chip": 7.30e-5, "f64_eval": 4.38e-5, "polished": 3.42e-5}  # ACCURACY.json:513-523, 30 steps
+CHECKPOINTS = "hpvpinns_tpu_torch/_build/checkpoints"
+
+
+def gn_system(c, device, seed: int = 0):
+    """A problem built on `device` with its seeded initial params: (problem,
+    theta, r_and_J, loss_of, the damped-step solves, M, P)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.training.gauss_newton import _build_kernels, make_residual_vector, ravel_params
+
+    prob = hv.build(c, device=device)
+    params = prob.init_params(torch.Generator().manual_seed(seed))
+    theta, unravel = ravel_params(params)
+    res = make_residual_vector(prob)
+    with torch.no_grad():
+        M, P = res(params, prob.data).numel(), theta.numel()
+    r_and_J, loss_of, steps = _build_kernels(res, unravel, prob.data, P, M)
+    return prob, theta, r_and_J, loss_of, steps, M, P
+
+
+def gn_steps_on_the_card(dev):
+    """Phase 17 (a): one LM step of each of the five solves in float64 on
+    the card against the same step on the CPU, from the same params and
+    data: r and J, then delta, the predicted decrease and |J^T r|_inf of
+    each solve (rtol GN_STEP_RTOL; CG and LSQR stopping at the same
+    iteration), at a dual Poisson-1D (M < P, lambda 1e-3) and a primal
+    Poisson-2D (M > P, lambda 1).  The CPU is the reference the tests hold
+    to the JAX package."""
+    import hpvpinns_tpu_torch as hv
+
+    cases = (
+        ("Poisson-1D (1,8,8,1), dual", hv.Poisson1DConfig(layers=(1, 8, 8, 1), n_test=5, n_quad=12, dtype="float64"),
+         1e-3),
+        ("Poisson-2D 2x2 elements (2,8,8,1), primal",
+         hv.Poisson2DConfig(n_elements_x=2, n_elements_y=2, n_quad=6, n_test_x=3, n_test_y=3, layers=(2, 8, 8, 1),
+                            dtype="float64"), 1.0),
+    )
+    for label, c, lam in cases:
+        out = []
+        for d in (dev, torch.device("cpu")):
+            _, theta, r_and_J, _, steps, M, P = gn_system(c, d)
+            r, J = r_and_J(theta)
+            lam_t = torch.tensor(lam, dtype=torch.float64, device=d)
+            out.append({"r": r.cpu(), "J": J.cpu()})
+            for name, step in steps.items():
+                got = step(theta, lam_t) if name in ("cg", "lsqr") else step(r, J, lam_t)
+                out[-1][name] = [g.cpu() if torch.is_tensor(g) else torch.tensor(g, dtype=torch.float64)
+                                     for g in got[:3]] + ([got[3]] if len(got) > 3 else [])
+        card, host = out
+        errs = {k: check_close(f"{label} {k} card vs CPU", card[k], host[k], rtol=1e-12,
+                               atol=1e-14 * host[k].abs().max().item()) for k in ("r", "J")}
+        line = f"phase 17 (a) {label}, M {M}, P {P}, lambda {lam:g}: r/J max_abs_err {errs['r']:.2e} / {errs['J']:.2e}"
+        for name in ("normal", "host", "qr", "cg", "lsqr"):
+            a, b = card[name], host[name]
+            derr = check_close(f"{label} {name} delta", a[0], b[0], rtol=GN_STEP_RTOL,
+                               atol=GN_STEP_RTOL * b[0].abs().max().item())
+            for k, what in ((1, "predicted decrease"), (2, "|J^T r|_inf")):
+                check_close(f"{label} {name} {what}", a[k], b[k], rtol=GN_STEP_RTOL, atol=0.0)
+            if len(a) > 3 and a[3] != b[3]:
+                fail(f"{label} {name}: {a[3]} iterations on the card, {b[3]} on the CPU")
+            line += f"; {name} delta max_abs_err {derr:.2e}" + (f" ({a[3]} iterations both)" if len(a) > 3 else "")
+        print(line, flush=True)
+
+
+def timed_jacobian(r_and_J, theta):
+    """((r, J), seconds of the build, device sync included)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = r_and_J(theta)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gn_pallas_jacobian(dev) -> dict:
+    """Phase 17 (b): the dual (reverse-mode) Jacobian under "pallas" (B1 in
+    the forward, B2 and the block sum once for each cotangent) against
+    "taylor" at advdiff_forward_precision's network, grid and test space in
+    float32 (P 2,241, M 555) without its layer feature, which forces the
+    JVP engine (as in the JAX package) and so no kernel: r within the field
+    tolerance, J within GN_JAC_TOL of each column's largest entry.  The
+    counts are zeroed just before the "pallas" build and read just after;
+    both builds are timed (the first of each includes one-time set-up, so
+    each is built twice).  Then two LM steps (QR, the preset's solve) on
+    "pallas", and the forward-mode cases raising the documented TypeError:
+    the primal Jacobian (poisson2d_scaled, P 921 <= M 6,720) and "cg".
+    Returns the launches and times for the kernels line."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.ops.fused_fields import FORWARD_MODE_ERROR
+
+    base = dataclasses.replace(hv.advdiff_forward_precision(), layer_feature=False)
+    out, times = {}, {}
+    for mode in ("taylor", "pallas"):
+        c = dataclasses.replace(base, deriv_mode=mode)
+        prob, theta, r_and_J, _, _, M, P = gn_system(c, dev, c.train.seed)
+        timed_jacobian(r_and_J, theta)
+        if mode == "pallas":
+            zero_counts()
+        out[mode], times[mode] = timed_jacobian(r_and_J, theta)
+        if mode == "pallas":
+            counts = read_counts()
+    (rp, Jp), (rt, Jt) = out["pallas"], out["taylor"]
+    if M >= P:
+        fail(f"phase 17 (b): M {M} >= P {P}, not the dual Jacobian")
+    rerr = check_close("phase 17 (b) r pallas vs taylor", rp, rt, rtol=FIELD_TOL["rtol"],
+                       atol=FIELD_TOL["rtol"] * rt.abs().max().item())
+    scale = Jt.abs().amax(dim=0).clamp_min(1e-30)
+    jerr = check_close("phase 17 (b) J pallas vs taylor, column-scaled", Jp / scale, Jt / scale, rtol=0.0, atol=GN_JAC_TOL)
+    if min(counts[k] for k in SECOND_PATH) < 1:
+        fail(f"phase 17 (b): the Jacobian build's launches {counts}")
+    c = dataclasses.replace(base, deriv_mode="pallas")
+    prob = hv.build(c, device=dev)
+    gn = hv.gauss_newton(prob, prob.init_params(torch.Generator().manual_seed(c.train.seed)), iterations=2,
+                         solve=c.train.gn_solve, verbose=False)
+    if gn.accepted != 2 or not np.all(np.diff(gn.history["loss"]) < 0):
+        fail(f"phase 17 (b): LM on pallas: {gn.accepted} accepted, losses {gn.history.get('loss')}")
+    raised = []
+    for label, c2, solve in (("poisson2d_scaled primal", dataclasses.replace(hv.poisson2d_scaled(), deriv_mode="pallas"),
+                              None), ("cg", c, "cg")):
+        p2 = hv.build(c2, device=dev)
+        try:
+            hv.gauss_newton(p2, p2.init_params(torch.Generator().manual_seed(0)), iterations=1, solve=solve,
+                            verbose=False)
+        except TypeError as err:
+            if str(err) != FORWARD_MODE_ERROR:
+                fail(f"phase 17 (b) {label}: another TypeError: {err}")
+            raised.append(label)
+        else:
+            fail(f"phase 17 (b) {label}: forward mode under pallas did not raise")
+    print(
+        f"phase 17 (b) advdiff_forward_precision without layer_feature (layers {base.layers}, f32), M {M}, P {P}: "
+        f"r max_abs_err {rerr:.3e}; J column-scaled max err {jerr:.3e} (tolerance {GN_JAC_TOL}); host launches of "
+        f"one pallas Jacobian build {counts} (M {M} cotangents); Jacobian build s pallas {times['pallas']!r} taylor "
+        f"{times['taylor']!r}; LM on pallas (qr): 2 accepted, loss {gn.history['loss'].tolist()}; forward mode "
+        f"raises the documented TypeError: {', '.join(raised)}",
+        flush=True,
+    )
+    return {"counts": counts, "M": M, "P": P, "jacobian_s": times["pallas"], "taylor_jacobian_s": times["taylor"]}
+
+
+def gn_note(res) -> str:
+    """The LM phase of a run, for a printed line."""
+    gn = res.phases["gn"]
+    h = res.history
+    lm = ~np.isnan(h["damping"])
+    return (f"LM {gn['accepted']} accepted, {gn['rejected']} rejected, stopped '{gn['stopped']}', final lambda "
+            f"{gn['damping']:.3e}, wall s {gn['wall_s']:.2f}; LM loss {h['loss'][lm][[0, -1]].tolist()} "
+            f"(records: loss {h['loss'][lm].tolist()}, damping {h['damping'][lm].tolist()})")
+
+
+def train_with_gn(prob, c, label: str) -> tuple:
+    """train_checked, then the phases' walls and the LM phase's steps: (result,
+    evaluation, printed summary)."""
+    res, counts, ev = train_checked(prob, c, label)
+    walls = ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in res.phases.items())
+    return res, ev, f"wall s {walls}; {gn_note(res)}"
+
+
+def gn_helmholtz_quality(dev, seed=None) -> None:
+    """Phase 17 (c): helmholtz2d_quality whole, (2,30,30,30,1) sin, hard BC
+    on "jvp": Adam 5k, L-BFGS 5k and the 10-step QR LM tail.  rel-L2
+    against HELMHOLTZ_QUALITY_TARGET, JAX's 1.23e-3 and the port's 8.69e-3
+    without the tail (a miss is printed, not failed)."""
+    import hpvpinns_tpu_torch as hv
+
+    c = hv.helmholtz2d_quality()
+    if seed is not None:
+        c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+    res, ev, note = train_with_gn(hv.build(c, device=dev), c, "helmholtz2d_quality")
+    verdict = "met" if ev["rel_l2"] < HELMHOLTZ_QUALITY_TARGET else "MISSED"
+    print(f"phase 17 (c) helmholtz2d_quality seed {c.train.seed}: rel_l2 {ev['rel_l2']:.4e} (target < "
+          f"{HELMHOLTZ_QUALITY_TARGET:g}: {verdict}; JAX f32 row {JAX_HELMHOLTZ_QUALITY_REL_L2:g}; the port without "
+          f"the tail {PORT_HELMHOLTZ_NO_TAIL_REL_L2:g}); final loss {res.history['loss'][-1]:.6e}; {note}", flush=True)
+
+
+def gn_precision(dev, seed=None, names=()) -> None:
+    """Phase 17 (d), behind --precision: the GN presets (those in `names`,
+    default all) at their whole schedules (rel-L2, or eps's relative error
+    for advdiff_precision, beside the JAX row), and after
+    poisson2d_precision polish_f64 of its trained net (30 float64 LM steps
+    on the card, as the JAX row), beside poisson2d_hybrid_polish."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+    from hpvpinns_tpu_torch.training.hybrid import polish_f64
+
+    for name, jax_row, where in PRECISION_ROWS:
+        if names and name not in names:
+            continue
+        c = getattr(hv, name)()
+        if seed is not None:
+            c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+        t0 = time.perf_counter()
+        prob = hv.build(c, device=dev)
+        res, ev, note = train_with_gn(prob, c, name)
+        if name == "advdiff_precision":
+            eps = prob.extras["eps_domain_mean"](res.eval_params)
+            eps = float(eps.item() if torch.is_tensor(eps) else eps)
+            got = f"eps {eps:.6g} (true {prob.extras['eps_true']:.6g}), relative error " \
+                  f"{abs(eps - prob.extras['eps_true']) / prob.extras['eps_true']:.4e}; rel_l2 {ev['rel_l2']:.4e}"
+        else:
+            got = f"rel_l2 {ev['rel_l2']:.4e}"
+        print(f"phase 17 (d) {name} seed {c.train.seed} ({c.dtype}, layers {c.layers}, solve "
+              f"{c.train.gn_solve or 'default'}): {got} (JAX {jax_row:g}, {where}); final loss "
+              f"{res.history['loss'][-1]:.6e}; {note}; {time.perf_counter() - t0:.1f} s", flush=True)
+        if name == "poisson2d_precision":
+            pol = polish_f64(c, res.params, iterations=30, device=dev)
+            print(f"phase 17 (d) polish_f64 of the poisson2d_precision net: rel_l2 f32 {ev['rel_l2']:.4e}, f64 "
+                  f"evaluation {pol.metrics_start['rel_l2']:.4e}, polished {pol.metrics['rel_l2']:.4e} (JAX "
+                  f"{JAX_P2D_POLISH}); {pol.accepted} accepted, stopped '{pol.stopped}', loss {pol.loss:.6e}, "
+                  f"{pol.wall_s:.1f} s; params {sorted({str(t.dtype) for t in parameters(pol.params)})}", flush=True)
+
+
+def gn_checkpoints(dev) -> None:
+    """Phase 17 (e): poisson2d_scaled under "pallas", 200 Adam steps under
+    the graph with checkpoints every 100 (asynchronous, keep 2) into the
+    build directory; the latest restored equals the result bit for bit,
+    step 100 carries Adam's step count, and a run resumed from it trains."""
+    import os
+    import shutil
+
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+    from hpvpinns_tpu_torch.training.checkpoint import Checkpointer
+
+    shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+    base = dataclasses.replace(hv.poisson2d_scaled(), deriv_mode="pallas")
+    c = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, iterations=200, check_every=50, checkpoint_dir=CHECKPOINTS, checkpoint_every=100,
+        checkpoint_keep_last=2, checkpoint_async=True))
+    prob = hv.build(c, device=dev)
+    res = hv.train(prob, verbose=False)
+    saved = sorted(os.listdir(CHECKPOINTS))
+    if saved != ["step_00000100", "step_00000200"]:
+        fail(f"phase 17 (e): checkpoints {saved}")
+    ck = Checkpointer(CHECKPOINTS)
+    step, tree = ck.restore(like={"params": res.params, "opt_state": None})
+    for a, b in zip(parameters(tree["params"]), parameters(res.params)):
+        if a.device != b.device or not torch.equal(a, b.detach()):
+            fail("phase 17 (e): the restored params are not the result's")
+    step, tree = ck.restore(100, like={"params": res.params, "opt_state": None})
+    if step != 100 or int(tree["opt_state"]["state"][0]["step"]) != 100:
+        fail(f"phase 17 (e): step {step}, Adam's step {tree['opt_state']['state'][0]['step']}")
+    c2 = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=100, checkpoint_dir=None))
+    res2 = hv.train(prob, c2.train, params=tree["params"], verbose=False)
+    h = res2.history["loss"]
+    if not (np.all(np.isfinite(h)) and h[-1] < res.history["loss"][1]):
+        fail(f"phase 17 (e): the resumed run's loss {h.tolist()}")
+    print(f"phase 17 (e) checkpoints of poisson2d_scaled pallas under the graph: {saved}, the latest restored bit for "
+          f"bit, step 100 with Adam's step 100; resumed 100 steps: loss {h[0]:.6e} -> {h[-1]:.6e} (the first run at "
+          f"100 and 200: {res.history['loss'][1]:.6e}, {res.history['loss'][3]:.6e})", flush=True)
+    shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+
+
+def phase17(dev) -> dict:
+    """Phase 17, the Gauss-Newton/LM phase: (a), (b), (c) and (e); (d) runs
+    behind --precision.  Returns (b)'s launches and times."""
+    t0 = time.perf_counter()
+    gn_steps_on_the_card(dev)
+    jac = gn_pallas_jacobian(dev)
+    gn_helmholtz_quality(dev)
+    gn_checkpoints(dev)
+    print(f"phase 17 gauss-newton: {time.perf_counter() - t0:.1f} s", flush=True)
+    return jac
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1828,6 +2141,18 @@ def main() -> int:
     if sys.argv[1:2] == ["--poisson3d-quality"]:  # phase 13 (c) with hard BC too, at each seed given
         for seed in sys.argv[2:] or [None]:
             poisson3d_quality_runs(dev, None if seed is None else int(seed), hard_bc=True)
+        return 0
+
+    if sys.argv[1:2] == ["--gn-only"]:  # for work on Gauss-Newton: phases 1, 2 and 17 only, no summary
+        phase17(dev)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--precision"]:  # phase 17 (d): the presets named (default all), each seed given
+        names = [a for a in sys.argv[2:] if not a.isdigit()]
+        for seed in [int(a) for a in sys.argv[2:] if a.isdigit()] or [None]:
+            gn_precision(dev, seed, names)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
     if sys.argv[1:2] == ["--advdiff-only"]:  # for work on AdvDiff: phases 1, 2 and 12 only, no summary
@@ -2005,6 +2330,12 @@ def main() -> int:
     paths.update(f_paths)
     nodes.update(f_nodes)
 
+    # 17. Gauss-Newton/LM: one step of each solve on the card against the
+    # CPU, the dual Jacobian through B1/B2, helmholtz2d_quality with its LM
+    # tail, checkpoints under the graph
+    gn_jac = phase17(dev)
+    paths["gn jacobian, advdiff_forward_precision without layer_feature"] = gn_jac["counts"]
+
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
     wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
@@ -2055,6 +2386,10 @@ def main() -> int:
                                            adv_sum_rows[0] * adv_sum_rows[1])[0]},
     }
     for k in kernels:
+        if k["name"] in SECOND_PATH:
+            k["gn_jacobian"] = {"launches": gn_jac["counts"][k["name"]], "M": gn_jac["M"], "P": gn_jac["P"],
+                                "jacobian_s": gn_jac["jacobian_s"], "taylor_jacobian_s": gn_jac["taylor_jacobian_s"],
+                                "shape": "advdiff_forward_precision without layer_feature, f32, one reverse build"}
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
         k["graph_nodes_by_path"] = {path: n.get(k["name"], 0) for path, n in nodes.items()}
         if k["name"] in adv:

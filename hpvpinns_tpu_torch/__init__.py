@@ -8,7 +8,9 @@ Helmholtz-2D (forms 0/1, hard BC, k^2 identification), AdvDiff
 identification (forms 0/1/2, scalar/quadratic/network eps, trainable
 velocity, hard BC), AdvDiff-2D identification (forms 0/1, eps and the
 velocity vector) and Burgers (forms 0/1, hard BC, the front feature, strong
-collocation) problems with the Adam and L-BFGS (optax's) trainer.  Their derivative fields come from the
+collocation) problems with the Adam, L-BFGS (optax's) and Gauss-Newton/LM
+trainer, checkpoints (training/checkpoint.py) and the float64 polish
+(training/hybrid.py).  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
@@ -36,8 +38,10 @@ from hpvpinns_tpu_torch.config import (
     helmholtz2d_precision,
     helmholtz2d_quality,
     poisson1d_of_record,
+    poisson1d_precision,
     poisson1d_quality,
     poisson2d_of_record,
+    poisson2d_precision,
     poisson2d_quality,
     poisson2d_scaled,
     poisson3d_precision,
@@ -47,7 +51,7 @@ from hpvpinns_tpu_torch.convert import params_from_jax, params_to_numpy
 from hpvpinns_tpu_torch.evaluate import evaluate as evaluate_problem
 from hpvpinns_tpu_torch.evaluate import predict, rel_l2, strong_residual
 from hpvpinns_tpu_torch.problems import build
-from hpvpinns_tpu_torch.training import TrainResult, train
+from hpvpinns_tpu_torch.training import GNResult, TrainResult, gauss_newton, train
 
 __all__ = [
     "AdvDiff2DConfig",
@@ -57,6 +61,7 @@ __all__ = [
     "Poisson1DConfig",
     "Poisson2DConfig",
     "Poisson3DConfig",
+    "GNResult",
     "TrainConfig",
     "TrainResult",
     "advdiff2d_precision",
@@ -68,13 +73,16 @@ __all__ = [
     "burgers_precision",
     "burgers_quality",
     "evaluate_problem",
+    "gauss_newton",
     "helmholtz2d_precision",
     "helmholtz2d_quality",
     "params_from_jax",
     "params_to_numpy",
     "poisson1d_of_record",
+    "poisson1d_precision",
     "poisson1d_quality",
     "poisson2d_of_record",
+    "poisson2d_precision",
     "poisson2d_quality",
     "poisson2d_scaled",
     "poisson3d_precision",

@@ -2,10 +2,9 @@
 AdvDiff, AdvDiff-2D and Burgers subset of hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
-to one.  Fields whose feature is not ported yet (Gauss-Newton,
-checkpointing, matmul precision "high"/"default", the adaptive slope) are
-kept and rejected with NotImplementedError where they are used; ROADMAP.md
-lists them.
+to one.  Fields whose feature is not ported yet (matmul precision
+"high"/"default", the adaptive slope) are kept and rejected with
+NotImplementedError where they are used; ROADMAP.md lists them.
 """
 
 from __future__ import annotations
@@ -16,29 +15,29 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimization loop settings: full-batch Adam, then optionally L-BFGS,
-    with the loss polled every `check_every` iterations and an optional
-    threshold early stop."""
+    """Optimization loop settings: full-batch Adam, then optionally L-BFGS
+    and Gauss-Newton/LM, with the loss polled every `check_every` iterations,
+    an optional threshold early stop and optional checkpoints."""
 
     learning_rate: float = 1e-3
     iterations: int = 1001
     lbfgs_iterations: int = 0  # second-phase full-batch L-BFGS
-    gn_iterations: int = 0  # third-phase Gauss-Newton/LM: not ported yet
-    gn_damping_init: float = 1e-3
-    gn_solve: Optional[str] = None
-    gn_cg_tol: float = 1e-3
-    gn_cg_maxiter: Optional[int] = None
-    gn_jac_chunk: Optional[int] = None
+    gn_iterations: int = 0  # third-phase Gauss-Newton/LM: accepted steps
+    gn_damping_init: float = 1e-3  # initial LM damping lambda
+    gn_solve: Optional[str] = None  # "normal" | "host" | "qr" | "cg" | "lsqr"; None: "host" below f64, else "normal"
+    gn_cg_tol: float = 1e-3  # matrix-free solves: relative forcing tolerance
+    gn_cg_maxiter: Optional[int] = None  # matrix-free iteration cap (None: min(P, 2000))
+    gn_jac_chunk: Optional[int] = None  # Jacobian passes per vmapped block (None: all up to 2048, else 256)
     threshold: Optional[float] = None  # early stop when loss < threshold
     check_every: int = 10  # host-side loss poll cadence
     log_every: int = 100  # console print cadence
     seed: int = 1234
     best_snapshot_fraction: Optional[float] = None  # keep the best params
     # over the final (1 - fraction) of the iterations
-    checkpoint_dir: Optional[str] = None  # checkpointing: not ported yet
+    checkpoint_dir: Optional[str] = None  # torch.save checkpoints (training/checkpoint.py)
     checkpoint_every: Optional[int] = None
-    checkpoint_keep_last: int = 3
-    checkpoint_async: bool = False
+    checkpoint_keep_last: int = 3  # retained checkpoints (0 = keep all)
+    checkpoint_async: bool = False  # write on a background thread
 
 
 @dataclass(frozen=True)
@@ -336,6 +335,18 @@ def poisson1d_quality() -> Poisson1DConfig:
     )
 
 
+def poisson1d_precision() -> Poisson1DConfig:
+    """The quality hp grid with the test space raised to p = 50, float64,
+    Adam 1000 and a 200-step Gauss-Newton/LM phase (the JAX package's
+    rel-L2 1.09e-4)."""
+    return replace(
+        poisson1d_quality(),
+        dtype="float64",
+        n_test=50,
+        train=TrainConfig(iterations=1000, gn_iterations=200, check_every=200),
+    )
+
+
 def poisson2d_of_record() -> Poisson2DConfig:
     """Poisson-2D.py:279-288,434."""
     return Poisson2DConfig()
@@ -357,6 +368,14 @@ def poisson2d_quality(hard_bc: bool = False) -> Poisson2DConfig:
             check_every=1000,
         ),
     )
+
+
+def poisson2d_precision(hard_bc: bool = True) -> Poisson2DConfig:
+    """The quality configuration (hard BC by default) plus a 50-step LM
+    phase; in float32 its damped step is the float64 "host" solve (on the
+    card here).  The JAX package's rel-L2: 7.3e-5 hard BC."""
+    base = poisson2d_quality(hard_bc=hard_bc)
+    return replace(base, train=replace(base.train, gn_iterations=50))
 
 
 def poisson2d_scaled(n_elem_axis: int = 8, n_quad: int = 16, n_test: int = 10) -> Poisson2DConfig:
@@ -395,8 +414,7 @@ def advdiff_quality() -> AdvDiffConfig:
 
 def advdiff_precision() -> AdvDiffConfig:
     """The reference's inverse configuration with a 150-step Gauss-Newton/LM
-    phase after Adam 1500 (float64); its gn_iterations raise in `train`
-    until the Gauss-Newton phase is ported."""
+    phase after Adam 1500 (float64)."""
     return AdvDiffConfig(
         dtype="float64",
         train=TrainConfig(iterations=1500, gn_iterations=150, check_every=300),
@@ -405,8 +423,7 @@ def advdiff_precision() -> AdvDiffConfig:
 
 def advdiff_forward_precision() -> AdvDiffConfig:
     """The forward frontier: the outflow-layer input feature, a
-    front-clustered x-grid and a 150-step QR-LM phase; its gn_iterations
-    raise in `train` until the Gauss-Newton phase is ported."""
+    front-clustered x-grid and a 150-step QR-LM phase."""
     return AdvDiffConfig(
         inverse=False,
         layer_feature=True,
@@ -423,8 +440,7 @@ def advdiff_forward_precision() -> AdvDiffConfig:
 
 def helmholtz2d_quality() -> Helmholtz2DConfig:
     """A sin net, the hard-BC Coons trace lift, Adam 5k + L-BFGS 5k and a
-    10-step QR-LM tail; its gn_iterations raise in `train` until the
-    Gauss-Newton phase is ported (ROADMAP.md queue A item 8)."""
+    10-step QR-LM tail."""
     return Helmholtz2DConfig(
         activation="sin",
         hard_bc=True,
@@ -434,8 +450,7 @@ def helmholtz2d_quality() -> Helmholtz2DConfig:
 
 
 def helmholtz2d_precision() -> Helmholtz2DConfig:
-    """The quality point at Adam 10k + L-BFGS 10k and a 50-step QR-LM phase;
-    its gn_iterations raise in `train` (ROADMAP.md queue A item 8)."""
+    """The quality point at Adam 10k + L-BFGS 10k and a 50-step QR-LM phase."""
     base = helmholtz2d_quality()
     return replace(
         base,
@@ -458,8 +473,7 @@ def burgers_quality() -> BurgersConfig:
 
 
 def burgers_precision() -> BurgersConfig:
-    """The quality point with a 40-step QR-LM phase; its gn_iterations raise
-    in `train` (ROADMAP.md queue A item 8)."""
+    """The quality point with a 40-step QR-LM phase."""
     base = burgers_quality()
     return replace(base, train=replace(base.train, gn_iterations=40, gn_solve="qr"))
 
@@ -481,8 +495,8 @@ def poisson3d_quality(hard_bc: bool = False) -> Poisson3DConfig:
 
 def poisson3d_precision(hard_bc: bool = True) -> Poisson3DConfig:
     """The quality point with 8^3 test functions and a 30-step matrix-free
-    (CG) Gauss-Newton/LM phase; its gn_iterations raise in `train` until the
-    Gauss-Newton phase is ported."""
+    (CG) Gauss-Newton/LM phase.  Its default hard BC runs on "jvp"; under
+    "pallas" the matrix-free CG raises (the kernels have no JVP)."""
     base = poisson3d_quality(hard_bc=hard_bc)
     return replace(
         base,
@@ -495,8 +509,7 @@ def poisson3d_precision(hard_bc: bool = True) -> Poisson3DConfig:
 def advdiff2d_precision() -> AdvDiff2DConfig:
     """The forward frontier of the 2D space-time family: eps frozen at truth,
     a (3,32,32,32,1) net, 8^3 test functions, 10^3 quadrature points, Adam
-    5000 and a 120-step QR-LM phase; its gn_iterations raise in `train`
-    until the Gauss-Newton phase is ported."""
+    5000 and a 120-step QR-LM phase."""
     return AdvDiff2DConfig(
         layers=(3, 32, 32, 32, 1),
         n_test_x=8,
@@ -533,8 +546,10 @@ __all__ = [
     "helmholtz2d_precision",
     "helmholtz2d_quality",
     "poisson1d_of_record",
+    "poisson1d_precision",
     "poisson1d_quality",
     "poisson2d_of_record",
+    "poisson2d_precision",
     "poisson2d_quality",
     "poisson2d_scaled",
     "poisson3d_precision",

@@ -42,6 +42,11 @@ from hpvpinns_tpu_torch.ops.taylor import mlp_fields
 # BWD_RESIDENT_WIDTH kResidentMaxWidth in the latter; the kernels reject wider
 # or deeper networks too.
 FWD_MAX_WIDTH = 256
+FORWARD_MODE_ERROR = (
+    "deriv_mode='pallas' has no forward-mode derivative: the fused-fields kernels have a VJP (B2) and no JVP, "
+    "as the JAX package's custom_vjp has none.  Forward-mode products (a JVP, the Gauss-Newton Jacobian by "
+    "columns when parameters <= residuals, the matrix-free 'cg'/'lsqr' solves) need deriv_mode 'taylor' or 'jvp'"
+)
 BWD_RESIDENT_WIDTH = 64
 MAX_LAYERS = 16
 _ACTIVATION_CODE = {"tanh": 0, "sin": 1}
@@ -631,33 +636,82 @@ def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs
     return unpack_params(spec, block_sum_kernel(partials)), gX  # the pad columns are left out
 
 
-class _FieldsFlat(torch.autograd.Function):
+def _fields_flat_vjp(spec: MLP, n_dirs: int, second: bool, want_x: bool, g: torch.Tensor, X: torch.Tensor, flat):
+    """The VJP of fields_flat at X for one cotangent g [P, F]: (gX, *gflat)
+    with want_x, else (*gflat).  With second derivatives B2 and its block sum
+    on a CUDA tensor, their plain version on a CPU tensor; firsts only, the
+    VJP of the plain Taylor forward (the JAX package's XLA VJP,
+    pallas_fields.py:190-196)."""
+    if second:
+        bwd = fused_fields_bwd if X.is_cuda else fields_flat_bwd_reference
+        gparams, gX = bwd(spec, _unflatten(flat), X, g.contiguous(), n_dirs, want_x)
+        return ((gX,) if want_x else ()) + tuple(_flatten(gparams))
+    with torch.enable_grad():
+        Xd = X.detach().requires_grad_(want_x)
+        fd = [t.detach().requires_grad_(True) for t in flat]
+        out = fields_flat_reference(spec, _unflatten(fd), Xd, n_dirs, False)
+        return tuple(torch.autograd.grad(out, ([Xd] if want_x else []) + fd, g))
+
+
+class _FieldsFlatVjp(torch.autograd.Function):
+    """The VJP of fields_flat as a function of its cotangent g, so that
+    torch.func.vmap can batch it: the vmap rule runs the VJP once for each
+    cotangent of the batch, on the one primal (the JAX package batches B2's
+    grid instead; a batched launch is ROADMAP B' 5).  Not differentiable
+    again, as the JAX kernel's VJP is not."""
+
     @staticmethod
-    def forward(ctx, spec, n_dirs, second, X, *flat):
+    def forward(spec, n_dirs, second, want_x, g, X, *flat):
+        return _fields_flat_vjp(spec, n_dirs, second, want_x, g, X, flat)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("fields_flat has no second-order derivative (the kernels' VJP is not differentiable)")
+
+    @staticmethod
+    def vmap(info, in_dims, spec, n_dirs, second, want_x, g, X, *flat):
+        if any(d is not None for d in in_dims[5:]):
+            raise NotImplementedError("fields_flat's VJP is batched over its cotangent only")
+        gb = g.movedim(in_dims[4], 0)
+        per = [_fields_flat_vjp(spec, n_dirs, second, want_x, gi, X, flat) for gi in gb.unbind(0)]
+        out = tuple(torch.stack(parts) for parts in zip(*per))
+        return out, (0,) * len(out)
+
+
+class _FieldsFlat(torch.autograd.Function):
+    """fields_flat with B1 as its forward and _FieldsFlatVjp as its VJP.  It
+    has no forward-mode rule, as the JAX package's custom_vjp has none: a
+    JVP through it (torch.func.jvp, the forward-mode Jacobian, Gauss-Newton's
+    matrix-free solves) raises."""
+
+    @staticmethod
+    def forward(spec, n_dirs, second, X, *flat):
         params = _unflatten(flat)
         if X.is_cuda:
-            out = fused_fields_kernel(spec, params, X, n_dirs, second)
-        else:
-            out = fields_flat_reference(spec, params, X, n_dirs, second)
+            return fused_fields_kernel(spec, params, X, n_dirs, second)
+        return fields_flat_reference(spec, params, X, n_dirs, second)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        spec, n_dirs, second, X, *flat = inputs
         ctx.spec, ctx.n_dirs, ctx.second = spec, n_dirs, second
         ctx.save_for_backward(X, *flat)
-        return out
 
     @staticmethod
     def backward(ctx, g):
         X, *flat = ctx.saved_tensors
         want_x = ctx.needs_input_grad[3]
-        if ctx.second:
-            bwd = fused_fields_bwd if X.is_cuda else fields_flat_bwd_reference
-            gparams, gX = bwd(ctx.spec, _unflatten(flat), X, g.contiguous(), ctx.n_dirs, want_x)
-            return (None, None, None, gX, *_flatten(gparams))
-        with torch.enable_grad():
-            Xd = X.detach().requires_grad_(want_x)
-            fd = [t.detach().requires_grad_(True) for t in flat]
-            out = fields_flat_reference(ctx.spec, _unflatten(fd), Xd, ctx.n_dirs, False)
-            grads = torch.autograd.grad(out, ([Xd] if want_x else []) + fd, g)
+        grads = _FieldsFlatVjp.apply(ctx.spec, ctx.n_dirs, ctx.second, want_x, g, X, *flat)
         gX = grads[0] if want_x else None
-        return (None, None, None, gX, *grads[len(grads) - len(fd):])
+        return (None, None, None, gX, *grads[int(want_x):])
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise TypeError(FORWARD_MODE_ERROR)
 
 
 def fields_flat(spec: MLP, params, X: torch.Tensor, n_dirs: int, second: bool) -> torch.Tensor:

@@ -291,5 +291,9 @@ def build(
             "residual_fn": residual_fn,
             "enriched_residual_fn": enriched_residual_fn,
             "test_grid_shape": (len(tt), len(xt)),
+            # Gauss-Newton's residual hook: the strong-collocation block, scaled
+            # so that sum(r^2) is the loss's strong_weight mean(strong^2)
+            **({"reg_resvec_fn": lambda params, data: np.sqrt(ws / data["xr"].shape[0])
+                * strong_res(params, data["xr"]).reshape(-1)} if n_strong > 0 else {}),
         },
     )

@@ -200,6 +200,11 @@ def build(
         aux["loss"] = loss
         return loss, aux
 
+    def reg_resvec_fn(params, data):
+        """The sensor misfit as least-squares residuals: sum(r^2) equals its
+        term of the loss, so Gauss-Newton's identity holds when inverse."""
+        return np.sqrt(wb / data["us"].numel()) * (make_u_fn(params)(data["xs"]) - data["us"]).reshape(-1)
+
     def pde_init():
         return {"k_sq": nn.Parameter(torch.tensor(cfg.k_sq_init, dtype=dtype, device=device))}
 
@@ -228,6 +233,7 @@ def build(
             "residual_fn": residual_fn,
             "enriched_residual_fn": enriched_residual_fn,
             "test_grid_shape": (len(yt), len(xt)),
+            **({"reg_resvec_fn": reg_resvec_fn} if cfg.inverse else {}),
         },
     )
 

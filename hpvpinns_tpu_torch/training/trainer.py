@@ -1,10 +1,10 @@
 """Generic trainer: full-batch Adam, then optionally L-BFGS, in chunks of
-`check_every` iterations.
+`check_every` iterations, then optionally Gauss-Newton/LM.
 
-Counterpart of hpvpinns_tpu/training/trainer.py (its Adam and L-BFGS
-phases).  Each chunk runs `check_every` optimizer iterations without reading
-anything back, then evaluates the metrics at the updated parameters (as the
-JAX chunk does, trainer.py:170-175) and brings them to the host in one sync.
+Counterpart of hpvpinns_tpu/training/trainer.py.  Each chunk runs
+`check_every` optimizer iterations without reading anything back, then
+evaluates the metrics at the updated parameters (as the JAX chunk does,
+trainer.py:170-175) and brings them to the host in one sync.
 Threshold early stop, loss history, the best-parameter snapshot and the
 iteration count carried across phases behave as in the JAX package.
 
@@ -13,7 +13,12 @@ graphs: one Adam step (forward, backward, optimizer update) is captured once
 and a chunk replays it n times, then replays a second graph that evaluates
 the metrics.  The L-BFGS closure (forward and backward) is a captured graph
 too.  A capture failure raises: nothing falls back to the eager loop.  On the
-CPU the chunks run eagerly, step by step.
+CPU the chunks run eagerly, step by step.  The Gauss-Newton/LM phase
+(training/gauss_newton.py) runs eagerly after the graphs are freed, and
+writes its result into the same parameter tensors.  With `checkpoint_dir`
+the params and the optimizer state are saved every `checkpoint_every`
+iterations, at chunk boundaries, and once at the end
+(training/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from torch import nn
 from hpvpinns_tpu_torch.config import TrainConfig
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
 from hpvpinns_tpu_torch.problems.base import Problem, map_params, parameters
+from hpvpinns_tpu_torch.training.checkpoint import Checkpointer
+from hpvpinns_tpu_torch.training.gauss_newton import gauss_newton
 from hpvpinns_tpu_torch.training.lbfgs import LBFGS
 
 
@@ -42,10 +49,12 @@ class TrainResult:
     stopped_early: bool
     best_params: Optional[Any] = None
     final_aux: Dict[str, float] = field(default_factory=dict)
-    # per phase ("adam", "lbfgs"): iterations, wall seconds, and for L-BFGS
+    # per phase ("adam", "lbfgs", "gn"): iterations, wall seconds; for L-BFGS
     # the closure evaluations (the loss and gradient), the failed line
     # searches, and under "unsafe_at" the iterations (counted as in
-    # history["iteration"]) that ended with an unsafe step (training/lbfgs.py)
+    # history["iteration"]) that ended with an unsafe step (training/lbfgs.py);
+    # for Gauss-Newton the accepted steps, the others ("rejected"), why it
+    # stopped and the damping after its last accepted step
     phases: Dict[str, Dict[str, Any]] = field(default_factory=dict)
 
     @property
@@ -233,15 +242,9 @@ def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
     return _Chunk(iterate, metrics, (graph, metrics_graph))
 
 
-def _check_supported(cfg: TrainConfig, mesh) -> None:
-    unported = {
-        "gn_iterations > 0 (the Gauss-Newton/LM phase, queue A item 8)": cfg.gn_iterations > 0,
-        "checkpoint_dir (checkpointing)": cfg.checkpoint_dir is not None,
-        "mesh (multi-device training)": mesh is not None,
-    }
-    for what, bad in unported.items():
-        if bad:
-            raise NotImplementedError(f"train: {what} is not ported yet (ROADMAP.md)")
+def _check_supported(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("train: mesh (multi-device training) is not ported yet (ROADMAP.md, queue A item 24)")
 
 
 def train(
@@ -251,12 +254,13 @@ def train(
     params=None,
     verbose: bool = True,
 ) -> TrainResult:
-    """Adam for cfg.iterations, then L-BFGS for cfg.lbfgs_iterations, on
-    problem.loss_fn; the arguments in the JAX package's order.  `params`
-    (default: problem.init_params from a CPU torch.Generator seeded with
-    cfg.seed) are copied, never updated in place.  `mesh` is not ported."""
+    """Adam for cfg.iterations, then L-BFGS for cfg.lbfgs_iterations, then
+    Gauss-Newton/LM for cfg.gn_iterations accepted steps, on problem.loss_fn;
+    the arguments in the JAX package's order.  `params` (default:
+    problem.init_params from a CPU torch.Generator seeded with cfg.seed) are
+    copied, never updated in place.  `mesh` is not ported."""
     cfg = cfg or problem.config.train
-    _check_supported(cfg, mesh)
+    _check_supported(mesh)
     use_ieee_fp32_matmuls()
     loss_fn, data = problem.loss_fn, problem.data
     if params is None:
@@ -264,6 +268,12 @@ def train(
     params = _copy_params(params, as_parameters=True)
 
     check = max(1, cfg.check_every)
+    checkpointer = None
+    if cfg.checkpoint_dir is not None:
+        checkpointer = Checkpointer(cfg.checkpoint_dir, keep_last=cfg.checkpoint_keep_last,
+                                    use_async=cfg.checkpoint_async)
+    adam = make_optimizer(cfg, params)
+    opt_state = adam.state_dict  # () -> what a checkpoint saves as the optimizer state
     records: List[Dict[str, float]] = []
     phases: Dict[str, Dict[str, Any]] = {}
     stopped = False
@@ -277,7 +287,7 @@ def train(
     )
 
     t0 = time.perf_counter()
-    state = {"t_log": t0, "t_warm": None, "it_warm": 0, "it": 0, "aux": {}}
+    state = {"t_log": t0, "t_warm": None, "it_warm": 0, "it": 0, "it_saved": 0, "aux": {}}
 
     def run_phase(name, build_chunk, opt, n_iters):
         nonlocal stopped, best_params, min_loss
@@ -299,6 +309,9 @@ def train(
             if snap_after is not None and it > snap_after and loss_value < min_loss:
                 min_loss = loss_value
                 best_params = _copy_params(params, as_parameters=False)
+            if checkpointer is not None and cfg.checkpoint_every and it - state["it_saved"] >= cfg.checkpoint_every:
+                checkpointer.save(it, params, opt.state_dict())
+                state["it_saved"] = it
             if cfg.threshold is not None and loss_value < cfg.threshold:
                 if verbose:
                     print(f"It: {it}, Loss: {loss_value:.3e} (threshold reached)")
@@ -315,7 +328,7 @@ def train(
         phases[name] = {"iterations": state["it"] - it_start, "wall_s": time.perf_counter() - t_phase}
 
     if cfg.iterations > 0:
-        run_phase("adam", _build_chunk, make_optimizer(cfg, params), cfg.iterations)
+        run_phase("adam", _build_chunk, adam, cfg.iterations)
     if cfg.lbfgs_iterations > 0 and not stopped:
         # Second-phase full-batch L-BFGS: the standard accelerator once Adam
         # has found the basin.
@@ -323,6 +336,39 @@ def train(
         run_phase("lbfgs", _build_lbfgs_chunk, lbfgs, cfg.lbfgs_iterations)
         phases["lbfgs"].update(evaluations=lbfgs.evaluations, failed_searches=lbfgs.failed_searches,
                                unsafe_at=[cfg.iterations + c + 1 for c in lbfgs.unsafe_at])
+        # Adam's state is stale at the params L-BFGS moved: a resume from the
+        # final checkpoint restarts Adam with fresh moments
+        opt_state = make_optimizer(cfg, params).state_dict
+
+    if cfg.gn_iterations > 0 and not stopped:
+        # Third-phase Gauss-Newton/LM on the residual vector, eagerly, after
+        # the phases' graphs are freed; its result is copied into the same
+        # parameter tensors
+        t_phase = time.perf_counter()
+        gn = gauss_newton(
+            problem, params, data=data, iterations=cfg.gn_iterations, damping_init=cfg.gn_damping_init,
+            solve=cfg.gn_solve, cg_tol=cfg.gn_cg_tol, cg_maxiter=cfg.gn_cg_maxiter, jac_chunk=cfg.gn_jac_chunk,
+            verbose=verbose, log_every=max(1, cfg.log_every // 10),
+        )
+        with torch.no_grad():
+            for t, new in zip(parameters(params), parameters(gn.params)):
+                t.copy_(new)
+        offset = state["it"]
+        for i in range(len(gn.history.get("iteration", ()))):
+            records.append({k: (offset + v[i] if k == "iteration" else float(v[i])) for k, v in gn.history.items()})
+        state["it"] += gn.iterations_run
+        state["aux"] = gn.final_aux
+        damping = gn.history["damping"][-1] if gn.accepted else cfg.gn_damping_init
+        phases["gn"] = {"iterations": gn.iterations_run, "wall_s": time.perf_counter() - t_phase,
+                        "accepted": gn.accepted, "rejected": gn.iterations_run - gn.accepted,
+                        "stopped": gn.stopped, "damping": float(damping)}
+        # LM accepts only decreases, so its end supersedes a best snapshot it undercuts
+        if gn.final_aux.get("loss", np.inf) < min_loss:
+            best_params = None
+            min_loss = gn.final_aux["loss"]
+        opt_state = make_optimizer(cfg, params).state_dict
+        if cfg.threshold is not None and gn.final_aux.get("loss", np.inf) < cfg.threshold:
+            stopped = True
 
     it = state["it"]
     t_end = time.perf_counter()
@@ -335,6 +381,9 @@ def train(
 
     keys = sorted({k for r in records for k in r})
     history = {k: np.asarray([r.get(k, np.nan) for r in records]) for k in keys}
+    if checkpointer is not None:
+        checkpointer.save(it, params, opt_state())
+        checkpointer.wait()
     return TrainResult(
         params=params,
         history=history,

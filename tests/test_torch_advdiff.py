@@ -37,6 +37,7 @@ from test_torch_parity import (  # noqa: E402
     shared_params,
     tnp,
     to_jax,
+    train_gn_tail,
     velocity_field,
 )
 
@@ -53,9 +54,8 @@ def test_presets_match_jax_fields():
         t, j = getattr(tv, name)(), getattr(jv, name)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j), name
     assert dataclasses.asdict(tv.AdvDiffConfig()) == dataclasses.asdict(jv.AdvDiffConfig())
-    prob = tv.build(dataclasses.replace(tv.advdiff_precision(), **ADV), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gauss-Newton"):
-        tv.train(prob, verbose=False)
+    for name in ("advdiff_precision", "advdiff_forward_precision"):  # their Gauss-Newton tails run
+        train_gn_tail(tv.build(dataclasses.replace(getattr(tv, name)(), **ADV), device="cpu"))
 
 
 def test_u_exact_matches_jax():

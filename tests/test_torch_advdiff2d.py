@@ -28,7 +28,9 @@ from hpvpinns_tpu import evaluate as jevaluate  # noqa: E402
 from hpvpinns_tpu.problems import advdiff2d as jad2  # noqa: E402
 from hpvpinns_tpu_torch.problems import advdiff2d as tad2  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
-from test_torch_parity import compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax  # noqa: E402
+from test_torch_parity import (  # noqa: E402
+    compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax, train_gn_tail,
+)
 
 TINY = dict(grid_x=(-1.0, 0.2, 1.0), n_quad=4, n_test_x=3, n_test_y=3, n_test_t=3, layers=(3, 6, 6, 1),
             n_bound=6, n_sensors_per_station=3, t_final=0.5, dtype="float64")
@@ -55,9 +57,7 @@ def build_both(epsilon_fn=None, **kw):
 def test_presets_match_jax_fields():
     for name in ("advdiff2d_precision", "AdvDiff2DConfig"):
         assert dataclasses.asdict(getattr(tv, name)()) == dataclasses.asdict(getattr(jv, name)()), name
-    prob = tv.build(dataclasses.replace(tv.advdiff2d_precision(), **TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gauss-Newton"):
-        tv.train(prob, verbose=False)
+    train_gn_tail(tv.build(dataclasses.replace(tv.advdiff2d_precision(), **TINY), device="cpu"))
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.05])

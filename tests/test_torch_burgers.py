@@ -33,7 +33,9 @@ from hpvpinns_tpu import evaluate as jevaluate  # noqa: E402
 from hpvpinns_tpu.problems import burgers as jbu  # noqa: E402
 from hpvpinns_tpu_torch.problems import burgers as tbu  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
-from test_torch_parity import compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax  # noqa: E402
+from test_torch_parity import (  # noqa: E402
+    compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax, train_gn_tail,
+)
 
 TINY = dict(grid_x=(-1.0, -0.2, 0.3, 1.0), n_elements_t=1, n_quad=5, n_test_x=3, n_test_t=3, layers=(2, 6, 6, 1),
             n_bound=6, t_final=0.5, dtype="float64")
@@ -55,12 +57,10 @@ def build_both(*args, **kw):
 
 def test_presets_match_jax_fields():
     """The config and its presets field for field; the precision preset's
-    Gauss-Newton tail raises in train."""
+    Gauss-Newton tail runs in train."""
     for name in ("BurgersConfig", "burgers_quality", "burgers_precision"):
         assert dataclasses.asdict(getattr(tv, name)()) == dataclasses.asdict(getattr(jv, name)()), name
-    prob = tv.build(dataclasses.replace(tv.burgers_precision(), **TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gauss-Newton.*item 8"):
-        tv.train(prob, verbose=False)
+    train_gn_tail(tv.build(dataclasses.replace(tv.burgers_precision(), **TINY), device="cpu"))
 
 
 def test_cole_hopf_matches_jax_in_float64():
@@ -123,8 +123,7 @@ def test_problem_data_matches_jax():
     np.testing.assert_allclose(tnp(tprob.data["ub"]), np.asarray(jprob.data["ub"]), **F64)
     np.testing.assert_array_equal(tprob.test_points, jprob.test_points)
     np.testing.assert_allclose(tprob.test_values, jprob.test_values, rtol=1e-12, atol=1e-14)
-    # reg_resvec_fn (the Gauss-Newton residual vector) waits for the GN phase
-    assert sorted(tprob.extras) == sorted(set(jprob.extras) - {"reg_resvec_fn"})
+    assert sorted(tprob.extras) == sorted(jprob.extras)  # reg_resvec_fn too, since the GN phase is ported
     assert tprob.extras["mesh"].shape == (3, 2) and tprob.extras["test_grid_shape"] == (51, 256)
     with pytest.raises(NotImplementedError, match="item 16"):
         tprob.extras["enriched_residual_fn"](tprob.init_params(torch.Generator().manual_seed(0)))

@@ -31,7 +31,9 @@ from hpvpinns_tpu import evaluate as jevaluate  # noqa: E402
 from hpvpinns_tpu.problems import helmholtz as jhz  # noqa: E402
 from hpvpinns_tpu_torch.problems import helmholtz as thz  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import map_params, parameters  # noqa: E402
-from test_torch_parity import compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax  # noqa: E402
+from test_torch_parity import (  # noqa: E402
+    compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax, train_gn_tail,
+)
 
 TINY = dict(grid_x=(-1.0, 0.25, 1.0), n_elements_y=1, n_quad=5, n_test_x=3, n_test_y=3, layers=(2, 6, 6, 1),
             n_bound=6, n_sensors=7, dtype="float64")
@@ -52,13 +54,11 @@ def build_both(**kw):
 
 def test_presets_match_jax_fields():
     """The config and its presets field for field; the Gauss-Newton tails of
-    the quality and precision presets raise in train."""
+    the quality and precision presets run in train."""
     for name in ("Helmholtz2DConfig", "helmholtz2d_quality", "helmholtz2d_precision"):
         assert dataclasses.asdict(getattr(tv, name)()) == dataclasses.asdict(getattr(jv, name)()), name
     for name in ("helmholtz2d_quality", "helmholtz2d_precision"):
-        prob = tv.build(dataclasses.replace(getattr(tv, name)(), **TINY), device="cpu")
-        with pytest.raises(NotImplementedError, match="Gauss-Newton.*item 8"):
-            tv.train(prob, verbose=False)
+        train_gn_tail(tv.build(dataclasses.replace(getattr(tv, name)(), **TINY), device="cpu"))
 
 
 def test_wave_lift_and_envelope_match_jax():
@@ -98,8 +98,7 @@ def test_problem_data_matches_jax(noise):
         np.testing.assert_allclose(tnp(tprob.data[key]), np.asarray(jprob.data[key]), **F64)
     np.testing.assert_array_equal(tprob.test_points, jprob.test_points)
     np.testing.assert_allclose(tprob.test_values, jprob.test_values, **F64)
-    # reg_resvec_fn (the Gauss-Newton residual vector) waits for the GN phase
-    assert sorted(tprob.extras) == sorted(set(jprob.extras) - {"reg_resvec_fn"})
+    assert sorted(tprob.extras) == sorted(jprob.extras)  # reg_resvec_fn too, since the GN phase is ported
     assert tprob.extras["k_sq_true"] == jprob.extras["k_sq_true"] == 81.0
     assert tprob.extras["test_grid_shape"] == jprob.extras["test_grid_shape"]
     params = tprob.init_params(torch.Generator().manual_seed(0))

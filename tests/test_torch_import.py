@@ -1,4 +1,4 @@
-"""The PyTorch port imports neither JAX, optax nor the JAX package: the
+"""The PyTorch port imports neither JAX, optax, orbax nor the JAX package: the
 machine with the GPU has no JAX.  Checked in a fresh interpreter, since this
 test process has JAX loaded already (tests/conftest.py)."""
 
@@ -22,9 +22,10 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(hpvpinns_tpu_torch.__path__, 'hpvpinns_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "new = ('problems.advdiff', 'ops.fields', 'problems.poisson3d', 'problems.advdiff2d', 'training.lbfgs',\n"
-        "       'problems.helmholtz', 'problems.burgers')\n"
+        "       'problems.helmholtz', 'problems.burgers', 'training.gauss_newton', 'training.hybrid',\n"
+        "       'training.checkpoint')\n"
         "assert all('hpvpinns_tpu_torch.' + n in names for n in new), names\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'hpvpinns_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'hpvpinns_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -3,6 +3,9 @@ same numpy parameters for both packages, and the comparison of a problem's
 loss, aux and gradients between the JAX package and the PyTorch port; and
 the test that the comparison's leaf order is that of both packages."""
 
+import contextlib
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -78,6 +81,37 @@ def compare_loss_and_grads(jprob, tprob, tree=None, dtype=torch.float64, tight=T
     for (name, j), t in zip(jnamed, tgrads):
         np.testing.assert_allclose(tnp(t), np.asarray(j), **tight, err_msg=name)
     return tparams
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """One intra-op torch thread inside: the port's tests run small tensors,
+    and pytest-xdist's workers share the cores, where more threads spin on
+    each other's cores (measured: 2-10x slower under the tier-1 command)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def train_gn_tail(prob, adam: int = 10, gn: int = 2):
+    """Train `prob` on its preset's schedule cut to `adam` Adam steps, no
+    L-BFGS and `gn` accepted Gauss-Newton/LM steps with the preset's solve:
+    the LM phase runs, its records go on from the Adam count (offset + the
+    accepted step), and its loss falls at every one."""
+    check = 5
+    cfg = dataclasses.replace(prob.config.train, iterations=adam, lbfgs_iterations=0, gn_iterations=gn,
+                              check_every=check, best_snapshot_fraction=None)
+    with one_torch_thread():
+        res = tv.train(prob, cfg, verbose=False)
+    assert res.phases["gn"]["accepted"] == gn and res.iterations_run == adam + res.phases["gn"]["iterations"]
+    n_adam = adam // check
+    np.testing.assert_array_equal(res.history["iteration"], np.r_[np.arange(check, adam + 1, check),
+                                                                  adam + np.arange(1, gn + 1)])
+    assert np.all(np.diff(res.history["loss"][n_adam - 1:]) < 0)
+    return res
 
 
 def velocity_field(x):

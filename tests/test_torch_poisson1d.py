@@ -156,7 +156,7 @@ def test_adam_history_and_evaluation_match_jax(jax_side, jax_trained, deriv_mode
 
 
 def test_presets_match_jax_fields():
-    for name in ("poisson1d_of_record", "poisson1d_quality"):
+    for name in ("poisson1d_of_record", "poisson1d_quality", "poisson1d_precision"):
         t, j = getattr(tv, name)(), getattr(jv, name)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j), name
     cfg = tv.poisson1d_of_record()

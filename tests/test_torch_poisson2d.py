@@ -21,6 +21,7 @@ tolerance)."""
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 import hpvpinns_tpu as jv  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
+from test_torch_parity import one_torch_thread  # noqa: E402
 
 SMALL = dict(
     n_elements_x=2, n_elements_y=2, n_quad=6, n_test_x=3, n_test_y=3,
@@ -159,10 +161,18 @@ def test_lbfgs_phase_runs_and_records_its_iterations():
 
 
 @pytest.mark.parametrize("train_kw", [{"gn_iterations": 5}, {"checkpoint_dir": "ckpt"}])
-def test_unported_training_phases_raise(train_kw):
+def test_unported_training_phases_raise(train_kw, tmp_path):
+    """The two training phases that raised until they were ported now run:
+    five Gauss-Newton/LM steps after Adam 20, and checkpoints (the one at
+    the end of the run; training/checkpoint.py)."""
+    train_kw = {k: str(tmp_path / v) if k == "checkpoint_dir" else v for k, v in train_kw.items()}
     _, tcfg = configs(**train_kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tv.train(tv.build(tcfg, device="cpu"), verbose=False)
+    with one_torch_thread():
+        res = tv.train(tv.build(tcfg, device="cpu"), verbose=False)
+    if "gn_iterations" in train_kw:
+        assert res.phases["gn"]["accepted"] == 5 and res.history["iteration"][-1] == 25
+    else:
+        assert os.listdir(train_kw["checkpoint_dir"]) == ["step_00000020"]
 
 
 @pytest.mark.parametrize(
@@ -175,7 +185,7 @@ def test_unported_problem_options_raise(cfg_kw):
 
 
 def test_presets_match_jax_fields():
-    for name in ("poisson2d_of_record", "poisson2d_quality", "poisson2d_scaled"):
+    for name in ("poisson2d_of_record", "poisson2d_quality", "poisson2d_scaled", "poisson2d_precision"):
         t, j = getattr(tv, name)(), getattr(jv, name)()
         assert dataclasses.asdict(t) == dataclasses.asdict(j), name
     with pytest.raises(ValueError, match="deriv_mode"):

@@ -33,7 +33,9 @@ from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_3d  # noqa: E402
 from hpvpinns_tpu_torch.models.mlp import mlp_apply  # noqa: E402
 from hpvpinns_tpu_torch.problems import poisson3d as tp3d  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
-from test_torch_parity import compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax  # noqa: E402
+from test_torch_parity import (  # noqa: E402
+    compare_loss_and_grads, jax_loss_and_grads, named_leaves, shared_params, tnp, to_jax, train_gn_tail,
+)
 
 TINY = dict(n_elements_x=2, n_elements_y=1, n_elements_z=1, n_quad=4, n_test_x=3, n_test_y=3, n_test_z=3,
             layers=(3, 6, 6, 1), n_bound=8, dtype="float64")
@@ -58,9 +60,7 @@ def test_presets_match_jax_fields():
             t, j = getattr(tv, name)(hard_bc=hard_bc), getattr(jv, name)(hard_bc=hard_bc)
             assert dataclasses.asdict(t) == dataclasses.asdict(j), name
     assert dataclasses.asdict(tv.Poisson3DConfig()) == dataclasses.asdict(jv.Poisson3DConfig())
-    prob = tv.build(dataclasses.replace(tv.poisson3d_precision(), **TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gauss-Newton"):
-        tv.train(prob, verbose=False)
+    train_gn_tail(tv.build(dataclasses.replace(tv.poisson3d_precision(), **TINY), device="cpu"))
 
 
 def test_mesh_elements_boundary_and_test_grid_match_jax():

@@ -12,6 +12,8 @@ difference grows from rounding), and it evaluates the loss as often as
 optax's own state counts.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -30,8 +32,10 @@ from hpvpinns_tpu_torch.problems import poisson1d as tp1d  # noqa: E402
 from hpvpinns_tpu_torch.problems import poisson2d as tp2d  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
 from hpvpinns_tpu_torch.training import lbfgs  # noqa: E402
+from hpvpinns_tpu_torch.training.checkpoint import Checkpointer  # noqa: E402
 from hpvpinns_tpu_torch.training.trainer import _build_chunk, _build_stepwise_chunk, make_optimizer  # noqa: E402
 from hpvpinns_tpu_torch.utils import profiling as tprof  # noqa: E402
+from test_torch_parity import one_torch_thread  # noqa: E402
 
 SMALL = dict(
     n_elements_x=2, n_elements_y=2, n_quad=6, n_test_x=3, n_test_y=3,
@@ -232,3 +236,76 @@ def test_lbfgs_loss_rises_only_after_an_unsafe_step(jax_run, max_steps, monkeypa
     unsafe = res.phases["lbfgs"]["unsafe_at"]
     assert unsafe and rose.tolist() == unsafe
     assert len(unsafe) <= res.phases["lbfgs"]["failed_searches"]
+
+
+@pytest.fixture
+def one_thread():
+    with one_torch_thread():
+        yield
+
+
+def test_gauss_newton_phase_matches_jax(jax_run, one_thread):
+    """Adam 20 then three Gauss-Newton/LM steps (float64: the "normal"
+    solve): the LM records go on from the Adam count (21, 22, 23), carry
+    the damping, and equal JAX's to rtol 1e-8; iterations_run grows by the
+    LM iterations, accepted or not; the best snapshot Adam kept is dropped,
+    since the LM phase ends below it; final_aux is the LM phase's."""
+    jprob, np_params, _ = jax_run
+    kw = dict(lbfgs_iterations=0, gn_iterations=3, best_snapshot_fraction=0.5)
+    jcfg, _ = configs(**kw)
+    jres = jv.train(jprob, jcfg.train, params=jax.tree.map(jnp.asarray, np_params), verbose=False)
+    _, res = port_run(np_params, **kw)
+    np.testing.assert_array_equal(res.history["iteration"], jres.history["iteration"])
+    np.testing.assert_array_equal(res.history["iteration"], [10, 20, 21, 22, 23])
+    assert res.iterations_run == jres.iterations_run == N_ADAM + res.phases["gn"]["iterations"]
+    assert res.phases["gn"]["accepted"] == 3 and res.phases["gn"]["stopped"] == "iterations"
+    assert sorted(res.history) == sorted(jres.history)
+    for k in res.history:
+        np.testing.assert_allclose(res.history[k], jres.history[k], rtol=1e-8, err_msg=k)  # NaN where absent in both
+    assert res.phases["gn"]["damping"] == res.history["damping"][-1]
+    assert res.best_params is None and jres.best_params is None
+    assert sorted(res.final_aux) == sorted(jres.final_aux)
+    for k, v in res.final_aux.items():
+        np.testing.assert_allclose(v, jres.final_aux[k], rtol=1e-8, err_msg=k)
+    np.testing.assert_allclose(res.final_aux["loss"], res.history["loss"][-1], rtol=1e-14)
+
+
+@pytest.mark.parametrize("use_async", [False, True])
+def test_checkpoints_round_trip_retention_cadence_and_resume(jax_run, tmp_path, use_async, one_thread):
+    """Adam 40 with records every 10: checkpoint_every 10 saves at every
+    record (and once at the end), keep_last 2 keeps 30 and 40; every 15
+    saves at 20 and 40 (the first records 15 or more past the last save).
+    A restore gives the params and Adam state of its step, on the device and
+    in the dtype of `like`; a run resumed from step 30's params trains as
+    JAX's train does from the same params (a warm start, Adam afresh)."""
+    _, np_params, _ = jax_run
+    base = dict(lbfgs_iterations=0, iterations=40, checkpoint_async=use_async)
+    _, res = port_run(np_params, **base, checkpoint_dir=str(tmp_path / "a"), checkpoint_every=10,
+                      checkpoint_keep_last=2)
+    port_run(np_params, **base, checkpoint_dir=str(tmp_path / "b"), checkpoint_every=15, checkpoint_keep_last=0)
+    assert sorted(os.listdir(tmp_path / "a")) == ["step_00000030", "step_00000040"]
+    assert sorted(os.listdir(tmp_path / "b")) == ["step_00000020", "step_00000040"]
+
+    ckpt = Checkpointer(str(tmp_path / "a"))
+    assert ckpt.latest_step() == 40
+    step, tree = ckpt.restore()
+    assert step == 40 and int(tree["opt_state"]["state"][0]["step"]) == 40
+    for a, b in zip(parameters(tree["params"]), parameters(res.params)):
+        np.testing.assert_array_equal(tnp(a), tnp(b))
+    like = {"params": tv.params_from_jax(np_params, dtype=torch.float32), "opt_state": None}
+    step, tree = ckpt.restore(30, like=like)
+    _, at30 = port_run(np_params, lbfgs_iterations=0, iterations=30)
+    for a, b, c in zip(parameters(tree["params"]), parameters(at30.params), parameters(like["params"])):
+        assert a.dtype == torch.float32 and a.device == c.device
+        np.testing.assert_array_equal(tnp(a), tnp(b).astype(np.float32))
+    with pytest.raises(FileNotFoundError):
+        Checkpointer(str(tmp_path / "empty")).restore()
+
+    _, tree = Checkpointer(str(tmp_path / "a")).restore(30)
+    resumed = tv.train(port_run(np_params)[0], configs(lbfgs_iterations=0)[1].train, params=tree["params"],
+                       verbose=False)
+    jprob = jax_run[0]
+    jcfg, _ = configs(lbfgs_iterations=0)
+    jres = jv.train(jprob, jcfg.train, params=jax.tree.map(jnp.asarray, tv.params_to_numpy(tree["params"])),
+                    verbose=False)
+    np.testing.assert_allclose(resumed.history["loss"], jres.history["loss"], rtol=1e-12)
