@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
                            | --advdiff-only | --advdiff-quality SEED... | --volumetric-only
                            | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]
-                           | --gn-only | --precision [PRESET...] [SEED...]]
+                           | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
+                           | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
+                           | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -161,6 +163,17 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      checkpoints of poisson2d_scaled under the graph (asynchronous, every
      100 steps, keep 2), the latest restored bit for bit, and a run
      resumed from step 100.
+ 18. The Navier-Stokes systems (phase18), on the JVP engine (their (u, v,
+     p) output takes no kernel; a launch fails the phase): (a) the four
+     presets (soft BC, hard BC, the zero-mean gauge) and both quality
+     presets with a trainable nu and velocity-only boundary data, built on
+     the card in float32 and on the CPU in float64 from the same params:
+     the loss within rtol 1e-5, each gradient leaf within 1e-4 of its
+     largest entry; (b) one chunk of 20 Adam steps as CUDA graphs against
+     the eager chunk, bit for bit, at the four presets, with the captured
+     step's nodes; (c) their graph and eager steps/s in turns, device us a
+     step and the busy share; (d) kovasznay_quality with its schedule cut
+     to 2,000 Adam + 500 L-BFGS iterations: rel-L2 and its u, v, p keys.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -174,14 +187,30 @@ on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
+With --ns-only it runs phases 1, 2 and 18 and prints no summary; with
+--ns-quality [SEED...] phases 1 and 2, then kovasznay_quality and
+taylorgreen_quality at their whole schedules beside the JAX package's rows,
+once for each seed given (default: the presets'); with --ns-jacobian
+[CHUNK...] phases 1 and 2, then one Gauss-Newton Jacobian build of
+kovasznay_precision and taylorgreen_precision at each block size given
+(default: gauss_newton's rule), with its seconds and peak device memory;
+with --ns-precision-stage STAGE PRESET [CHECKPOINT_DIR] phases 1 and 2,
+then a precision preset's schedule in two calls: "adam-lbfgs" (Adam and
+L-BFGS, the params checkpointed under chiprun_out/ns_stage/PRESET where
+L-BFGS ends), then "lm" (the LM phase from that checkpoint, copied back
+into the repository, e.g. under _scratch/).
 With --gn-only it runs phases 1, 2 and 17 and prints no summary; with
 --precision [PRESET...] [SEED...] phases 1 and 2, then phase 17 (d): the
 Gauss-Newton presets named (default all: advdiff_precision,
 poisson1d_precision, advdiff2d_precision, poisson2d_precision,
-helmholtz2d_precision, burgers_precision, poisson3d_precision) at their
-whole schedules beside the JAX rows, and after poisson2d_precision
-polish_f64 of its trained net (30 float64 LM steps on the card) beside
-poisson2d_hybrid_polish, once for each seed given (default: the
+helmholtz2d_precision, burgers_precision, poisson3d_precision,
+kovasznay_precision, taylorgreen_precision) at their whole schedules beside
+the JAX rows (for the Navier-Stokes presets with the u, v, p errors, the
+Jacobian's kind, shape, build seconds and peak memory, and train's progress
+lines), after poisson2d_precision polish_f64 of its trained net (30
+float64 LM steps on the card) beside poisson2d_hybrid_polish and after
+kovasznay_precision polish_f64 of its net (50 steps) beside
+kovasznay_hybrid_polish, once for each seed given (default: the
 presets').
 With --advdiff-only it runs phases 1, 2 and 12 and prints no summary; with
 --advdiff-quality SEED... phases 1 and 2, then phase 12's (d) and (e) once
@@ -946,19 +975,20 @@ def phase5(dev):
     return {"poisson2d_scaled var_form 1": counts}, nodes
 
 
-def train_checked(prob, cfg, label: str, kernels=()):
+def train_checked(prob, cfg, label: str, kernels=(), verbose=False, params=None):
     """Train `prob` through `train` (the counts zeroed just before, read just
     after) and evaluate its best snapshot: (result, host launches, the
     evaluation).  Fails on a short run (unless the threshold stopped it), a
     non-finite loss or rel-L2, an L-BFGS loss that rises from one record to
     the next by more than optax's approximate decrease admits where no
     iteration between the two took an unsafe step, or a kernel of `kernels`
-    that did not launch."""
+    that did not launch.  `verbose` prints train's progress lines; `params`
+    are the initial params (default: the problem's seeded init)."""
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.training.lbfgs import APPROX_DEC_RTOL
 
     zero_counts()
-    res = hv.train(prob, verbose=False)
+    res = hv.train(prob, params=params, verbose=verbose)
     counts = read_counts()
     tr = cfg.train
     it, loss = res.history["iteration"], res.history["loss"]
@@ -1800,14 +1830,19 @@ PRECISION_ROWS = (
     ("helmholtz2d_precision", 3.41e-4, "ACCURACY.json:561, f32"),
     ("burgers_precision", 1.58e-3, "ACCURACY.json:465, f32"),
     ("poisson3d_precision", 1.06e-3, "ACCURACY.json:476, f32, cg"),
+    ("kovasznay_precision", 5.61e-5, "ACCURACY.json:497-510, f32, u 5.13e-5 v 2.31e-4 p 7.19e-5, 549.6 s"),
+    ("taylorgreen_precision", 2.09e-4, "hpvpinns_tpu/config.py:640-660, f32, u 1.06e-4 v 1.25e-4 p 5.72e-4, "
+                                       "~15 min; ACCURACY.json:623 chip row 2.07e-4"),
 )
 JAX_P2D_POLISH = {"chip": 7.30e-5, "f64_eval": 4.38e-5, "polished": 3.42e-5}  # ACCURACY.json:513-523, 30 steps
+JAX_KOV_POLISH = {"chip": 5.61e-5, "f64_eval": 3.91e-5, "polished": 2.87e-5}  # ACCURACY.json:524-535, 50 steps
 CHECKPOINTS = "hpvpinns_tpu_torch/_build/checkpoints"
 
 
-def gn_system(c, device, seed: int = 0):
+def gn_system(c, device, seed: int = 0, jac_chunk=None):
     """A problem built on `device` with its seeded initial params: (problem,
-    theta, r_and_J, loss_of, the damped-step solves, M, P)."""
+    theta, r_and_J, loss_of, the damped-step solves, M, P); the Jacobian in
+    blocks of `jac_chunk` passes (None: gauss_newton's rule)."""
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.training.gauss_newton import _build_kernels, make_residual_vector, ravel_params
 
@@ -1817,7 +1852,7 @@ def gn_system(c, device, seed: int = 0):
     res = make_residual_vector(prob)
     with torch.no_grad():
         M, P = res(params, prob.data).numel(), theta.numel()
-    r_and_J, loss_of, steps = _build_kernels(res, unravel, prob.data, P, M)
+    r_and_J, loss_of, steps = _build_kernels(res, unravel, prob.data, P, M, jac_chunk=jac_chunk)
     return prob, theta, r_and_J, loss_of, steps, M, P
 
 
@@ -1950,10 +1985,10 @@ def gn_note(res) -> str:
             f"(records: loss {h['loss'][lm].tolist()}, damping {h['damping'][lm].tolist()})")
 
 
-def train_with_gn(prob, c, label: str) -> tuple:
+def train_with_gn(prob, c, label: str, verbose=False) -> tuple:
     """train_checked, then the phases' walls and the LM phase's steps: (result,
     evaluation, printed summary)."""
-    res, counts, ev = train_checked(prob, c, label)
+    res, counts, ev = train_checked(prob, c, label, verbose=verbose)
     walls = ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in res.phases.items())
     return res, ev, f"wall s {walls}; {gn_note(res)}"
 
@@ -1991,19 +2026,31 @@ def gn_precision(dev, seed=None, names=()) -> None:
         c = getattr(hv, name)()
         if seed is not None:
             c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+        if name in NS_JAC_CHUNK:
+            c = dataclasses.replace(c, train=dataclasses.replace(c.train, gn_jac_chunk=NS_JAC_CHUNK[name]))
         t0 = time.perf_counter()
         prob = hv.build(c, device=dev)
-        res, ev, note = train_with_gn(prob, c, name)
+        if name in NS_PRESETS:  # the Jacobian the LM phase builds, at the initial params
+            print(f"phase 17 (d) {name}: {ns_jacobian_note(c, dev, c.train.gn_jac_chunk)}", flush=True)
+        res, ev, note = train_with_gn(prob, c, name, verbose=name in NS_PRESETS)
         if name == "advdiff_precision":
             eps = prob.extras["eps_domain_mean"](res.eval_params)
             eps = float(eps.item() if torch.is_tensor(eps) else eps)
             got = f"eps {eps:.6g} (true {prob.extras['eps_true']:.6g}), relative error " \
                   f"{abs(eps - prob.extras['eps_true']) / prob.extras['eps_true']:.4e}; rel_l2 {ev['rel_l2']:.4e}"
         else:
-            got = f"rel_l2 {ev['rel_l2']:.4e}"
+            got = f"rel_l2 {ev['rel_l2']:.4e}" + "".join(
+                f" {k[7:]} {v:.4e}" for k, v in ev.items() if k.startswith("rel_l2_"))
         print(f"phase 17 (d) {name} seed {c.train.seed} ({c.dtype}, layers {c.layers}, solve "
               f"{c.train.gn_solve or 'default'}): {got} (JAX {jax_row:g}, {where}); final loss "
               f"{res.history['loss'][-1]:.6e}; {note}; {time.perf_counter() - t0:.1f} s", flush=True)
+        if name == "kovasznay_precision":
+            pol = polish_f64(c, res.params, iterations=50, device=dev)
+            print(f"phase 17 (d) polish_f64 of the kovasznay_precision net: rel_l2 f32 {ev['rel_l2']:.4e}, f64 "
+                  f"evaluation {pol.metrics_start['rel_l2']:.4e}, polished {pol.metrics['rel_l2']:.4e} (components "
+                  f"u {pol.metrics['rel_l2_u']:.4e} v {pol.metrics['rel_l2_v']:.4e} p {pol.metrics['rel_l2_p']:.4e}; "
+                  f"JAX kovasznay_hybrid_polish {JAX_KOV_POLISH}); {pol.accepted} accepted, stopped '{pol.stopped}', "
+                  f"loss {pol.loss:.6e}, {pol.wall_s:.1f} s", flush=True)
         if name == "poisson2d_precision":
             pol = polish_f64(c, res.params, iterations=30, device=dev)
             print(f"phase 17 (d) polish_f64 of the poisson2d_precision net: rel_l2 f32 {ev['rel_l2']:.4e}, f64 "
@@ -2063,6 +2110,223 @@ def phase17(dev) -> dict:
     gn_checkpoints(dev)
     print(f"phase 17 gauss-newton: {time.perf_counter() - t0:.1f} s", flush=True)
     return jac
+
+
+# Phase 18: the Navier-Stokes systems, Kovasznay and Taylor-Green, on the JVP
+# engine (a (u, v, p) output: no kernel takes it, so this path launches none).
+NS_PRESETS = ("kovasznay_quality", "kovasznay_precision", "taylorgreen_quality", "taylorgreen_precision")
+NS_RATE_STEPS = {"taylorgreen_precision": 20}  # (c): steps a turn where not 50
+NS_LOSS_RTOL = 1e-5  # (a): the f32 loss on the card against the f64 loss on the CPU
+NS_GRAD_TOL = 1e-4  # (a): each gradient leaf, against its largest entry
+NS_CUT = (2000, 500)  # (d): kovasznay_quality's Adam and L-BFGS iterations in the default run
+# (f): the Jacobian's block size under --precision.  taylorgreen_precision's
+# primal J (12,580 x 5,453, forward mode) took 27.33 / 14.62 / 10.88 s a build
+# in blocks of 128 / 256 / 512 passes at a peak of 7.80 / 15.16 / 29.89 GiB on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (--ns-jacobian 128 256 512): 512
+# fits beside the LM phase's J, QR and Q (~1 GiB) and is the fastest measured.
+NS_JAC_CHUNK = {"taylorgreen_precision": 512}
+# (e): the JAX package's f32 rows (rel-L2, then u, v, p), from the presets' docstrings
+JAX_NS_QUALITY = {"kovasznay_quality": (7.1e-3, 6.5e-3, 3.0e-2, 8.7e-3),
+                  "taylorgreen_quality": (6.6e-3, 3.2e-3, 4.3e-3, 1.8e-2)}
+
+
+def ns_configs() -> list:
+    """Phase 18 (a)'s configurations: the four presets (soft BC; hard BC;
+    the zero-mean gauge at taylorgreen_precision) and each quality preset
+    with a trainable nu and velocity-only boundary data (the anchor)."""
+    import hpvpinns_tpu_torch as hv
+
+    out = [(name, getattr(hv, name)()) for name in NS_PRESETS]
+    for name in ("kovasznay_quality", "taylorgreen_quality"):
+        out.append((f"{name}(inverse, bc_pressure=False)",
+                    dataclasses.replace(getattr(hv, name)(), inverse=True, bc_pressure=False)))
+    return out
+
+
+def ns_card_against_cpu(dev) -> None:
+    """Phase 18 (a): each configuration built on the card (f32) and on the
+    CPU (f64) from the same params (the card's seeded init, widened): the
+    loss within NS_LOSS_RTOL, every aux key printed, and each gradient leaf
+    (nu's included) within NS_GRAD_TOL of its largest entry."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+
+    for label, c in ns_configs():
+        card = hv.build(c, device=dev)
+        host = hv.build(dataclasses.replace(c, dtype="float64"), device="cpu")
+        p32 = card.init_params(torch.Generator().manual_seed(c.train.seed))
+        p64 = hv.params_from_jax(hv.params_to_numpy(p32), dtype=torch.float64)
+        out = {}
+        for key, prob, prm in (("card", card, p32), ("cpu", host, p64)):
+            loss, aux = prob.loss_fn(prm, prob.data)
+            out[key] = (loss.detach().cpu().double(), {k: float(v.detach()) for k, v in aux.items()},
+                        [g.cpu().double() for g in torch.autograd.grad(loss, parameters(prm))])
+        (l32, a32, g32), (l64, a64, g64) = out["card"], out["cpu"]
+        check_close(f"phase 18 (a) {label} loss", l32, l64, rtol=NS_LOSS_RTOL, atol=0.0)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(g32, g64)):
+            scale = b.abs().max().clamp_min(1e-30)
+            worst = max(worst, check_close(f"phase 18 (a) {label} grad {i}", a / scale, b / scale, rtol=0.0,
+                                           atol=NS_GRAD_TOL))
+        print(f"phase 18 (a) {label} (layers {c.layers}, P {card.data['elements'].x.numel()} points, hard_bc "
+              f"{c.hard_bc}): loss card f32 {l32.item():.8e} CPU f64 {l64.item():.8e} (rel diff "
+              f"{abs(l32.item() - l64.item()) / abs(l64.item()):.2e}); aux card {a32}; worst gradient leaf "
+              f"{worst:.2e} of its largest entry (tolerance {NS_GRAD_TOL})", flush=True)
+
+
+def ns_graphs_and_rates(dev) -> None:
+    """Phase 18 (b) and (c) at the four presets: one chunk of 20 Adam steps
+    as CUDA graphs against the eager chunk, bit for bit, with the captured
+    step's nodes; then steps/s of the graph chunk and the eager one (50
+    steps a turn, 20 at taylorgreen_precision whose eager step takes ~0.45 s,
+    in chunks of 10, turns e g g e), device us a step and the
+    busy share under the graph (torch.profiler over 20 replayed steps)."""
+    import hpvpinns_tpu_torch as hv
+
+    for name in NS_PRESETS:
+        c = with_check_every(getattr(hv, name)(), 20)
+        prob = hv.build(c, device=dev)
+        step_nodes = graph_against_eager(f"phase 18 (b) {name}", prob, c, ())
+        zero_counts()
+        rates, (gch, _) = chunk_rates(prob, c, NS_RATE_STEPS.get(name, 50))
+        counts = read_counts()
+        if any(counts.values()) or any(step_nodes[k] for k in KERNEL_NODES):
+            fail(f"phase 18 {name}: a kernel ran on the JVP path: host launches {counts}, nodes {step_nodes}")
+        g_us, g_busy = graph_profile(gch)
+        e, g = rates["eager"], rates["graph"]
+        g_rate = (g[0] + g[1]) / 2
+        print(f"phase 18 (c) {name}: steps/s eager {e[0]!r} {e[1]!r} graph {g[0]!r} {g[1]!r} (graph / eager "
+              f"{(g[0] + g[1]) / (e[0] + e[1]):.2f}x); captured step {step_nodes['nodes']} nodes, "
+              f"{step_nodes['kernels']} kernels; device us/step "
+              + (f"{g_us!r}, busy {g_busy!r} in the profiler's window, {g_us * 1e-6 * g_rate!r} as device us/step x "
+                 f"graph steps/s" if g_us else "not measured"), flush=True)
+
+
+def ns_summary(res, ev) -> str:
+    """rel-L2 with its components, the phases' walls and L-BFGS's behaviour."""
+    walls = ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in res.phases.items())
+    out = (f"rel_l2 {ev['rel_l2']:.4e} (u {ev['rel_l2_u']:.4e}, v {ev['rel_l2_v']:.4e}, p {ev['rel_l2_p']:.4e}); "
+           f"final loss {res.history['loss'][-1]:.6e}; wall s {walls}")
+    if "lbfgs" in res.phases:
+        out += f"; {lbfgs_note(res.phases['lbfgs'])}"
+    return out
+
+
+def ns_cut_schedule(dev) -> None:
+    """Phase 18 (d): kovasznay_quality at its width, its schedule cut to
+    NS_CUT (Adam, L-BFGS): train, evaluate (rel-L2 and its u, v, p keys);
+    the loss must fall and no kernel may launch."""
+    import hpvpinns_tpu_torch as hv
+
+    base = hv.kovasznay_quality()
+    c = dataclasses.replace(base, train=dataclasses.replace(base.train, iterations=NS_CUT[0],
+                                                            lbfgs_iterations=NS_CUT[1], check_every=250))
+    res, counts, ev = train_checked(hv.build(c, device=dev), c, "phase 18 (d) kovasznay_quality cut")
+    h = res.history["loss"]
+    if not h[-1] < h[0] or any(counts.values()):
+        fail(f"phase 18 (d): loss {h[[0, -1]].tolist()}, host launches {counts}")
+    print(f"phase 18 (d) kovasznay_quality cut to Adam {NS_CUT[0]} + L-BFGS {NS_CUT[1]} (layers {c.layers}, f32): "
+          f"{ns_summary(res, ev)} (JAX's full 10k + 10k: {JAX_NS_QUALITY['kovasznay_quality'][0]:g})", flush=True)
+
+
+def ns_quality(dev, seed=None) -> None:
+    """Phase 18 (e), behind --ns-quality: kovasznay_quality and
+    taylorgreen_quality at their whole schedules (Adam 10k + L-BFGS 10k),
+    beside the JAX package's f32 rows."""
+    import hpvpinns_tpu_torch as hv
+
+    for name in ("kovasznay_quality", "taylorgreen_quality"):
+        c = getattr(hv, name)()
+        if seed is not None:
+            c = dataclasses.replace(c, train=dataclasses.replace(c.train, seed=seed))
+        t0 = time.perf_counter()
+        res, _, ev = train_checked(hv.build(c, device=dev), c, name)
+        j = JAX_NS_QUALITY[name]
+        print(f"phase 18 (e) {name} seed {c.train.seed} (layers {c.layers}, f32): {ns_summary(res, ev)}; JAX f32 row "
+              f"{j[0]:g} (u {j[1]:g}, v {j[2]:g}, p {j[3]:g}); {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def ns_jacobian_note(c, dev, jac_chunk=None) -> str:
+    """One build of the Gauss-Newton Jacobian of configuration `c` at its
+    seeded initial params on the card, in blocks of `jac_chunk` passes (None:
+    gauss_newton's rule): its kind, shape, seconds (device sync included)
+    and the peak of allocated device memory during the build."""
+    _, theta, r_and_J, _, _, M, P = gn_system(c, dev, c.train.seed, jac_chunk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (r, J), secs = timed_jacobian(r_and_J, theta)
+    peak = torch.cuda.max_memory_allocated() - base
+    if tuple(J.shape) != (M, P) or not bool(torch.isfinite(J).all()):
+        fail(f"{type(c).__name__}: J {tuple(J.shape)}, finite {bool(torch.isfinite(J).all())}")
+    n_pass = min(M, P)
+    chunk = jac_chunk or (n_pass if n_pass <= 2048 else 256)
+    del r, J
+    return (f"Jacobian {'primal (forward mode, vmapped JVPs)' if P <= M else 'dual (reverse mode, vmapped VJPs)'} "
+            f"M {M} x P {P}, in blocks of {min(chunk, n_pass)} of {n_pass} passes: {secs:.2f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before")
+
+
+def ns_jacobians(dev, chunks=()) -> None:
+    """Behind --ns-jacobian [CHUNK...]: the precision presets' Jacobian builds
+    at the given block sizes (default: gauss_newton's rule only), each with
+    its seconds and peak device memory, the smallest first."""
+    import hpvpinns_tpu_torch as hv
+
+    for name in ("kovasznay_precision", "taylorgreen_precision"):
+        c = getattr(hv, name)()
+        for chunk in sorted(chunks) or [None]:
+            print(f"phase 18 jacobian {name} jac_chunk {chunk}: {ns_jacobian_note(c, dev, chunk)}", flush=True)
+
+
+NS_STAGE_DIR = "chiprun_out/ns_stage"
+
+
+def ns_precision_stage(dev, stage: str, name: str, source=None) -> None:
+    """Behind --ns-precision-stage: a precision preset's whole schedule in
+    two calls, for a schedule longer than one call may take.  Stage
+    "adam-lbfgs" runs its Adam and L-BFGS phases (gn_iterations=0),
+    evaluates, and checkpoints the params where L-BFGS ends under
+    NS_STAGE_DIR/NAME; stage "lm" restores them from the checkpoint
+    directory `source` and runs the preset's LM phase (its Jacobian in
+    blocks of NS_JAC_CHUNK), then evaluates beside the JAX row.  The LM
+    phase starts from the params L-BFGS ended at, as in one run of the
+    schedule."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.training.checkpoint import Checkpointer
+
+    preset = getattr(hv, name)()
+    jax_row = dict((n, (r, w)) for n, r, w in PRECISION_ROWS)[name]
+    t0 = time.perf_counter()
+    if stage == "adam-lbfgs":
+        c = dataclasses.replace(preset, train=dataclasses.replace(
+            preset.train, gn_iterations=0, checkpoint_dir=f"{NS_STAGE_DIR}/{name}"))
+        res, _, ev = train_checked(hv.build(c, device=dev), c, f"{name} {stage}", verbose=True)
+    elif stage == "lm":
+        c = dataclasses.replace(preset, train=dataclasses.replace(
+            preset.train, iterations=0, lbfgs_iterations=0, gn_jac_chunk=NS_JAC_CHUNK.get(name)))
+        prob = hv.build(c, device=dev)
+        like = {"params": prob.init_params(torch.Generator().manual_seed(c.train.seed)), "opt_state": None}
+        step, tree = Checkpointer(source).restore(like=like)
+        print(f"phase 17 (d) {name} {stage}: from step {step} of {source}; "
+              f"{ns_jacobian_note(c, dev, c.train.gn_jac_chunk)}", flush=True)
+        res, _, ev = train_checked(prob, c, f"{name} {stage}", verbose=True, params=tree["params"])
+    else:
+        fail(f"--ns-precision-stage: unknown stage {stage!r} (adam-lbfgs or lm)")
+    note = f"; {gn_note(res)}" if "gn" in res.phases else ""
+    print(f"phase 17 (d) {name} {stage} seed {c.train.seed} ({c.dtype}, layers {c.layers}): {ns_summary(res, ev)}"
+          f"{note} (JAX {jax_row[0]:g} after the whole schedule, {jax_row[1]}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase18(dev) -> None:
+    """Phase 18, the Navier-Stokes systems: (a), (b), (c) and (d); (e) runs
+    behind --ns-quality and the precision presets behind --precision."""
+    t0 = time.perf_counter()
+    ns_card_against_cpu(dev)
+    ns_graphs_and_rates(dev)
+    ns_cut_schedule(dev)
+    print(f"phase 18 navier-stokes: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2152,6 +2416,27 @@ def main() -> int:
         names = [a for a in sys.argv[2:] if not a.isdigit()]
         for seed in [int(a) for a in sys.argv[2:] if a.isdigit()] or [None]:
             gn_precision(dev, seed, names)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--ns-only"]:  # for work on the Navier-Stokes systems: phases 1, 2 and 18, no summary
+        phase18(dev)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--ns-quality"]:  # phase 18 (e) at each seed given (default: the presets')
+        for seed in sys.argv[2:] or [None]:
+            ns_quality(dev, None if seed is None else int(seed))
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--ns-precision-stage"]:  # STAGE NAME [CHECKPOINT_DIR]: a schedule in two calls
+        ns_precision_stage(dev, sys.argv[2], sys.argv[3], sys.argv[4] if len(sys.argv) > 4 else None)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--ns-jacobian"]:  # the precision presets' Jacobian builds at the block sizes given
+        ns_jacobians(dev, [int(a) for a in sys.argv[2:]])
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -2335,6 +2620,10 @@ def main() -> int:
     # tail, checkpoints under the graph
     gn_jac = phase17(dev)
     paths["gn jacobian, advdiff_forward_precision without layer_feature"] = gn_jac["counts"]
+
+    # 18. the Navier-Stokes systems on the JVP engine: card against CPU,
+    # graphs against eager, rates, kovasznay_quality's cut schedule
+    phase18(dev)
 
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]

@@ -7,8 +7,9 @@ ported slice is the Poisson-1D (forms 1/2/3, hard BC), Poisson-2D (forms
 Helmholtz-2D (forms 0/1, hard BC, k^2 identification), AdvDiff
 identification (forms 0/1/2, scalar/quadratic/network eps, trainable
 velocity, hard BC), AdvDiff-2D identification (forms 0/1, eps and the
-velocity vector) and Burgers (forms 0/1, hard BC, the front feature, strong
-collocation) problems with the Adam, L-BFGS (optax's) and Gauss-Newton/LM
+velocity vector), Burgers (forms 0/1, hard BC, the front feature, strong
+collocation) and the Navier-Stokes systems Kovasznay and Taylor-Green (forms
+0/1, hard BC, viscosity identification, the pressure gauges) problems with the Adam, L-BFGS (optax's) and Gauss-Newton/LM
 trainer, checkpoints (training/checkpoint.py) and the float64 polish
 (training/hybrid.py).  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
@@ -24,9 +25,11 @@ from hpvpinns_tpu_torch.config import (
     AdvDiffConfig,
     BurgersConfig,
     Helmholtz2DConfig,
+    KovasznayConfig,
     Poisson1DConfig,
     Poisson2DConfig,
     Poisson3DConfig,
+    TaylorGreenConfig,
     TrainConfig,
     advdiff2d_precision,
     advdiff_forward_precision,
@@ -37,6 +40,8 @@ from hpvpinns_tpu_torch.config import (
     burgers_quality,
     helmholtz2d_precision,
     helmholtz2d_quality,
+    kovasznay_precision,
+    kovasznay_quality,
     poisson1d_of_record,
     poisson1d_precision,
     poisson1d_quality,
@@ -46,10 +51,12 @@ from hpvpinns_tpu_torch.config import (
     poisson2d_scaled,
     poisson3d_precision,
     poisson3d_quality,
+    taylorgreen_precision,
+    taylorgreen_quality,
 )
 from hpvpinns_tpu_torch.convert import params_from_jax, params_to_numpy
 from hpvpinns_tpu_torch.evaluate import evaluate as evaluate_problem
-from hpvpinns_tpu_torch.evaluate import predict, rel_l2, strong_residual
+from hpvpinns_tpu_torch.evaluate import per_element_rel_l2, predict, rel_l2, strong_residual
 from hpvpinns_tpu_torch.problems import build
 from hpvpinns_tpu_torch.training import GNResult, TrainResult, gauss_newton, train
 
@@ -58,10 +65,12 @@ __all__ = [
     "AdvDiffConfig",
     "BurgersConfig",
     "Helmholtz2DConfig",
+    "KovasznayConfig",
     "Poisson1DConfig",
     "Poisson2DConfig",
     "Poisson3DConfig",
     "GNResult",
+    "TaylorGreenConfig",
     "TrainConfig",
     "TrainResult",
     "advdiff2d_precision",
@@ -76,7 +85,10 @@ __all__ = [
     "gauss_newton",
     "helmholtz2d_precision",
     "helmholtz2d_quality",
+    "kovasznay_precision",
+    "kovasznay_quality",
     "params_from_jax",
+    "per_element_rel_l2",
     "params_to_numpy",
     "poisson1d_of_record",
     "poisson1d_precision",
@@ -90,5 +102,7 @@ __all__ = [
     "predict",
     "rel_l2",
     "strong_residual",
+    "taylorgreen_precision",
+    "taylorgreen_quality",
     "train",
 ]

@@ -1,5 +1,6 @@
 """Configuration objects: the Poisson-1D, Poisson-2D, Poisson-3D, Helmholtz-2D,
-AdvDiff, AdvDiff-2D and Burgers subset of hpvpinns_tpu/config.py.
+AdvDiff, AdvDiff-2D, Burgers, Kovasznay and Taylor-Green subset of
+hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
 to one.  Fields whose feature is not ported yet (matmul precision
@@ -9,6 +10,7 @@ NotImplementedError where they are used; ROADMAP.md lists them.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
@@ -318,6 +320,130 @@ class BurgersConfig:
     )
 
 
+@dataclass(frozen=True)
+class KovasznayConfig:
+    """Steady incompressible Navier-Stokes, Kovasznay flow (Re = 1/nu):
+
+        (w . grad) w + grad p = nu Lap w,   div w = 0,   w = (u, v)
+
+    on [x_l, x_r] x [y_l, y_r], with the exact laminar wake solution
+    (Kovasznay 1948)
+
+        lam = Re/2 - sqrt(Re^2/4 + 4 pi^2)
+        u = 1 - e^{lam x} cos(2 pi y),  v = (lam / 2 pi) e^{lam x} sin(2 pi y)
+        p = (1 - e^{2 lam x}) / 2.
+
+    A system of coupled PDEs: one (u, v, p) ansatz against the stacked
+    momentum and continuity weak residual (ops/assembly.py::ns_residual)."""
+
+    layers: Tuple[int, ...] = (2, 30, 30, 30, 3)  # (u, v, p) output triple
+    activation: str = "tanh"
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    var_form: int = 1  # 0 | 1 (once-IBP diffusion + pressure gradient)
+    re: float = 40.0  # Reynolds number; nu = 1/re
+    n_elements_x: int = 2
+    n_elements_y: int = 2
+    grid_x: Optional[Tuple[float, ...]] = None  # non-uniform x-element bounds
+    grid_y: Optional[Tuple[float, ...]] = None
+    n_test_x: int = 8
+    n_test_y: int = 8
+    n_test_x_per_elem: Optional[Tuple[int, ...]] = None  # p-nonuniformity
+    n_test_y_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 14
+    n_bound: int = 60  # LHS boundary points per edge
+    lossb_weight: float = 10.0
+    hard_bc: bool = False  # lifted ansatz w = L + D * N: L the Coons interpolant of
+    # the exact velocity traces, D = (bubble, bubble, 1); u and v exact on the
+    # boundary, p soft (the gauge); requires bc_pressure=True
+    eq_weights: Optional[Tuple[float, float, float]] = None  # per-equation residual
+    # weights (x-momentum, y-momentum, continuity), inside the weak residual
+    # (the loss and the GN residual vector see them alike)
+    bc_pressure: bool = True  # prescribe p on the boundary beside (u, v); False:
+    # velocity-only Dirichlet data and a one-point pressure anchor
+    p_anchor_weight: float = 10.0  # weight of the pressure anchor (bc_pressure=False)
+    inverse: bool = False  # trainable viscosity nu = params["pde"]["nu"], from
+    # interior velocity sensors
+    nu_init: float = 0.1  # inverse-mode initial viscosity
+    n_sensors: int = 64  # interior (u, v) sensors (inverse mode; LHS-sampled)
+    sensor_noise: float = 0.0  # additive N(0, noise^2) on sensor readings
+    domain_x: Tuple[float, float] = (-0.5, 1.0)
+    domain_y: Tuple[float, float] = (-0.5, 1.5)
+    dtype: str = "float32"
+    deriv_mode: str = "jvp"  # vector ansatz: the JVP engine (the build does not read it)
+    train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(iterations=5000, check_every=100)
+    )
+
+
+@dataclass(frozen=True)
+class TaylorGreenConfig:
+    """Unsteady incompressible Navier-Stokes, the Taylor-Green vortex
+    (nu = 1/Re):
+
+        w_t + (w . grad) w + grad p = nu Lap w,   div w = 0,   w = (u, v)
+
+    on [x_l, x_r] x [y_l, y_r] x [t_start, T], with the exact decaying vortex
+
+        u = -cos(x) sin(y) e^{-2 nu t},  v = sin(x) cos(y) e^{-2 nu t}
+        p = -(cos(2x) + cos(2y))/4 e^{-4 nu t}.
+
+    A time-dependent system: an (x, y, t) -> (u, v, p) ansatz against the
+    stacked weak residual on the space-time tensor machinery
+    (ops/assembly.py::ns_unsteady_residual; time the slowest axis)."""
+
+    layers: Tuple[int, ...] = (3, 30, 30, 30, 3)
+    activation: str = "tanh"
+    adaptive_slope: bool = False
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    var_form: int = 1  # 0 | 1 (once-IBP diffusion + pressure, in space)
+    hard_bc: bool = False  # lifted ansatz: the velocity exact on the side walls and
+    # the t = t_start face (the space-time Coons interpolant); requires bc_pressure=True
+    re: float = 10.0  # Reynolds number; nu = 1/re
+    n_elements_x: int = 2
+    n_elements_y: int = 2
+    n_elements_t: int = 2
+    grid_x: Optional[Tuple[float, ...]] = None
+    grid_y: Optional[Tuple[float, ...]] = None
+    grid_t: Optional[Tuple[float, ...]] = None
+    n_test_x: int = 6
+    n_test_y: int = 6
+    n_test_t: int = 6
+    n_test_x_per_elem: Optional[Tuple[int, ...]] = None  # p-nonuniformity
+    n_test_y_per_elem: Optional[Tuple[int, ...]] = None
+    n_test_t_per_elem: Optional[Tuple[int, ...]] = None
+    n_quad: int = 10
+    n_bound: int = 60  # LHS points per face (4 side walls + the t = t_start face)
+    lossb_weight: float = 10.0
+    eq_weights: Optional[Tuple[float, float, float]] = None  # per-equation residual
+    # weights, as KovasznayConfig.eq_weights
+    bc_pressure: bool = True  # prescribe p on the side walls beside (u, v); False:
+    # velocity-only walls and a pressure anchor curve (one point, n_anchor times)
+    p_anchor_weight: float = 10.0
+    n_anchor: int = 16  # anchor times (bc_pressure=False only)
+    p_zero_mean_weight: float = 0.0  # > 0 adds the zero-mean-per-time-slice gauge
+    # penalty: p's spatial quadrature mean pinned to the exact slice mean at
+    # n_zero_mean_t times
+    n_zero_mean_t: int = 16  # time slices of the zero-mean penalty
+    p_test_enrich: int = 0  # extra tensor test modes for the momentum rows only;
+    # continuity keeps the base orders by an equation-selective mask, and its
+    # masked rows still count in the per-element n_test normalizer
+    inverse: bool = False  # trainable viscosity nu = params["pde"]["nu"]
+    nu_init: float = 0.3  # inverse-mode initial viscosity
+    n_sensors: int = 96  # interior space-time (u, v) sensors (inverse mode)
+    sensor_noise: float = 0.0
+    domain_x: Tuple[float, float] = (0.0, math.pi)
+    domain_y: Tuple[float, float] = (0.0, math.pi)
+    t_final: float = 1.0
+    t_start: float = 0.0  # time-slab lower edge: the initial face is at t_start
+    # (exact vortex values, or build(..., ic_fn=))
+    dtype: str = "float32"
+    deriv_mode: str = "jvp"  # vector ansatz: the JVP engine (the build does not read it)
+    train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(iterations=5000, check_every=100)
+    )
+
+
 def poisson1d_of_record() -> Poisson1DConfig:
     """Poisson-1D.py:231-240."""
     return Poisson1DConfig()
@@ -527,11 +653,68 @@ def advdiff2d_precision() -> AdvDiff2DConfig:
     )
 
 
+def kovasznay_quality() -> KovasznayConfig:
+    """The default 2x2 mesh, 8x8 test functions and (2,30,30,30,3) net at
+    Adam 10k + L-BFGS 10k."""
+    return KovasznayConfig(
+        train=TrainConfig(iterations=10000, lbfgs_iterations=10000, check_every=1000),
+    )
+
+
+def kovasznay_precision() -> KovasznayConfig:
+    """The hard-BC lifted ansatz, a 3x3 mesh, a (2,50,50,50,3) net, Adam 10k
+    + L-BFGS 10k and a 250-step QR-LM phase."""
+    return KovasznayConfig(
+        layers=(2, 50, 50, 50, 3),
+        n_elements_x=3,
+        n_elements_y=3,
+        hard_bc=True,
+        train=TrainConfig(
+            iterations=10000,
+            lbfgs_iterations=10000,
+            gn_iterations=250,
+            gn_solve="qr",
+            check_every=1000,
+        ),
+    )
+
+
+def taylorgreen_quality() -> TaylorGreenConfig:
+    """The default 2x2x2 space-time mesh, 6^3 test functions and
+    (3,30,30,30,3) net at Adam 10k + L-BFGS 10k."""
+    return TaylorGreenConfig(
+        train=TrainConfig(iterations=10000, lbfgs_iterations=10000, check_every=1000),
+    )
+
+
+def taylorgreen_precision() -> TaylorGreenConfig:
+    """The space-time hard-BC lift, a 3x3x2 mesh, 6^3 test functions, a
+    (3,50,50,50,3) net, var_form 0, the zero-mean-per-time-slice pressure
+    gauge at weight 10, Adam 10k + L-BFGS 10k and a 250-step QR-LM phase."""
+    return TaylorGreenConfig(
+        layers=(3, 50, 50, 50, 3),
+        n_elements_x=3,
+        n_elements_y=3,
+        var_form=0,
+        hard_bc=True,
+        p_zero_mean_weight=10.0,
+        train=TrainConfig(
+            iterations=10000,
+            lbfgs_iterations=10000,
+            gn_iterations=250,
+            gn_solve="qr",
+            check_every=1000,
+        ),
+    )
+
+
 __all__ = [
     "AdvDiff2DConfig",
     "AdvDiffConfig",
     "BurgersConfig",
     "Helmholtz2DConfig",
+    "KovasznayConfig",
+    "TaylorGreenConfig",
     "TrainConfig",
     "Poisson1DConfig",
     "Poisson2DConfig",
@@ -545,6 +728,8 @@ __all__ = [
     "burgers_quality",
     "helmholtz2d_precision",
     "helmholtz2d_quality",
+    "kovasznay_precision",
+    "kovasznay_quality",
     "poisson1d_of_record",
     "poisson1d_precision",
     "poisson1d_quality",
@@ -555,4 +740,6 @@ __all__ = [
     "poisson3d_precision",
     "poisson3d_quality",
     "replace",
+    "taylorgreen_precision",
+    "taylorgreen_quality",
 ]

@@ -36,6 +36,12 @@ class Interval1D:
     def uniform(cls, lo: float, hi: float, n_elem: int) -> "Interval1D":
         return cls(grid=uniform_grid(lo, hi, n_elem))
 
+    @classmethod
+    def grid_or_uniform(cls, grid, lo: float, hi: float, n_elem: int) -> "Interval1D":
+        """The boundaries `grid` where a config gives them, else `n_elem`
+        uniform elements on [lo, hi]."""
+        return cls(np.asarray(grid, dtype=np.float64)) if grid is not None else cls.uniform(lo, hi, n_elem)
+
     @property
     def n_elem(self) -> int:
         return len(self.grid) - 1

@@ -1,8 +1,9 @@
 """Variational (weak-form) residual assembly, batched over elements.
 
 Counterpart of hpvpinns_tpu/ops/assembly.py for Poisson-1D/2D/3D,
-Helmholtz-2D, AdvDiff, AdvDiff-2D and Burgers.  Res[e, n] (1D) / Res[e, k, r] (2D) / Res[e, m, k, r] (3D)
-= U - F, with F the offline RHS
+Helmholtz-2D, AdvDiff, AdvDiff-2D, Burgers and the steady and unsteady
+Navier-Stokes systems.  Res[e, n] (1D) / Res[e, k, r] (2D) / Res[e, m, k, r] (3D)
+= U - F (the systems add an equation axis after e), with F the offline RHS
 projection and U the network's derivative fields contracted against the
 quadrature-weighted test basis (weights folded in: Wphi[n, q] = w_q phi_n).
 """
@@ -15,7 +16,9 @@ from dataclasses import dataclass
 import torch
 
 from hpvpinns_tpu_torch.ops.contract import contract_1d, contract_2d, contract_3d
-from hpvpinns_tpu_torch.ops.fields import scalar_fields_1d, scalar_fields_2d, scalar_fields_3d
+from hpvpinns_tpu_torch.ops.fields import (
+    scalar_fields_1d, scalar_fields_2d, scalar_fields_3d, vector_fields_2d, vector_fields_3d,
+)
 
 
 class _Tensors:
@@ -368,6 +371,118 @@ def poisson3d_residual(u_fn, elems: Elements3D, bx: Basis1D, by: Basis1D, bz: Ba
     else:
         raise ValueError(f"Poisson-3D var_form must be 0 or 1; got {var_form}")
     return U - elems.f_proj
+
+
+def ns_residual(w_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_form: int, nu, fields_fn=None):
+    """Res[e, i, k, r] for the steady incompressible Navier-Stokes system
+
+        u u_x + v u_y + p_x - nu (u_xx + u_yy) = 0     (i = 0, x-momentum)
+        u v_x + v v_y + p_y - nu (v_xx + v_yy) = 0     (i = 1, y-momentum)
+        u_x + v_y                              = 0     (i = 2, continuity)
+
+    on tensor-product elements; w_fn maps [P, 2] -> [P, 3] = (u, v, p), the
+    convection in convective form.
+
+    var_form 0:  U_i = jac * C(phi_r, phi_k, strong integrand_i)
+    var_form 1:  diffusion and the pressure gradient once integrated by parts:
+      U_0 = jac C(phi_r, phi_k, u u_x + v u_y)
+            + nu [jac_y C(phi'_r, phi_k, u_x) + jac_x C(phi_r, phi'_k, u_y)]
+            - jac_y C(phi'_r, phi_k, p)
+      U_1 = the same with v, and - jac_x C(phi_r, phi'_k, p)
+      U_2 = jac C(phi_r, phi_k, u_x + v_y)
+
+    Returns [E, 3, K, R]; the (zero) RHS projection broadcasts over the
+    equation axis."""
+    f2d = fields_fn or (lambda *a, **k: vector_fields_2d(w_fn, *a, **k))
+    flds = f2d(elems.x, elems.y, firsts_only=(var_form == 1))
+    w, wx, wy = flds["w"], flds["wx"], flds["wy"]
+    u, v, p = w[..., 0], w[..., 1], w[..., 2]
+    ux, vx, px = wx[..., 0], wx[..., 1], wx[..., 2]
+    uy, vy_, py = wy[..., 0], wy[..., 1], wy[..., 2]
+    conv_u = u * ux + v * uy
+    conv_v = u * vx + v * vy_
+    div = ux + vy_
+    jac = (elems.jac_x * elems.jac_y)[:, None, None]
+    jx = elems.jac_x[:, None, None]
+    jy = elems.jac_y[:, None, None]
+    if var_form == 0:
+        wxx, wyy = flds["wxx"], flds["wyy"]
+        U0 = jac * contract_2d(bx.wphi, by.wphi, conv_u + px - nu * (wxx[..., 0] + wyy[..., 0]))
+        U1 = jac * contract_2d(bx.wphi, by.wphi, conv_v + py - nu * (wxx[..., 1] + wyy[..., 1]))
+    elif var_form == 1:
+        U0 = (
+            jac * contract_2d(bx.wphi, by.wphi, conv_u)
+            + nu * (jy * contract_2d(bx.wdphi, by.wphi, ux) + jx * contract_2d(bx.wphi, by.wdphi, uy))
+            - jy * contract_2d(bx.wdphi, by.wphi, p)
+        )
+        U1 = (
+            jac * contract_2d(bx.wphi, by.wphi, conv_v)
+            + nu * (jy * contract_2d(bx.wdphi, by.wphi, vx) + jx * contract_2d(bx.wphi, by.wdphi, vy_))
+            - jx * contract_2d(bx.wphi, by.wdphi, p)
+        )
+    else:
+        raise ValueError(f"Navier-Stokes var_form must be 0 or 1; got {var_form}")
+    U2 = jac * contract_2d(bx.wphi, by.wphi, div)
+    return torch.stack([U0, U1, U2], dim=1) - elems.f_proj[:, None]
+
+
+def ns_unsteady_residual(w_fn, elems: Elements3D, bx: Basis1D, by: Basis1D, bt: Basis1D, var_form: int, nu,
+                         fields_fn=None):
+    """Res[e, i, m, k, r] for the unsteady incompressible Navier-Stokes
+    system on space-time elements (time the slowest, z, axis):
+
+        u_t + u u_x + v u_y + p_x - nu (u_xx + u_yy) = 0   (i = 0)
+        v_t + u v_x + v v_y + p_y - nu (v_xx + v_yy) = 0   (i = 1)
+        u_x + v_y                                    = 0   (i = 2)
+
+    w_fn maps [P, 3] (x, y, t) -> [P, 3] (u, v, p).
+
+    var_form 0:  U_i = jac C3(phi_r, phi_k, phi_m, strong integrand_i)
+    var_form 1:  diffusion and the pressure gradient once integrated by parts
+                 in space (u_t stays strong), with jx = jac_y jac_z and
+                 jy = jac_x jac_z:
+      U_0 = jac C3(phi, phi, phi, u_t + u u_x + v u_y)
+            + nu [jx C3(phi', phi, phi, u_x) + jy C3(phi, phi', phi, u_y)]
+            - jx C3(phi', phi, phi, p)
+      U_1 = the same with v, and - jy C3(phi, phi', phi, p)
+      U_2 = jac C3(phi, phi, phi, u_x + v_y)
+
+    Returns [E, 3, M, K, R]; the (zero) RHS projection broadcasts over the
+    equation axis."""
+    f3d = fields_fn or (lambda *a, **k: vector_fields_3d(w_fn, *a, **k))
+    flds = f3d(elems.x, elems.y, elems.z, second=(var_form == 0))
+    w, wx, wy, wt = flds["w"], flds["wx"], flds["wy"], flds["wz"]
+    u, v = w[..., 0], w[..., 1]
+    ux, vx, px = wx[..., 0], wx[..., 1], wx[..., 2]
+    uy, vy_, py = wy[..., 0], wy[..., 1], wy[..., 2]
+    conv_u = wt[..., 0] + u * ux + v * uy
+    conv_v = wt[..., 1] + u * vx + v * vy_
+    div = ux + vy_
+    jac = (elems.jac_x * elems.jac_y * elems.jac_z)[:, None, None, None]
+    if var_form == 0:
+        wxx, wyy = flds["wxx"], flds["wyy"]
+        U0 = jac * contract_3d(bx.wphi, by.wphi, bt.wphi, conv_u + px - nu * (wxx[..., 0] + wyy[..., 0]))
+        U1 = jac * contract_3d(bx.wphi, by.wphi, bt.wphi, conv_v + py - nu * (wxx[..., 1] + wyy[..., 1]))
+    elif var_form == 1:
+        p = w[..., 2]
+        jx = (elems.jac_y * elems.jac_z)[:, None, None, None]
+        jy = (elems.jac_x * elems.jac_z)[:, None, None, None]
+        U0 = (
+            jac * contract_3d(bx.wphi, by.wphi, bt.wphi, conv_u)
+            + nu * (jx * contract_3d(bx.wdphi, by.wphi, bt.wphi, ux)
+                    + jy * contract_3d(bx.wphi, by.wdphi, bt.wphi, uy))
+            - jx * contract_3d(bx.wdphi, by.wphi, bt.wphi, p)
+        )
+        U1 = (
+            jac * contract_3d(bx.wphi, by.wphi, bt.wphi, conv_v)
+            + nu * (jx * contract_3d(bx.wdphi, by.wphi, bt.wphi, vx)
+                    + jy * contract_3d(bx.wphi, by.wdphi, bt.wphi, vy_))
+            - jy * contract_3d(bx.wphi, by.wdphi, bt.wphi, p)
+        )
+    else:
+        raise ValueError(f"unsteady Navier-Stokes var_form must be 0 or 1; got {var_form}")
+    U2 = jac * contract_3d(bx.wphi, by.wphi, bt.wphi, div)
+    return torch.stack([U0, U1, U2], dim=1) - elems.f_proj[:, None]
 
 
 def variational_loss(res: torch.Tensor, mask: torch.Tensor, n_test: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 points, by the JVP engine (ops/derivatives.py).
 
 Counterpart of hpvpinns_tpu/ops/fields.py (the scalar engines in 1, 2 and 3
-dimensions; the vector ones wait for the vector problems).  All elements' points are batched into
+dimensions, and the vector engines of the Navier-Stokes systems, whose
+ansatz has a (u, v, p) output).  All elements' points are batched into
 one flat [P, d] array and the derivatives come from nested forward-mode JVPs
 of the whole ansatz: `deriv_mode="jvp"`, the engine for any ansatz that is
 not a bare MLP (the hard-BC composite, an input feature) and for the strong
@@ -53,6 +54,48 @@ def scalar_fields_2d(
         out["uy"] = uy.reshape(shape)
         out["uyy"] = uyy.reshape(shape)
     return out
+
+
+def vector_fields_2d(w_fn, x, y, *, firsts_only: bool = False):
+    """A vector ansatz and its per-axis derivatives at 2D points x, y
+    (identical shapes [..., Qy, Qx]); w_fn maps [P, 2] -> [P, C].  One
+    nested-JVP chain per axis differentiates all C components at once (the
+    JVP primitives are shape-generic).  {w, wx, wy} plus {wxx, wyy} unless
+    firsts_only, each shaped [..., Qy, Qx, C]."""
+    shape = x.shape
+    X = torch.stack([x.reshape(-1), y.reshape(-1)], dim=-1)
+    vx, vy = coord_tangent(X, 0), coord_tangent(X, 1)
+    if firsts_only:
+        w, wx = torch.func.jvp(w_fn, (X,), (vx,))
+        wy = dir_deriv(w_fn, X, vy)
+        c = w.shape[-1]
+        return {"w": w.reshape(shape + (c,)), "wx": wx.reshape(shape + (c,)), "wy": wy.reshape(shape + (c,))}
+    w, wx, wxx = value_and_dir_derivs2(w_fn, X, vx)
+    _, wy, wyy = value_and_dir_derivs2(w_fn, X, vy)
+    c = w.shape[-1]
+    return {k: v.reshape(shape + (c,)) for k, v in (("w", w), ("wx", wx), ("wy", wy), ("wxx", wxx), ("wyy", wyy))}
+
+
+def vector_fields_3d(w_fn, x, y, z, *, second: bool = True):
+    """A vector ansatz and its per-axis derivatives at 3D points x, y, z
+    (identical shapes [..., Qz, Qy, Qx]); w_fn maps [P, 3] -> [P, C], z is
+    time for the unsteady systems.  {w, wx, wy, wz} plus {wxx, wyy} when
+    `second` (no wzz: the systems are first order in time), each shaped
+    [..., Qz, Qy, Qx, C]."""
+    shape = x.shape
+    X = torch.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], dim=-1)
+    vx, vy, vz = coord_tangent(X, 0), coord_tangent(X, 1), coord_tangent(X, 2)
+    out = {}
+    if second:
+        w, wx, wxx = value_and_dir_derivs2(w_fn, X, vx)
+        _, wy, wyy = value_and_dir_derivs2(w_fn, X, vy)
+        out["wxx"], out["wyy"] = wxx, wyy
+    else:
+        w, wx = torch.func.jvp(w_fn, (X,), (vx,))
+        wy = dir_deriv(w_fn, X, vy)
+    out.update(w=w, wx=wx, wy=wy, wz=dir_deriv(w_fn, X, vz))
+    c = w.shape[-1]
+    return {k: v.reshape(shape + (c,)) for k, v in out.items()}
 
 
 def scalar_fields_3d(u_fn, x, y, z, *, second: bool = True):

@@ -3,11 +3,15 @@ from hpvpinns_tpu_torch.config import (
     AdvDiffConfig,
     BurgersConfig,
     Helmholtz2DConfig,
+    KovasznayConfig,
     Poisson1DConfig,
     Poisson2DConfig,
     Poisson3DConfig,
+    TaylorGreenConfig,
 )
-from hpvpinns_tpu_torch.problems import advdiff, advdiff2d, burgers, helmholtz, poisson1d, poisson2d, poisson3d
+from hpvpinns_tpu_torch.problems import (
+    advdiff, advdiff2d, burgers, helmholtz, kovasznay, poisson1d, poisson2d, poisson3d, taylorgreen,
+)
 from hpvpinns_tpu_torch.problems.base import Problem
 
 _BUILDERS = (
@@ -18,13 +22,15 @@ _BUILDERS = (
     (AdvDiffConfig, advdiff.build),
     (AdvDiff2DConfig, advdiff2d.build),
     (BurgersConfig, burgers.build),
+    (KovasznayConfig, kovasznay.build),
+    (TaylorGreenConfig, taylorgreen.build),
 )
 
 
 def build(config, *, device=None) -> Problem:
     """Dispatch on config type (Poisson1DConfig, Poisson2DConfig,
     Poisson3DConfig, Helmholtz2DConfig, AdvDiffConfig, AdvDiff2DConfig,
-    BurgersConfig).  The problem lives on `device`, by default the card
+    BurgersConfig, KovasznayConfig, TaylorGreenConfig).  The problem lives on `device`, by default the card
     (torch.device("cuda")); with no CUDA device, pass device="cpu"."""
     for cls, build_fn in _BUILDERS:
         if isinstance(config, cls):

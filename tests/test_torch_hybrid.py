@@ -33,9 +33,10 @@ PRESETS = sorted(
 
 
 def test_every_preset_is_listed_and_unknown_families_raise():
-    assert len(PRESETS) == 18 and {"poisson1d_precision", "poisson2d_precision"} <= set(PRESETS)
+    assert len(PRESETS) == 22 and {"poisson1d_precision", "poisson2d_precision", "kovasznay_precision",
+                                   "taylorgreen_precision"} <= set(PRESETS)
     with pytest.raises(ValueError, match="unknown config family"):
-        thy.config_from_spec({"family": "KovasznayConfig", "fields": {}})
+        thy.config_from_spec({"family": "StokesConfig", "fields": {}})
 
 
 @pytest.mark.parametrize("name", PRESETS)

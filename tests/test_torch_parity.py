@@ -114,6 +114,22 @@ def train_gn_tail(prob, adam: int = 10, gn: int = 2):
     return res
 
 
+def mlp_pair(layers, seed=0):
+    """One tanh net of random numpy weights as two apply functions over the
+    same numbers: the port's (torch tensors) and the JAX package's."""
+    from hpvpinns_tpu.models.mlp import MLP as JMLP
+    from hpvpinns_tpu.models.mlp import mlp_apply as jmlp_apply
+    from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
+
+    rng = np.random.default_rng(seed)
+    tree = [{"W": rng.standard_normal((a, b)) / np.sqrt(a), "b": 0.1 * rng.standard_normal(b)}
+            for a, b in zip(layers[:-1], layers[1:])]
+    tspec, jspec = MLP(layers=layers), JMLP(layers=layers)
+    tnet = [{k: torch.tensor(v) for k, v in layer.items()} for layer in tree]
+    jnet = [{k: jnp.asarray(v) for k, v in layer.items()} for layer in tree]
+    return (lambda X: mlp_apply(tspec, tnet, X)), (lambda X: jmlp_apply(jspec, jnet, X))
+
+
 def velocity_field(x):
     """A true velocity field for manufactured AdvDiff problems (generic operators)."""
     return 1.0 + 0.3 * x
