@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
     python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
+                           | --adaptive-only | --adaptive [studies] [burgers] [sweep]
                            | --advdiff-only | --advdiff-quality SEED... | --volumetric-only
                            | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]
                            | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
@@ -174,6 +175,25 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      step's nodes; (c) their graph and eager steps/s in turns, device us a
      step and the busy share; (d) kovasznay_quality with its schedule cut
      to 2,000 Adam + 500 L-BFGS iterations: rel-L2 and its u, v, p keys.
+ 19. Adaptive hp refinement (phase19): (a) each family's enriched
+     indicator (adaptive.element_indicator) at its quality preset's sizes
+     (AdvDiff2DConfig() for AdvDiff-2D), on the card in float32 ("pallas"
+     where the preset has soft BC and one output: AdvDiff's and
+     AdvDiff-2D's enriched fields run through B1) against the CPU in
+     float64 from the same params: eta within ETA_TOL of the largest plus
+     float32's floor, the Dörfler marks equal where no near-tie within
+     that tolerance decides them; (b) adaptive_solve under "pallas" at
+     full width, three rounds each cut to 1,000 Adam + 500 L-BFGS: the
+     steep Poisson-1D (grid [-1, 0, 1], p15, q40, (1,20,20,20,1); B1
+     second, B2 and the block sum) and the 2D tanh(10x) problem from 2 x 2
+     elements ((2,30,30,30,1); B1 firsts); each round prints its shape,
+     build and train seconds, steps/s, host launches (zeroed before its
+     train), the captured step's nodes, rel-L2 beside the JAX row and the
+     device memory (peak, reserved, still allocated), and fails if a
+     kernel of its path did not launch or is not a node, or if the memory
+     still allocated after train grows with the rounds; (d)
+     adaptive_galerkin_1d (five rounds, p 12, theta 0.7) on the recorded
+     trajectory.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -187,6 +207,13 @@ on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
+With --adaptive-only it runs phases 1, 2 and 19 and prints no summary;
+with --adaptive [studies] [burgers] [sweep] phases 1 and 2, then the parts
+of phase 19 (c) named (default all): (b)'s two studies at their recorded
+budgets (four rounds of 3,000 + 2,000 and three of 4,000 + 3,000), the
+README's `adapt burgers` command (hard BC on the JVP engine, four rounds,
+budget growth 1.4) beside the JAX rows, and h_sweep on poisson1d_of_record
+at p15 (E 1, 2, 4) beside benchmarks/sweep_p1d_h/h_sweep.json.
 With --ns-only it runs phases 1, 2 and 18 and prints no summary; with
 --ns-quality [SEED...] phases 1 and 2, then kovasznay_quality and
 taylorgreen_quality at their whole schedules beside the JAX package's rows,
@@ -2329,6 +2356,290 @@ def phase18(dev) -> None:
     print(f"phase 18 navier-stokes: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 19, adaptive hp refinement.  The JAX package's rows are f32 runs on a
+# TPU (benchmarks/MEASUREMENTS.md); they are comparators, not targets.
+ETA_PRESETS = ("poisson1d_quality", "poisson2d_quality", "helmholtz2d_quality", "advdiff_quality", "AdvDiff2DConfig",
+               "burgers_quality", "kovasznay_quality", "taylorgreen_quality")
+ETA_PALLAS = ("poisson1d_quality", "poisson2d_quality", "advdiff_quality", "AdvDiff2DConfig")  # soft BC, kernel-able
+ETA_TOL = 1e-3  # |eta f32 card - eta f64 CPU| over the largest eta, on top of f32's floor
+ETA_NOISE = 30.0  # eta's f32 floor is (ETA_NOISE eps_f32 max|Res|)^2, Res the training-basis residual
+ETA_W0_SCALE = 8.0  # the init's first layer scaled: an ansatz with content on the modes beyond the basis
+ETA_THETA = 0.5
+# (rounds, Adam, L-BFGS) a round: the whole run's cut and the recorded budget (--adaptive)
+ADAPT_P1D_BUDGET = {"cut": (3, 1000, 500), "full": (4, 3000, 2000)}
+ADAPT_P2D_BUDGET = {"cut": (3, 1000, 500), "full": (3, 4000, 3000)}
+JAX_ADAPT_P1D = (7.9e-2, 0.30, 0.33, 0.79)  # MEASUREMENTS.md:526-531, baseline row, lr_decay 0.5
+JAX_ADAPT_P2D = (1.12e-2, 7.3e-3, 5.1e-3)  # MEASUREMENTS.md:496-499
+JAX_ADAPT_BURGERS = (5.5e-2, 3.6e-2, 3.4e-2, 5.9e-3)  # MEASUREMENTS.md:548-556, the README's command
+BURGERS_README = (4, 1.4, 5000, 5000)  # rounds, budget growth, Adam, L-BFGS of the README's `adapt burgers` command
+H_SWEEP = ((1, 2, 4), 5000)  # elements, Adam steps (benchmarks/sweep_p1d_h/h_sweep.json's 5,000)
+GALERKIN_1D = (5.5e-2, 3.4e-3, 2.2e-3, 9.3e-5, 3.0e-5)  # MEASUREMENTS.md:503-507, f64 on the host
+GALERKIN_RTOL = 0.03  # the recorded trajectory has two significant figures
+ADAPT_MEM_GROWTH = 64 << 20  # device memory still allocated after a round's train, above round 0's
+
+
+def eta_marks_comparable(eta: np.ndarray, tol_abs: float, theta: float = ETA_THETA) -> bool:
+    """Whether Dörfler marking at `theta` is decided by more than `tol_abs`:
+    the sorted eta's gap at the cut and the cumulative sums' distance from
+    the cut both exceed it (an f32 eta can order a near-tie otherwise)."""
+    s = np.sort(eta)[::-1]
+    csum = np.cumsum(s)
+    cut = theta * csum[-1]
+    k = int(np.searchsorted(csum, cut)) + 1
+    gap = s[k - 1] - s[k] if k < len(s) else np.inf
+    margin = min(abs(csum[k - 1] - cut), abs(csum[k - 2] - cut) if k >= 2 else np.inf)
+    return gap > 2 * tol_abs and margin > len(s) * tol_abs
+
+
+def eta_card_against_cpu(dev) -> dict:
+    """Phase 19 (a): each family's enriched indicator at its preset's sizes,
+    built on the card in float32 and on the CPU in float64 from the same
+    params (the card's seeded init with its first layer's weights scaled by
+    ETA_W0_SCALE, widened; at the plain init a smooth ansatz's eta is below
+    float32's floor in most families), "pallas" where the preset has
+    soft BC and one output: eta within ETA_TOL of the largest eta plus
+    float32's floor, (ETA_NOISE eps_f32 max|Res|)^2 with Res the
+    training-basis residual (the enriched residual sums terms of that size:
+    a smooth ansatz's projection on the modes beyond the basis can be below
+    float32's resolution of them), and the Dörfler marks equal where no
+    near-tie within that tolerance decides them.  Returns each preset's host
+    launches."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import adaptive as tad
+
+    paths = {}
+    for name in ETA_PRESETS:
+        c = getattr(hv, name)()
+        if name in ETA_PALLAS:
+            c = dataclasses.replace(c, deriv_mode="pallas")
+        card = hv.build(dataclasses.replace(c, dtype="float32"), device=dev)
+        host = hv.build(dataclasses.replace(c, dtype="float64"), device="cpu")
+        p32 = card.init_params(torch.Generator().manual_seed(c.train.seed))
+        with torch.no_grad():
+            p32["net"][0]["W"].mul_(ETA_W0_SCALE)
+        p64 = hv.params_from_jax(hv.params_to_numpy(p32), dtype=torch.float64)
+        zero_counts()
+        t0 = time.perf_counter()
+        e32 = tad.element_indicator(card, p32)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = read_counts()
+        e64 = tad.element_indicator(host, p64)
+        with torch.no_grad():
+            res_scale = float(host.extras["residual_fn"](p64, host.data).abs().max())
+        floor = (ETA_NOISE * float(np.finfo(np.float32).eps) * res_scale) ** 2
+        tol = ETA_TOL * float(e64.max()) + floor
+        err = float(np.abs(e32.astype(np.float64) - e64).max())
+        if e32.dtype != np.float32 or e32.shape != e64.shape or not np.all(np.isfinite(e32)) or err > tol:
+            fail(f"phase 19 (a) {name}: eta card {e32.tolist()} against CPU {e64.tolist()} (max err {err:.3e})")
+        comparable = eta_marks_comparable(e64, tol)
+        if comparable and not np.array_equal(tad.dorfler_mark(e32, ETA_THETA), tad.dorfler_mark(e64, ETA_THETA)):
+            fail(f"phase 19 (a) {name}: Dörfler marks differ with no near-tie: card {e32.tolist()} CPU {e64.tolist()}")
+        if name in ("advdiff_quality", "AdvDiff2DConfig") and counts["fused_fields"] < 1:
+            fail(f"phase 19 (a) {name}: the enriched fields did not run through B1: {counts}")
+        paths[f"enriched eta {name}"] = counts
+        print(f"phase 19 (a) {name} ({c.deriv_mode}, layers {c.layers}, E {e64.size}, P "
+              f"{card.data['elements'].x.numel()}): eta max err {err / float(e64.max()):.2e} of the largest "
+              f"(tolerance {ETA_TOL} of it + the f32 floor {floor:.2e} = {tol / float(e64.max()):.2e} of it); "
+              f"marks at theta {ETA_THETA} "
+              + ("equal" if comparable else "not compared (a near-tie decides them)")
+              + f"; the largest eta {'above' if float(e64.max()) > floor else 'below'} the f32 floor"
+              + f"; eta max/min {float(e64.max() / max(e64.min(), 1e-300)):.3e}; card {card_s * 1e3:.1f} ms; "
+              f"host launches {counts}", flush=True)
+    return paths
+
+
+def adapt_p1d_config(budget):
+    """The steep Poisson-1D study (MEASUREMENTS.md:526-531): grid [-1, 0, 1],
+    p15, q40, the (1,20,20,20,1) sin net, var_form 1 (second derivatives:
+    B1, B2 and the block sum) under "pallas"."""
+    import hpvpinns_tpu_torch as hv
+
+    _, adam, lbfgs = budget
+    c = dataclasses.replace(hv.poisson1d_of_record(), grid=(-1.0, 0.0, 1.0), n_elements=2, n_test=15, n_quad=40,
+                            layers=(1, 20, 20, 20, 1), deriv_mode="pallas")
+    return dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=adam, lbfgs_iterations=lbfgs,
+                                                            check_every=100))
+
+
+def adapt_p2d_config(budget):
+    """The 2D tanh(10x) study (MEASUREMENTS.md:496-499): poisson2d_of_record
+    with the (2,30,30,30,1) net from 2 x 2 elements, var_form 1 (firsts: B1)
+    under "pallas"."""
+    import hpvpinns_tpu_torch as hv
+
+    _, adam, lbfgs = budget
+    c = dataclasses.replace(hv.poisson2d_of_record(), n_elements_x=2, n_elements_y=2, layers=(2, 30, 30, 30, 1),
+                            deriv_mode="pallas")
+    return dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=adam, lbfgs_iterations=lbfgs,
+                                                            check_every=100))
+
+
+def instrumented_adaptive(label: str, cfg, dev, kernels=(), jax_rows=(), **kw):
+    """adaptive_solve (the port's entry point) with each round measured: the
+    build's seconds; train's wall seconds, phases and steps/s; the wrappers'
+    host launches (zeroed just before the round's train, read just after);
+    peak allocated, reserved and still-allocated device memory; and the
+    nodes of the round's captured Adam step (one capture of the round's
+    problem in debug mode, after its train).  Fails on a round of `kernels`'
+    path that launched or captured none of them, a non-finite rel-L2, or
+    memory still allocated after a round's train more than ADAPT_MEM_GROWTH
+    above round 0's (earlier rounds' graphs and pools must be freed).
+    Returns (AdaptiveResult, per-round rows, launches summed over rounds)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import adaptive as tad
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk, _copy_params, make_optimizer
+
+    rows, real_train = [], tad.train
+
+    def build_fn(c):
+        t0 = time.perf_counter()
+        prob = hv.build(c, device=dev)
+        rows.append({"build_s": time.perf_counter() - t0})
+        return prob
+
+    def train_fn(problem, tc, mesh=None, params=None, verbose=False):
+        row = rows[-1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = real_train(problem, tc, mesh=mesh, params=params, verbose=verbose)
+        torch.cuda.synchronize()
+        row.update(train_s=time.perf_counter() - t0, counts=read_counts(), res_phases=res.phases,
+                   sps=res.steps_per_sec, peak=torch.cuda.max_memory_allocated(), reserved=torch.cuda.memory_reserved(),
+                   allocated=torch.cuda.memory_allocated(), P=problem.data["elements"].x.numel())
+        prm = _copy_params(res.params, as_parameters=True)
+        ch = _build_chunk(problem.loss_fn, make_optimizer(tc, prm), prm, problem.data, debug=True)
+        row["nodes"] = graph_nodes(ch.graphs[0], f"phase19_{'_'.join(label.split()[1:3])}_round{len(rows) - 1}")
+        del ch, prm
+        return res
+
+    tad.train = train_fn
+    try:
+        out = tad.adaptive_solve(cfg, build_fn=build_fn, **kw)
+    finally:
+        tad.train = real_train
+    total = {}
+    for r, (rec, row) in enumerate(zip(out.rounds, rows)):
+        counts, nodes = row["counts"], row["nodes"]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if kernels and (min(counts[k] for k in kernels) < 1 or min(nodes[k] for k in kernels) < 1):
+            fail(f"phase 19 {label} round {r}: host launches {counts}, graph nodes {nodes}")
+        if not math.isfinite(rec["rel_l2"]):
+            fail(f"phase 19 {label} round {r}: rel_l2 {rec['rel_l2']}")
+        if row["allocated"] - rows[0]["allocated"] > ADAPT_MEM_GROWTH:
+            fail(f"phase 19 {label} round {r}: {row['allocated']} B allocated after train, round 0 "
+                 f"{rows[0]['allocated']} B: memory grows with the rounds")
+        ph = row["res_phases"]
+        walls = ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in ph.items())
+        lb = f"; {lbfgs_note(ph['lbfgs'])}" if "lbfgs" in ph else ""
+        jax = f" (JAX f32 TPU row {jax_rows[r]:g})" if r < len(jax_rows) else ""
+        eta = np.asarray(rec["eta"])
+        mib = 1 << 20
+        print(f"phase 19 {label} round {r}: E {rec['n_elem']}, P {row['P']}, n_test {rec['n_test_per_elem']}, Adam "
+              f"{rec['iterations']} + L-BFGS {rec['lbfgs_iterations']}; build {row['build_s']:.3f} s, train "
+              f"{row['train_s']:.2f} s (wall s {walls}), {row['sps']:.1f} steps/s{lb}; host launches {counts}; "
+              f"captured step {nodes['nodes']} nodes ({nodes['kernels']} kernels; B1 {nodes['fused_fields']}, B2 "
+              f"{nodes['fused_fields_bwd']}, block sum {nodes['block_sum']}); rel_l2 {rec['rel_l2']:.4e}{jax}; "
+              f"eta max/min {eta.max() / max(eta.min(), 1e-300):.3e}; device memory peak {row['peak'] / mib:.1f} "
+              f"MiB, reserved {row['reserved'] / mib:.1f} MiB, allocated after train {row['allocated'] / mib:.1f} "
+              f"MiB", flush=True)
+    n_elem = [rec["n_elem"] for rec in out.rounds]
+    if not all(b > a for a, b in zip(n_elem, n_elem[1:])):
+        fail(f"phase 19 {label}: a round refined nothing: E {n_elem}")
+    last = out.rounds[-1]
+    grids = {k: [round(g, 6) for g in last[k]] for k in ("grid", "grid_x", "grid_y") if k in last}
+    print(f"phase 19 {label}: rel-L2 {[f'{r:.4e}' for r in out.rel_l2_trajectory]}, best round {out.best_round}, "
+          f"E {n_elem}, last grids {grids}", flush=True)
+    return out, rows, total
+
+
+def galerkin_loop(dev) -> None:
+    """Phase 19 (d): adaptive_galerkin_1d (five rounds, p 12, theta 0.7) on
+    poisson1d_of_record in float64: the recorded trajectory within
+    GALERKIN_RTOL."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import adaptive as tad
+
+    t0 = time.perf_counter()
+    recs = tad.adaptive_galerkin_1d(dataclasses.replace(hv.poisson1d_of_record(), dtype="float64"), rounds=5,
+                                    theta=0.7, p=12, build_fn=lambda c: hv.build(c, device=dev))
+    got = [r["rel_l2"] for r in recs]
+    if not np.allclose(got, GALERKIN_1D, rtol=GALERKIN_RTOL, atol=0.0):
+        fail(f"phase 19 (d) adaptive_galerkin_1d: rel-L2 {got} is not the recorded {list(GALERKIN_1D)}")
+    print(f"phase 19 (d) adaptive_galerkin_1d (p 12, theta 0.7, f64 on the host): rel-L2 {[f'{v:.4e}' for v in got]} "
+          f"(recorded {list(GALERKIN_1D)}), E {[r['n_elem'] for r in recs]}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase19(dev) -> dict:
+    """Phase 19, adaptive hp refinement: (a) the enriched indicators card
+    against CPU, (b) the two network studies under "pallas" with each round
+    cut to ADAPT_*_BUDGET["cut"], (d) the direct-solver loop.  Returns the
+    host launches of each path."""
+    t0 = time.perf_counter()
+    paths = eta_card_against_cpu(dev)
+    for label, make, budget, kernels, rows in (
+            ("(b) steep poisson1d", adapt_p1d_config, ADAPT_P1D_BUDGET["cut"], SECOND_PATH, JAX_ADAPT_P1D),
+            ("(b) poisson2d tanh(10x)", adapt_p2d_config, ADAPT_P2D_BUDGET["cut"], ("fused_fields",), JAX_ADAPT_P2D)):
+        _, _, total = instrumented_adaptive(label, make(budget), dev, kernels, rows, rounds=budget[0], theta=0.5)
+        paths[f"adaptive {label[4:]} ({budget[0]} rounds)"] = total
+    galerkin_loop(dev)
+    print(f"phase 19 adaptive: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def adaptive_full(dev, parts=("studies", "burgers", "sweep")) -> None:
+    """Phase 19 (c), behind --adaptive, the parts named: "studies", the two
+    network studies at their recorded budgets; "burgers", the README's
+    Burgers command (hard BC on the JVP engine, four rounds, budget growth
+    1.4) beside the JAX row; "sweep", h_sweep on poisson1d_of_record at p15
+    (E 1, 2, 4; 5,000 Adam steps under "pallas") beside
+    benchmarks/sweep_p1d_h/h_sweep.json."""
+    if "studies" in parts:
+        for label, make, budget, kernels, rows in (
+                ("(c) steep poisson1d", adapt_p1d_config, ADAPT_P1D_BUDGET["full"], SECOND_PATH, JAX_ADAPT_P1D),
+                ("(c) poisson2d tanh(10x)", adapt_p2d_config, ADAPT_P2D_BUDGET["full"], ("fused_fields",),
+                 JAX_ADAPT_P2D)):
+            instrumented_adaptive(label, make(budget), dev, kernels, rows, rounds=budget[0], theta=0.5)
+    if "burgers" in parts:
+        burgers_readme(dev)
+    if "sweep" in parts:
+        p1d_h_sweep(dev)
+
+
+def burgers_readme(dev) -> None:
+    """The README's `adapt burgers` command through adaptive_solve."""
+    import hpvpinns_tpu_torch as hv
+
+    rounds, growth, adam, lbfgs = BURGERS_README
+    bc = dataclasses.replace(hv.BurgersConfig(), hard_bc=True, n_test_x=10, n_test_t=10, n_quad=20)
+    bc = dataclasses.replace(bc, train=dataclasses.replace(bc.train, iterations=adam, lbfgs_iterations=lbfgs))
+    instrumented_adaptive("(c) burgers README command", bc, dev, (), JAX_ADAPT_BURGERS, rounds=rounds, theta=0.5,
+                          budget_growth=growth)
+
+
+def p1d_h_sweep(dev) -> None:
+    """h_sweep on poisson1d_of_record at p15 beside the JAX package's record."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import sweep as tsw
+
+    with open("benchmarks/sweep_p1d_h/h_sweep.json") as f:
+        jax_sweep = {r["n_elements"]: r for r in json.load(f)}
+    sc = dataclasses.replace(hv.poisson1d_of_record(), n_test=15, deriv_mode="pallas")
+    sc = dataclasses.replace(sc, train=dataclasses.replace(sc.train, iterations=H_SWEEP[1], check_every=100))
+    t0 = time.perf_counter()
+    for rec in tsw.h_sweep(sc, list(H_SWEEP[0])):
+        j = jax_sweep[rec["n_elements"]]
+        print(f"phase 19 (c) h_sweep poisson1d_of_record p15 pallas E {rec['n_elements']}: rel_l2 {rec['rel_l2']:.4e} "
+              f"(JAX f32 TPU {j['rel_l2']:.4e}), max_abs_err {rec['max_abs_err']:.4e}, final loss "
+              f"{rec['final_loss']:.4e}, {rec['steps_per_sec']:.1f} steps/s, per-element rel-L2 "
+              f"{[f'{v:.3e}' for v in rec['per_element_rel_l2']]}", flush=True)
+    print(f"phase 19 (c) h_sweep: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2437,6 +2748,16 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--ns-jacobian"]:  # the precision presets' Jacobian builds at the block sizes given
         ns_jacobians(dev, [int(a) for a in sys.argv[2:]])
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--adaptive-only"]:  # for work on the adaptive loop: phases 1, 2 and 19, no summary
+        phase19(dev)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--adaptive"]:  # phase 19 (c): the parts named (default all) at their recorded budgets
+        adaptive_full(dev, sys.argv[2:] or ("studies", "burgers", "sweep"))
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -2624,6 +2945,10 @@ def main() -> int:
     # 18. the Navier-Stokes systems on the JVP engine: card against CPU,
     # graphs against eager, rates, kovasznay_quality's cut schedule
     phase18(dev)
+
+    # 19. adaptive hp refinement: the enriched indicators card against CPU,
+    # adaptive_solve under "pallas" round by round, the direct-solver loop
+    paths.update(phase19(dev))
 
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]

@@ -64,6 +64,12 @@ class Interval1D:
         """[E, 2] physical (left, right) endpoints of each element."""
         return np.stack([self.grid[:-1], self.grid[1:]], axis=-1)
 
+    def locate(self, x: np.ndarray) -> np.ndarray:
+        """Element index containing each x (the last element holds the
+        right end)."""
+        idx = np.searchsorted(self.grid, x, side="right") - 1
+        return np.clip(idx, 0, self.n_elem - 1)
+
 
 @dataclass(frozen=True)
 class TensorMesh2D:

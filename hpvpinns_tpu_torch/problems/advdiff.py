@@ -18,6 +18,8 @@ input feature and time slabs.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -36,7 +38,7 @@ from hpvpinns_tpu_torch.problems.base import (
     make_net_init,
     resolve_device,
 )
-from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
 
@@ -474,10 +476,16 @@ def build(
         el = data["elements"]
         return residual_at(params, el, data["basis_x"], data["basis_t"]) * el.mask
 
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_2d, mesh, xq, wq, f_fn, (int(ntx.max()), int(ntt.max())), dtype=dtype, device=device))
+
     def enriched_residual_fn(params, enrich: int = 3):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet (ROADMAP.md)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis: hierarchical a-posteriori estimation (see
+        adaptive.element_indicator), on the training fields path.  Returns
+        [E, K+enrich, R+enrich] with the trained block zeroed."""
+        bx_en, bt_en, elems_en, new = enriched(enrich)
+        return residual_at(params, elems_en, bx_en, bt_en) * new[None]
 
     regularized = inverse and cfg.epsilon_reg > 0 and eps_model in ("quadratic", "mlp")
 

@@ -15,6 +15,8 @@ trainable leaves of params["pde"].
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -27,7 +29,7 @@ from hpvpinns_tpu_torch.ops.derivatives import dir_deriv
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_3d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_3d
 from hpvpinns_tpu_torch.problems.base import Problem, make_net_init, resolve_device
-from hpvpinns_tpu_torch.problems.build import build_elements_3d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_3d, build_enriched_3d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
 
@@ -187,21 +189,29 @@ def build(
     def u_of(params):
         return lambda X: mlp_apply(spec, params["net"], X)
 
-    def residual_fn(params, data):
-        """Masked weak residual Res[e, m, k, r]."""
-        el = data["elements"]
+    def residual_at(params, el, basis_x, basis_y, basis_t):
         fields_fn = None if fields is None else (lambda x, y, z, **kw: fields(spec, params["net"], x, y, z, **kw))
         vx, vy = v_of(params)
         e, ex, ey = eps_args(params, el.x, el.y)
-        res = advdiff2d_residual(u_of(params), el, data["basis_x"], data["basis_y"], data["basis_t"], var_form,
-                                 vx, vy, e, fields_fn=fields_fn, epsilon_x=ex, epsilon_y=ey)
-        return res * el.mask
+        return advdiff2d_residual(u_of(params), el, basis_x, basis_y, basis_t, var_form,
+                                  vx, vy, e, fields_fn=fields_fn, epsilon_x=ex, epsilon_y=ey)
+
+    def residual_fn(params, data):
+        """Masked weak residual Res[e, m, k, r]."""
+        el = data["elements"]
+        return residual_at(params, el, data["basis_x"], data["basis_y"], data["basis_t"]) * el.mask
+
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_3d, mesh, xq, wq, f_fn, tuple(int(np.max(n)) for n in (ntx, nty, ntt)), dtype=dtype,
+        device=device))
 
     def enriched_residual_fn(params, enrich: int = 2):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md, queue A item 16)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis: hierarchical a-posteriori estimation on the 3D space-time
+        family, on the training fields path.  Returns [E, M+e, K+e, R+e]
+        with the trained block zeroed."""
+        bx_en, by_en, bt_en, elems_en, new = enriched(enrich)
+        return residual_at(params, elems_en, bx_en, by_en, bt_en) * new[None]
 
     def loss_fn(params, data):
         """lossb_weight lossb + lossv; aux {loss, lossb, lossv} and, when

@@ -158,3 +158,30 @@ def build_elements_3d(
     n_test = (ntx[:, None, None] * nty[None, :, None] * ntz[None, None, :]).reshape(E).astype(np.float64)
     arrays = dict(x=X, y=Y, z=Z, jac_x=jx, jac_y=jy, jac_z=jz, f_proj=f_proj * mask, mask=mask, n_test=n_test)
     return Elements3D(**{k: _tensor(v, dtype, device) for k, v in arrays.items()})
+
+
+def build_enriched_2d(mesh: TensorMesh2D, xq: np.ndarray, wq: np.ndarray, f_fn, n_trained: tuple, enrich: int,
+                      dtype, device=None):
+    """The test space `enrich` modes beyond a 2D tensor basis of per-axis
+    orders `n_trained` = (K, R), for the hierarchical indicator: (basis_x,
+    basis_y, elements at the full orders, and a [R+e, K+e] mask that zeroes
+    the trained (k, r) block)."""
+    n_x, n_y = (n + enrich for n in n_trained)
+    elems = build_elements_2d(mesh, xq, wq, xq, wq, f_fn, np.full(mesh.axis_x.n_elem, n_x),
+                              np.full(mesh.axis_y.n_elem, n_y), dtype, device)
+    new = torch.ones((n_y, n_x), dtype=dtype, device=device)
+    new[: n_trained[1], : n_trained[0]] = 0.0
+    return (make_weighted_basis(n_x, xq, wq, dtype, device), make_weighted_basis(n_y, xq, wq, dtype, device),
+            elems, new)
+
+
+def build_enriched_3d(mesh: TensorMesh3D, xq: np.ndarray, wq: np.ndarray, f_fn, n_trained: tuple, enrich: int,
+                      dtype, device=None):
+    """build_enriched_2d on a 3D tensor mesh, `n_trained` = (K, R, M) the
+    x, y and z orders: (basis_x, basis_y, basis_z, elements, a [M+e, R+e,
+    K+e] mask)."""
+    n_x, n_y, n_z = (n + enrich for n in n_trained)
+    elems = build_elements_3d(mesh, xq, wq, f_fn, n_x, n_y, n_z, dtype, device)
+    new = torch.ones((n_z, n_y, n_x), dtype=dtype, device=device)
+    new[: n_trained[2], : n_trained[1], : n_trained[0]] = 0.0
+    return tuple(make_weighted_basis(n, xq, wq, dtype, device) for n in (n_x, n_y, n_z)) + (elems, new)

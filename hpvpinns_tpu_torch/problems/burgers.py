@@ -17,6 +17,8 @@ a ratio of two Hermite sums after the substitution eta = x - 2 sqrt(nu t) z.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,7 +36,7 @@ from hpvpinns_tpu_torch.problems.base import (
     make_net_init,
     resolve_device,
 )
-from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
 
@@ -238,11 +240,16 @@ def build(
         el = data["elements"]
         return weak_residual(params, el, data["basis_x"], data["basis_t"]) * el.mask
 
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_2d, mesh, xq, wq, None, (int(ntx.max()), int(ntt.max())), dtype=dtype, device=device))
+
     def enriched_residual_fn(params, enrich: int = 3):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md, queue A item 16)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis: hierarchical a-posteriori estimation for the nonlinear family
+        (see adaptive.element_indicator), on the training fields path.
+        Returns [E, K+enrich, R+enrich] with the trained block zeroed."""
+        bx_en, bt_en, elems_en, new = enriched(enrich)
+        return weak_residual(params, elems_en, bx_en, bt_en) * new[None]
 
     def strong_res(params, Xr):
         """Pointwise u_t + u u_x - nu u_xx through the full ansatz (the JVP

@@ -16,6 +16,8 @@ estimate from a fitted network.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -27,7 +29,7 @@ from hpvpinns_tpu_torch.ops.assembly import helmholtz2d_residual, variational_lo
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
 from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
-from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.problems.poisson2d import boundary_points  # the same layout: n_bound LHS points per edge
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box
@@ -177,11 +179,16 @@ def build(
                                    var_form, fields_fn)
         return res * el.mask
 
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_2d, mesh, xq, wq, f_rh, (int(ntx.max()), int(nty.max())), dtype=dtype, device=device))
+
     def enriched_residual_fn(params, enrich: int = 3):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md, queue A item 16)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis (hierarchical a-posteriori estimation; see
+        adaptive.element_indicator).  Returns [E, K+enrich, R+enrich] with
+        the trained block zeroed."""
+        bx_en, by_en, elems_en, new = enriched(enrich)
+        return helmholtz2d_residual(make_u_fn(params), elems_en, bx_en, by_en, k_sq_of(params), var_form) * new[None]
 
     def loss_fn(params, data):
         """lossb_weight (lossb + losss) + lossv, losss the sensor misfit of

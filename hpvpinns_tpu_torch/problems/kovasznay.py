@@ -20,6 +20,7 @@ lift and envelope) is torch operations on device tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -31,7 +32,7 @@ from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import ns_residual, variational_loss
 from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
-from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
 
@@ -222,11 +223,17 @@ def build(cfg: KovasznayConfig, rng: np.random.Generator | None = None, *, devic
         continuity): the GN residual block (sum(r^2) == loss)."""
         return weighted(weak_residual(params, data)) * data["elements"].mask[:, None]
 
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_2d, mesh, xq, wq, None, (int(ntx.max()), int(nty.max())), dtype=dtype, device=device))
+
     def enriched_residual_fn(params, enrich: int = 3):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md, queue A item 16)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis (hierarchical a-posteriori indicator, the scalar families'
+        construction; see adaptive.element_indicator).  Returns
+        [E, 3, K+enrich, R+enrich] with the trained block zeroed."""
+        bx_en, by_en, elems_en, new = enriched(enrich)
+        res = ns_residual(make_w_fn(params), elems_en, bx_en, by_en, var_form, nu_of(params))
+        return weighted(res) * new[None, None]
 
     def loss_fn(params, data):
         """lossb_weight lossb + lossv (+ p_anchor_weight lossa without

@@ -141,11 +141,23 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
         loss = cfg.lossb_weight * lossb + lossv
         return loss, {"loss": loss, "lossb": lossb, "lossv": lossv}
 
+    _enriched_cache = {}
+
     def enriched_residual_fn(params, enrich: int = 4):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md)"
-        )
+        """Weak residual against the next `enrich` test modes beyond the
+        training basis (hierarchical a-posteriori estimation): the trained
+        residual is near-orthogonal to the training modes, so under-resolution
+        shows up in the first untrained modes.  Returns [E, enrich].  The
+        fields come from the JVP engine, as the JAX package's come from
+        generic AD."""
+        n_max = int(n_per_elem.max())
+        key = n_max + enrich
+        if key not in _enriched_cache:
+            basis_en = make_weighted_basis(key, xq, wq, dtype, device)
+            elems_en = build_elements_1d(mesh, xq, wq, f_rh, np.full(mesh.n_elem, key), dtype, device)
+            _enriched_cache[key] = (basis_en, elems_en)
+        basis_en, elems_en = _enriched_cache[key]
+        return poisson1d_residual(make_u_fn(params), elems_en, basis_en, cfg.var_form)[:, n_max:]
 
     xt = np.arange(-1.0, 1.0 + 0.001, 0.001)[:, None]  # Poisson-1D.py:315-316
     return Problem(

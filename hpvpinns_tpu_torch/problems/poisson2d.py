@@ -10,6 +10,7 @@ Counterpart of hpvpinns_tpu/problems/poisson2d.py.  Problem of record
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -23,7 +24,7 @@ from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
 from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
-from hpvpinns_tpu_torch.problems.build import build_elements_2d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
 
@@ -217,11 +218,16 @@ def build(
         aux["loss"] = loss
         return loss, aux
 
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_2d, mesh, xq, wq, f_rh, (int(ntx.max()), int(nty.max())), dtype=dtype, device=device))
+
     def enriched_residual_fn(params, enrich: int = 3):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis (either index beyond it): hierarchical a-posteriori estimation,
+        the 2D twin of poisson1d's (see adaptive.element_indicator).
+        Returns [E, K+enrich, R+enrich] with the trained block zeroed."""
+        bx_en, by_en, elems_en, new = enriched(enrich)
+        return poisson2d_residual(make_u_fn(params), elems_en, bx_en, by_en, cfg.var_form) * new[None]
 
     # Dense test grid, 201 x 201 at delta 0.01 (Poisson-2D.py:418-426).
     xt = np.arange(cfg.domain_x[0], cfg.domain_x[1] + 0.01, 0.01)

@@ -22,6 +22,7 @@ operations on device tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -33,7 +34,7 @@ from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh3D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import ns_unsteady_residual, variational_loss
 from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
-from hpvpinns_tpu_torch.problems.build import build_elements_3d, make_weighted_basis
+from hpvpinns_tpu_torch.problems.build import build_elements_3d, build_enriched_3d, make_weighted_basis
 from hpvpinns_tpu_torch.problems.kovasznay import coons_lift
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
@@ -318,11 +319,17 @@ def build(
         y-momentum, continuity): the GN residual block (sum(r^2) == loss)."""
         return weighted(weak_residual(params, data)) * data["elements"].mask[:, None]
 
+    enriched = functools.lru_cache(maxsize=None)(functools.partial(
+        build_enriched_3d, mesh, xq, wq, None, (nx_max, ny_max, nt_max), dtype=dtype, device=device))
+
     def enriched_residual_fn(params, enrich: int = 3):
-        raise NotImplementedError(
-            "enriched_residual_fn (a-posteriori estimation for adaptive.py) is not ported yet "
-            "(ROADMAP.md, queue A item 16)"
-        )
+        """Weak residual against the tensor test modes not in the training
+        basis (hierarchical indicator; see adaptive.element_indicator); the
+        p_test_enrich mask is the training basis's and is not applied.
+        Returns [E, 3, M+e, K+e, R+e] with the trained block zeroed."""
+        bx_en, by_en, bt_en, elems_en, new = enriched(enrich)
+        res = ns_unsteady_residual(make_w_fn(params), elems_en, bx_en, by_en, bt_en, var_form, nu_of(params))
+        return weighted(res) * new[None, None]
 
     def loss_fn(params, data):
         """lossb_weight lossb + lossv (+ p_anchor_weight lossa without wall

@@ -90,13 +90,28 @@ def _copy_params(params, as_parameters: bool):
     return map_params(copy, params)
 
 
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream() -> "torch.cuda.Stream":
+    """The one side stream of the current device that every capture's
+    warm-up runs on.  cuBLAS keeps a workspace for each stream it has run
+    on until the process ends, so a new stream for each capture kept ~48 MiB
+    more allocated with every capture (~288 MiB a round of adaptive_solve
+    on an H100 80GB HBM3; PERF.md §6)."""
+    device = torch.cuda.current_device()
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream()
+    return _SIDE_STREAMS[device]
+
+
 def _capture(fn: Callable, debug: bool = False):
-    """Run `fn` twice on a side stream (the kernels build and set their
+    """Run `fn` twice on the side stream (the kernels build and set their
     attributes, lazily created state appears), then capture one call of it
     in a CUDA graph: (graph, what the captured call returned).  The warm-up
     calls run; the capture runs nothing.  `debug` keeps the captured graph
     (not only its instantiation) for `debug_dump`."""
-    side = torch.cuda.Stream()
+    side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):

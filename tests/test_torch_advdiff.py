@@ -201,5 +201,5 @@ def test_build_errors_match_jax():
     prob = tv.build(configs(epsilon_model="quadratic", var_form=2)[1], device="cpu")
     with pytest.raises(ValueError, match="scalar epsilon"):
         prob.loss_fn(prob.init_params(torch.Generator().manual_seed(0)), prob.data)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prob.extras["enriched_residual_fn"](None)
+    with pytest.raises(ValueError, match="scalar epsilon"):  # the enriched residual shares the weak form
+        prob.extras["enriched_residual_fn"](prob.init_params(torch.Generator().manual_seed(0)))

@@ -94,8 +94,8 @@ def test_problem_data_matches_jax():
     params = tprob.init_params(torch.Generator().manual_seed(0))
     assert params["pde"]["epsilon"].dim() == 0 and tuple(params["pde"]["velocity"].shape) == (2,)
     assert tprob.extras["eps_domain_mean"](params) == 1.0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tprob.extras["enriched_residual_fn"](params)
+    res = tprob.extras["enriched_residual_fn"](params)  # enrich 2 by default; parity in test_torch_adaptive.py
+    assert res.shape[0] == 2 and res.dim() == 4 and bool(torch.isfinite(res).all())
 
 
 CASES = {

@@ -125,8 +125,8 @@ def test_problem_data_matches_jax():
     np.testing.assert_allclose(tprob.test_values, jprob.test_values, rtol=1e-12, atol=1e-14)
     assert sorted(tprob.extras) == sorted(jprob.extras)  # reg_resvec_fn too, since the GN phase is ported
     assert tprob.extras["mesh"].shape == (3, 2) and tprob.extras["test_grid_shape"] == (51, 256)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tprob.extras["enriched_residual_fn"](tprob.init_params(torch.Generator().manual_seed(0)))
+    res = tprob.extras["enriched_residual_fn"](tprob.init_params(torch.Generator().manual_seed(0)))
+    assert res.shape[0] == 6 and res.dim() == 3 and bool(torch.isfinite(res).all())  # parity: test_torch_adaptive.py
 
 
 def test_time_slab_without_a_lift_raises():

@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither JAX, optax, orbax nor the JAX package: the
-machine with the GPU has no JAX.  Checked in a fresh interpreter, since this
+"""The PyTorch port imports neither JAX, optax, orbax nor the JAX package (nor
+matplotlib, which sweep.plot_sweep imports when it is called): the
+machine with the GPU has none of them.  Checked in a fresh interpreter, since this
 test process has JAX loaded already (tests/conftest.py)."""
 
 import subprocess
@@ -23,11 +24,11 @@ def test_port_imports_no_jax():
         "for name in names: importlib.import_module(name)\n"
         "new = ('problems.advdiff', 'ops.fields', 'problems.poisson3d', 'problems.advdiff2d', 'training.lbfgs',\n"
         "       'problems.helmholtz', 'problems.burgers', 'training.gauss_newton', 'training.hybrid',\n"
-        "       'training.checkpoint', 'problems.kovasznay', 'problems.taylorgreen')\n"
+        "       'training.checkpoint', 'problems.kovasznay', 'problems.taylorgreen', 'adaptive', 'sweep', 'galerkin')\n"
         "assert all(hasattr(hpvpinns_tpu_torch, n) for n in ('KovasznayConfig', 'TaylorGreenConfig', 'kovasznay_quality',\n"
         "           'kovasznay_precision', 'taylorgreen_quality', 'taylorgreen_precision', 'per_element_rel_l2'))\n"
         "assert all('hpvpinns_tpu_torch.' + n in names for n in new), names\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'hpvpinns_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'hpvpinns_tpu', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -153,8 +153,8 @@ def test_problem_data_matches_jax(noise):
         assert tprob.extras[key] == jprob.extras[key], key
     params = tprob.init_params(torch.Generator().manual_seed(0))
     assert params["pde"]["nu"].dim() == 0 and float(params["pde"]["nu"]) == 0.1
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tprob.extras["enriched_residual_fn"](params)
+    res = tprob.extras["enriched_residual_fn"](params)  # parity: test_torch_adaptive.py
+    assert res.shape[:2] == (tprob.extras["mesh"].n_elem, 3) and res.dim() == 4 and bool(torch.isfinite(res).all())
     with pytest.raises(ValueError, match="hard_bc requires bc_pressure=True"):
         tkov.build(configs(hard_bc=True, bc_pressure=False)[1], device="cpu")
     jb, tb = build_both()

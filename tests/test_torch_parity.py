@@ -1,10 +1,13 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 same numpy parameters for both packages, and the comparison of a problem's
-loss, aux and gradients between the JAX package and the PyTorch port; and
-the test that the comparison's leaf order is that of both packages."""
+loss, aux and gradients between the JAX package and the PyTorch port; one
+tiny configuration per family with builders that start from a JAX draw
+(the adaptive and Galerkin tests); and the test that the comparison's leaf
+order is that of both packages."""
 
 import contextlib
 import dataclasses
+import functools
 
 import pytest
 
@@ -138,6 +141,83 @@ def velocity_field(x):
 def epsilon_field(x):
     """A true diffusion field eps(x) for manufactured AdvDiff problems."""
     return 0.03 + 0.01 * x + 0.02 * x * x
+
+
+# One tiny float64 configuration per family (the keyword arguments are
+# those of both packages' config classes), plus hard BC on Poisson-2D.
+FAMILIES = {
+    "poisson1d": ("Poisson1DConfig", dict(grid=(-1.0, -0.1, 0.1, 1.0), n_elements=3, n_quad=12, n_test=5,
+                                          layers=(1, 8, 8, 1))),
+    "poisson2d": ("Poisson2DConfig", dict(n_elements_x=2, n_elements_y=2, n_quad=6, n_test_x=3, n_test_y=3,
+                                          layers=(2, 8, 8, 1))),
+    "poisson2d_hard_bc": ("Poisson2DConfig", dict(n_elements_x=2, n_elements_y=2, n_quad=6, n_test_x=3,
+                                                  n_test_y=3, layers=(2, 8, 8, 1), hard_bc=True)),
+    "helmholtz2d": ("Helmholtz2DConfig", dict(grid_x=(-1.0, 0.25, 1.0), n_elements_y=1, n_quad=5, n_test_x=3,
+                                              n_test_y=3, layers=(2, 6, 6, 1), n_bound=6, n_sensors=7,
+                                              inverse=True)),
+    "advdiff": ("AdvDiffConfig", dict(n_elements_x=2, n_quad=6, n_test_x=3, n_test_t=3, layers=(2, 6, 6, 1),
+                                      t_final=0.3, fourier_terms=50, n_bound=10)),
+    "advdiff2d": ("AdvDiff2DConfig", dict(grid_x=(-1.0, 0.2, 1.0), n_quad=4, n_test_x=3, n_test_y=3, n_test_t=3,
+                                          layers=(3, 6, 6, 1))),
+    "burgers": ("BurgersConfig", dict(grid_x=(-1.0, -0.2, 0.3, 1.0), n_elements_t=1, n_quad=5, n_test_x=3,
+                                      n_test_t=3, layers=(2, 6, 6, 1), n_bound=6, t_final=0.5)),
+    "kovasznay": ("KovasznayConfig", dict(n_elements_x=2, layers=(2, 8, 8, 3), n_quad=5, n_test_x=3, n_test_y=3,
+                                          n_bound=5, n_sensors=6, inverse=True)),
+    "taylorgreen": ("TaylorGreenConfig", dict(n_elements_x=2, layers=(3, 8, 8, 3), n_quad=4, n_test_x=2,
+                                              n_test_y=2, n_test_t=2, n_bound=5, n_sensors=6, n_anchor=4,
+                                              n_zero_mean_t=3)),
+}
+
+
+def family_configs(family, train=None, **kw):
+    """(JAX config, port config) of `family`; `train` the keyword arguments
+    of both TrainConfigs (default: the config's own)."""
+    name, base = FAMILIES[family]
+    kw = {**base, "dtype": "float64", **kw}
+    if train is None:
+        return getattr(jv, name)(**kw), getattr(tv, name)(**kw)
+    return getattr(jv, name)(**kw, train=jv.TrainConfig(**train)), getattr(tv, name)(**kw, train=tv.TrainConfig(**train))
+
+
+@functools.lru_cache(maxsize=None)
+def family_case(family):
+    """(JAX problem, JAX params, port problem, port params): the port's
+    params are the JAX draw at key 0, converted."""
+    jcfg, tcfg = family_configs(family)
+    jprob = jv.build(jcfg)
+    jparams = jprob.init_params(jax.random.key(0))
+    tprob = tv.build(tcfg, device="cpu")
+    tparams = tv.params_from_jax(jax.tree.map(np.asarray, jparams), dtype=torch.float64)
+    return jprob, jparams, tprob, tparams
+
+
+def draw_of(jcfg):
+    """JAX's draw at the train seed, its biases drawn too (numpy, seed 0):
+    from zero biases on these odd-symmetric problems the gradient of the
+    first layer's biases is zero up to rounding (~1e-17), and Adam's
+    normalized step turns that rounding into a full step of either sign."""
+    draw = jax.tree.map(np.asarray, jv.build(jcfg).init_params(jax.random.key(jcfg.train.seed)))
+    rng = np.random.default_rng(0)
+    for layer in draw["net"]:
+        layer["b"] = layer["b"] + 0.1 * rng.standard_normal(layer["b"].shape)
+    return draw
+
+
+def draw_builds(draw):
+    """(JAX build_fn, port build_fn on the CPU) whose init_params give `draw`."""
+    jbuild = jv.build
+
+    def jax_build(cfg):
+        prob = jbuild(cfg)
+        prob.init_params = lambda key: jax.tree.map(jax.numpy.asarray, draw)
+        return prob
+
+    def port_build(cfg):
+        prob = tv.build(cfg, device="cpu")
+        prob.init_params = lambda generator: tv.params_from_jax(draw, dtype=torch.float64)
+        return prob
+
+    return jax_build, port_build
 
 
 def test_named_leaves_follow_both_packages_orders():

@@ -171,8 +171,8 @@ def test_problem_data_matches_jax():
         assert tprob.extras[key] == jprob.extras[key], key
     params = tprob.init_params(torch.Generator().manual_seed(0))
     assert params["pde"]["nu"].dim() == 0 and params["pde"]["nu"].item() == 0.3
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tprob.extras["enriched_residual_fn"](params)
+    res = tprob.extras["enriched_residual_fn"](params)  # parity: test_torch_adaptive.py
+    assert res.shape[:2] == (tprob.extras["mesh"].n_elem, 3) and res.dim() == 5 and bool(torch.isfinite(res).all())
     with pytest.raises(ValueError, match="per-element test orders"):
         ttg.build(configs(p_test_enrich=1, n_test_x_per_elem=(2, 2))[1], device="cpu")
     with pytest.raises(ValueError, match="hard_bc requires bc_pressure=True"):

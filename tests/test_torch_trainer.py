@@ -168,16 +168,19 @@ def test_build_takes_a_manufactured_solution(dim):
 
 def test_unported_build_arguments_raise():
     """build's lift_fn (Poisson-2D) and hard_bc (Poisson-1D) arguments build
-    the hard-BC ansatz; what still raises is enriched_residual_fn, which
-    waits for adaptive.py."""
+    the hard-BC ansatz, and its enriched residual (adaptive.py's indicator)
+    runs on it: [E, K+3, R+3] and [E, 4], the trained block zero."""
     probs = (tp2d.build(tv.Poisson2DConfig(**SMALL), None, None, None, lambda X: X[:, :1], device="cpu"),
              tp1d.build(tv.Poisson1DConfig(layers=(1, 4, 1)), None, None, True, device="cpu"))
     for prob in probs:
         assert prob.apply_override is not None
         params = prob.init_params(torch.Generator().manual_seed(0))
         assert torch.isfinite(prob.loss_fn(params, prob.data)[0])
-        with pytest.raises(NotImplementedError, match="not ported"):
-            prob.extras["enriched_residual_fn"](params)
+        res = prob.extras["enriched_residual_fn"](params)
+        assert bool(torch.isfinite(res).all())
+    assert probs[1].extras["enriched_residual_fn"](params).shape == (1, 4)
+    res2d = probs[0].extras["enriched_residual_fn"](probs[0].init_params(torch.Generator().manual_seed(0)))
+    assert res2d.shape == (4, 6, 6) and not res2d[:, :3, :3].any() and res2d.abs().sum() > 0
 
 
 def test_cpu_chunk_is_the_stepwise_chunk(jax_run):
