@@ -1,11 +1,12 @@
 """Build the package's CUDA C++ sources at first use.
 
 `nvcc` compiles each library from `hpvpinns_tpu_torch/csrc/` into a shared
-library with a plain C interface, for sm_90a, which `ctypes` loads.  The
-output goes to `hpvpinns_tpu_torch/_build/` under a name keyed by a hash of
-the sources and flags, so a changed source rebuilds and an unchanged one is
-reused.  A failed build raises with the compiler's output; there is no
-fallback.
+library with a plain C interface, for sm_90a, which `ctypes` loads: one
+`nvcc -c` per source, all started together, then one link.  The output goes
+to `hpvpinns_tpu_torch/_build/` under a name keyed by a hash of the sources,
+the headers of csrc/ and the flags, so a changed source rebuilds and an
+unchanged one is reused.  A failed build raises with the compiler's output;
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -28,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -51,12 +53,18 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: install the CUDA toolkit or set CUDA_HOME")
 
 
+def _run(cmd) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+
+
 def build_library(name: str, sources) -> BuiltLibrary:
-    """Compile `sources` (paths under csrc/) into `_build/<name>-<hash>.so`
-    unless that file exists, then load it."""
+    """Compile `sources` (paths under csrc/, which may include its .cuh
+    headers) into `_build/<name>-<hash>.so` unless that file exists, then
+    load it."""
     sources = [Path(s) for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -65,17 +73,27 @@ def build_library(name: str, sources) -> BuiltLibrary:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o") for src in sources]
+        nvcc = find_nvcc()
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            procs = list(pool.map(_run, cmds))
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(p.returncode == 0 for p in procs):
+            cmds.append(link)
+            procs.append(_run(link))
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, proc in zip(cmds, procs):
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+        log_path.write_text("".join(p.stdout + p.stderr for p in procs))
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     log = log_path.read_text() if log_path.exists() else ""
     return BuiltLibrary(lib=ctypes.CDLL(str(so)), path=so, build_seconds=seconds, log=log)

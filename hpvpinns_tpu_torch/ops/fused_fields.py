@@ -8,10 +8,12 @@ csrc/fused_fields.cu on a CUDA tensor, and the plain PyTorch version
 `fields_flat_reference` on a CPU tensor; on a CUDA tensor the kernel
 launches or the call raises, it never falls back.  The kernels take float32,
 sin/tanh, a scalar output, n_dirs 1-3, up to MAX_LAYERS = 16 layers and layer
-widths up to FWD_MAX_WIDTH = 256, and raise above.  Each has two forms: B1
-resident or staged, chosen by `fwd_plan`; B2 resident (everything in shared
-memory, widths up to BWD_RESIDENT_WIDTH = 64) or wide (its stash in device
-memory), chosen by `bwd_plan`.  Both plans are functions of the shapes alone.
+widths up to FWD_MAX_WIDTH = 256, and raise above.  B1 has two forms,
+resident or staged, chosen by `fwd_plan`; B2 three: resident (everything in
+shared memory, widths up to BWD_RESIDENT_WIDTH = 64), wide (one kernel, its
+stash in device memory) and layered (per-layer GEMMs over all points,
+csrc/fused_fields_bwd_layered.cu), chosen by `bwd_plan`.  Both plans are
+functions of the shapes alone.
 
 The gradient: for second=False it is autograd through the plain Taylor
 propagation (ops/taylor.py::mlp_fields), which is what the JAX package does
@@ -113,15 +115,16 @@ class CudaLibrary:
     _smem_limit, _max_width and _max_layers, and its limits must equal
     `max_width` / MAX_LAYERS."""
 
-    def __init__(self, name: str, signatures: dict, smem_bytes_args: list, max_width: int):
+    def __init__(self, name: str, signatures: dict, smem_bytes_args: list, max_width: int, sources=None):
         self.name, self._signatures, self._smem_bytes_args = name, signatures, smem_bytes_args
         self.max_width = max_width
+        self.sources = sources or (f"{name}.cu",)  # under csrc/, one nvcc each
         self.built: BuiltLibrary | None = None
         self._smem_limit = {}
 
     def load(self) -> BuiltLibrary:
         if self.built is None:
-            built = build_library(self.name, [CSRC_DIR / f"{self.name}.cu"])
+            built = build_library(self.name, [CSRC_DIR / src for src in self.sources])
             lib, i32, pre = built.lib, ctypes.c_int, f"hp_{self.name}"
             signatures = {
                 **{fn: (args if isinstance(args, tuple) else (args, i32)) for fn, args in self._signatures.items()},
@@ -190,11 +193,14 @@ _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_wide_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_wide_scratch_bytes": ([_I32] * 4, _I64),
+    "hp_fused_fields_bwd_layered_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_layered_replay_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_layered_scratch_bytes": ([_I32] * 4, _I64),
     "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_block_points": [],
     "hp_fused_fields_bwd_point_stride": [],
     "hp_fused_fields_bwd_resident_max_width": [],
-}, [_I32] * 4, FWD_MAX_WIDTH)
+}, [_I32] * 4, FWD_MAX_WIDTH, ("fused_fields_bwd.cu", "fused_fields_bwd_layered.cu"))
 
 
 # B1's launch shape.  FWD_STAGED_POINTS / FWD_STAGED_GROUPS / FWD_TILE must
@@ -415,16 +421,25 @@ BWD_TILE_POINTS = 16
 BWD_POINT_STRIDE = 20
 BWD_BLOCKS = 512  # T grows only above this many blocks: four per SM of an H100
 BWD_MAX_TILES = 8
-BWD_FORMS = ("resident", "wide")
+BWD_FORMS = ("resident", "wide", "layered")
+# The layered form (csrc/fused_fields_bwd_layered.cu): its GEMM tiles (points x
+# neurons x k of the replay and gh; gW's square tile) and its point slices,
+# each slice a whole number of BWD_TILE_POINTS tiles, doubled until there are
+# at most LAYERED_ROWS slices (one partial row each).
+LAYERED_GEMM_TILE = (64, 64, 8)
+LAYERED_GW_TILE = 128
+LAYERED_ROWS = 128
+LAYERED_MAX_INPUTS = 3  # widths[0]: x, y, z at most
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """B2's launch shape for a network and P points: the form (resident or
-    wide), tiles_per_block tiles of BWD_TILE_POINTS points per block,
-    n_blocks blocks, each writing one partial row of row_pitch floats
-    (n_params rounded up to a multiple of 4), the shared memory one resident
-    block needs (bwd_smem_bytes, whatever the form) and the wide form's
+    """B2's launch shape for a network and P points: the form (resident,
+    wide or layered), tiles_per_block tiles of BWD_TILE_POINTS points per
+    block (the layered form: per slice), n_blocks blocks (slices), each
+    writing one partial row of row_pitch floats (n_params rounded up to a
+    multiple of 4), the shared memory one resident block needs
+    (bwd_smem_bytes, whatever the form) and the wide or layered form's
     scratch in device memory (0 for the resident form)."""
 
     tiles_per_block: int
@@ -458,6 +473,30 @@ def bwd_wide_scratch_bytes(layers, n_dirs: int, n_blocks: int) -> int:
     return 4 * n_blocks * (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_TILE_POINTS
 
 
+def bwd_layered_scratch_bytes(layers, n_dirs: int, P: int) -> int:
+    """Device memory of the layered form's scratch
+    (hp_fused_fields_bwd_layered_scratch_bytes): the stash of every hidden
+    layer, (1 + 2 n_dirs) x P x pitch floats each, pitch = the widest hidden
+    layer rounded up to a multiple of 4 (gz takes the stash's place on the
+    way down)."""
+    return 4 * (len(layers) - 2) * (1 + 2 * n_dirs) * P * (-(-max(layers[1:-1]) // 4) * 4)
+
+
+def layered_slice_tiles(P: int) -> int:
+    """Tiles of BWD_TILE_POINTS points per slice of the layered form: the
+    fewest (a power of two) that give at most LAYERED_ROWS slices."""
+    n_tiles, T = -(-P // BWD_TILE_POINTS), 1
+    while -(-n_tiles // T) > LAYERED_ROWS:
+        T *= 2
+    return T
+
+
+def bwd_layered_takes(layers) -> bool:
+    """Whether the layered form takes the network: a hidden layer and at
+    most LAYERED_MAX_INPUTS inputs."""
+    return len(layers) >= 3 and layers[0] <= LAYERED_MAX_INPUTS
+
+
 def bwd_resident_fits(layers, n_dirs: int) -> bool:
     """Whether the resident form takes the network: no layer wider than
     BWD_RESIDENT_WIDTH and one block's shared memory within an H100's
@@ -482,22 +521,32 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
             f"B2's resident form takes widths <= {BWD_RESIDENT_WIDTH} and <= {SMEM_PER_BLOCK} B of shared memory; "
             f"layers {tuple(layers)} at n_dirs {n_dirs} need {bwd_smem_bytes(layers, n_dirs)} B"
         )
+    if form == "layered" and not bwd_layered_takes(layers):
+        raise ValueError(f"B2's layered form takes a hidden layer and <= {LAYERED_MAX_INPUTS} inputs; "
+                         f"got layers {tuple(layers)}")
     n_tiles = -(-P // BWD_TILE_POINTS)
-    T = tiles_per_block or max(1, min(BWD_MAX_TILES, n_tiles // BWD_BLOCKS))
+    if form == "layered":
+        T = tiles_per_block or layered_slice_tiles(P)
+    else:
+        T = tiles_per_block or max(1, min(BWD_MAX_TILES, n_tiles // BWD_BLOCKS))
     n_blocks = -(-n_tiles // T)
-    scratch = bwd_wide_scratch_bytes(layers, n_dirs, n_blocks) if form == "wide" else 0
+    scratch = {"resident": 0, "wide": bwd_wide_scratch_bytes(layers, n_dirs, n_blocks),
+               "layered": bwd_layered_scratch_bytes(layers, n_dirs, P) if form == "layered" else 0}[form]
     return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs), form, scratch)
 
 
 class FusedFieldsBwdKernel(KernelWrapper):
     """One form of B2 (`form`): the CUDA kernel
-    csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident) or
-    ::fused_fields_bwd_wide_kernel (wide), built at first use.  A call
-    returns the per-block partial sums [n_blocks, row_pitch] of the weight
-    gradients (packed as pack_params packs the weights, then zero pad
-    columns; bwd_plan gives the shape) and gX (or None).  The resident form
-    raises for a network it cannot hold; the wide form takes any (the tests
-    and chip_smoke.py force it at resident widths)."""
+    csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident),
+    ::fused_fields_bwd_wide_kernel (wide), or the launches of
+    csrc/fused_fields_bwd_layered.cu (layered: one C call, one count), built
+    at first use.  A call returns the per-block (per-slice) partial sums
+    [n_blocks, row_pitch] of the weight gradients (packed as pack_params
+    packs the weights, then zero pad columns; bwd_plan gives the shape) and
+    gX (or None).  The resident form raises for a network it cannot hold,
+    the layered form for one without a hidden layer or with more than three
+    inputs; the wide form takes any (the tests and chip_smoke.py force it at
+    resident widths)."""
 
     def __init__(self, library: CudaLibrary, fn: str, form: str):
         super().__init__(library, fn)
@@ -555,6 +604,9 @@ class FusedFieldsBwdKernel(KernelWrapper):
 
 fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32", "resident")
 fused_fields_bwd_wide_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_wide_f32", "wide")
+fused_fields_bwd_layered_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_layered_f32", "layered")
+_BWD_KERNELS = {k.form: k for k in (fused_fields_bwd_kernel, fused_fields_bwd_wide_kernel,
+                                    fused_fields_bwd_layered_kernel)}
 
 
 # Must equal kSumThreads / kMaxSumTiles in csrc/fused_fields_bwd.cu.
@@ -628,11 +680,15 @@ class BlockSumKernel(KernelWrapper):
 block_sum_kernel = BlockSumKernel(_BWD_LIBRARY, "hp_block_sum_f32")
 
 
-def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True):
-    """(gparams, gX) of sum(g * fields_flat(..., second=True)) on the card:
-    B2 in the form bwd_plan gives, then the block sum."""
-    kernel = fused_fields_bwd_kernel if bwd_resident_fits(spec.layers, n_dirs) else fused_fields_bwd_wide_kernel
-    partials, gX = kernel(spec, params, X, g, n_dirs, want_x)
+def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
+                     form: str | None = None):
+    """(gparams, gX) of sum(g * fields_flat(..., second=True)): on a CUDA
+    tensor B2 in the form bwd_plan gives (`form` forces one), then the block
+    sum; on a CPU tensor the plain version, whatever the form."""
+    plan = bwd_plan(spec.layers, n_dirs, X.shape[0], form=form)
+    if not X.is_cuda:
+        return fields_flat_bwd_reference(spec, params, X, g, n_dirs, want_x)
+    partials, gX = _BWD_KERNELS[plan.form](spec, params, X, g, n_dirs, want_x)
     return unpack_params(spec, block_sum_kernel(partials)), gX  # the pad columns are left out
 
 
@@ -643,8 +699,7 @@ def _fields_flat_vjp(spec: MLP, n_dirs: int, second: bool, want_x: bool, g: torc
     VJP of the plain Taylor forward (the JAX package's XLA VJP,
     pallas_fields.py:190-196)."""
     if second:
-        bwd = fused_fields_bwd if X.is_cuda else fields_flat_bwd_reference
-        gparams, gX = bwd(spec, _unflatten(flat), X, g.contiguous(), n_dirs, want_x)
+        gparams, gX = fused_fields_bwd(spec, _unflatten(flat), X, g.contiguous(), n_dirs, want_x)
         return ((gX,) if want_x else ()) + tuple(_flatten(gparams))
     with torch.enable_grad():
         Xd = X.detach().requires_grad_(want_x)
