@@ -432,10 +432,12 @@ KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nod
     "fused_fields": ("fused_fields_kernel", "fused_fields_staged_kernel"),
     "fused_fields_bwd": ("fused_fields_bwd_kernel",),
     "fused_fields_bwd_wide": ("fused_fields_bwd_wide_kernel",),
+    "fused_fields_bwd_layered": ("bwd_layered_",),  # its seven kernels, one launch of the wrapper
     "block_sum": ("block_sum_kernel",),
 }
 SECOND_PATH = ("fused_fields", "fused_fields_bwd", "block_sum")  # second derivatives, B2's resident form
 WIDE_PATH = ("fused_fields", "fused_fields_bwd_wide", "block_sum")  # second derivatives, B2's wide form
+LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered", "block_sum")  # second derivatives, B2's layered form
 GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
 
 
@@ -464,7 +466,8 @@ def wrappers() -> dict:
     from hpvpinns_tpu_torch.ops import fused_fields as ff
 
     return {"fused_fields": ff.fused_fields_kernel, "fused_fields_bwd": ff.fused_fields_bwd_kernel,
-            "fused_fields_bwd_wide": ff.fused_fields_bwd_wide_kernel, "block_sum": ff.block_sum_kernel}
+            "fused_fields_bwd_wide": ff.fused_fields_bwd_wide_kernel,
+            "fused_fields_bwd_layered": ff.fused_fields_bwd_layered_kernel, "block_sum": ff.block_sum_kernel}
 
 
 def zero_counts():
@@ -906,7 +909,8 @@ def graph_against_eager(label: str, prob, c, need) -> dict:
     print(f"{label} {c.deriv_mode}: one chunk of {n} Adam steps as CUDA graphs against the eager chunk: params and "
           f"metrics " + ("bit-identical" if same else f"max rel diff {rel:.3e}") + f"; captured step "
           f"{step_nodes['nodes']} nodes, {step_nodes['kernels']} kernels (B1 {step_nodes['fused_fields']}, B2 "
-          f"{step_nodes['fused_fields_bwd']}, wide B2 {step_nodes['fused_fields_bwd_wide']}, block sum "
+          f"{step_nodes['fused_fields_bwd']}, wide B2 {step_nodes['fused_fields_bwd_wide']}, layered B2 "
+          f"{step_nodes['fused_fields_bwd_layered']}, block sum "
           f"{step_nodes['block_sum']}); metrics graph "
           f"{metric_nodes['nodes']} nodes (B1 {metric_nodes['fused_fields']})", flush=True)
     return step_nodes
@@ -1613,14 +1617,14 @@ def wide_b2_kernels(dev) -> dict:
     out = {}
     for name, layers, act, P, nd in WIDE_B2_CASES:
         spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
-        plan = bwd_plan(layers, nd, P)
+        plan = bwd_plan(layers, nd, P, form="wide")
         c_scratch = fused_fields_bwd_wide_kernel.load().lib.hp_fused_fields_bwd_wide_scratch_bytes(
             max(layers[:-1]), len(layers) - 1, nd, plan.n_blocks)
         if plan.form != "wide" or c_scratch != plan.scratch_bytes:
             fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
         zero_counts()
-        got, got_x = fused_fields_bwd(spec, net, X, g, nd)
-        again, again_x = fused_fields_bwd(spec, net, X, g, nd)
+        got, got_x = fused_fields_bwd(spec, net, X, g, nd, form="wide")
+        again, again_x = fused_fields_bwd(spec, net, X, g, nd, form="wide")
         counts = read_counts()
         if counts["fused_fields_bwd_wide"] != 2 or counts["fused_fields_bwd"] != 0 or counts["block_sum"] != 2:
             fail(f"{name}: host launches {counts}")
@@ -1677,8 +1681,169 @@ def wide_b2_kernels(dev) -> dict:
     return out
 
 
+def stash_outputs(st: torch.Tensor, act: str, nd: int) -> torch.Tensor:
+    """A hidden layer's output streams [S, P, w] from its stash [S, P, w]
+    (t or z, z_k, z_kk): csrc/fused_fields_bwd_rules.cuh::outputs in torch."""
+    v, zk, zkk = st[0], st[1:1 + nd], st[1 + nd:]
+    if act == "tanh":
+        a, d1 = v, 1.0 - v * v
+        d2 = -2.0 * v * d1
+    else:
+        a, d1, d2 = torch.sin(v), torch.cos(v), -torch.sin(v)
+    return torch.cat([a[None], d1 * zk, d2 * zk * zk + d1 * zkk])
+
+
+def replay_work(layers, P, nd):
+    """(bytes, FLOPs) of the layered form's replay: X and the network read
+    once, every hidden layer's stash (S floats a neuron and point) written
+    once; 2 FLOPs a multiply-add of the value stream into layer 0 and of
+    every stream through the hidden layers above it."""
+    S = 1 + 2 * nd
+    n_params = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+    macs = layers[0] * layers[1] + S * sum(a * b for a, b in zip(layers[1:-2], layers[2:-1]))
+    return 4 * (P * layers[0] + n_params + S * P * sum(layers[1:-1])), 2 * P * macs
+
+
+def layered_replay(dev) -> dict:
+    """Phase 15 (e): the layered form's replay alone (its seed and one GEMM
+    launch a hidden layer above the first, hp_fused_fields_bwd_layered_replay_f32)
+    at WIDE_B2_CASES: the stash of the last hidden layer, its output streams
+    pushed through the last layer (+ b on u), against the plain fields
+    (fields_flat_reference) at WIDE_FIELD_TOL, and its time by CUDA events
+    over 50 launches beside its share of the bound.  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        _ACTIVATION_CODE,
+        bwd_plan,
+        fields_flat_reference,
+        fused_fields_bwd_layered_kernel,
+        pack_params,
+    )
+
+    lib = fused_fields_bwd_layered_kernel.load().lib
+    rng = np.random.default_rng(151)
+    out = {}
+    for name, layers, act, P, nd in WIDE_B2_CASES:
+        spec, net, X, _ = b2_inputs(layers, act, P, nd, rng, dev)
+        plan = bwd_plan(layers, nd, P, form="layered")
+        S, L, pitch = 1 + 2 * nd, len(layers) - 1, -(-max(layers[1:-1]) // 4) * 4
+        scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=dev)
+        packed, widths = pack_params(spec, net)
+        args = (X.data_ptr(), packed.data_ptr(), widths.ctypes.data, L, P, nd, _ACTIVATION_CODE[act],
+                scratch.data_ptr(), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+
+        def replay():
+            code = lib.hp_fused_fields_bwd_layered_replay_f32(*args)
+            if code != 0:
+                fail(f"{name}: the layered replay did not launch (CUDA error {code})")
+
+        replay()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            h = stash_outputs(scratch.view(L - 1, S, P, pitch)[L - 2, :, :, :layers[-2]], act, nd)
+            got = (h @ net[-1]["W"])[..., 0].T.contiguous()
+            got[:, 0] += net[-1]["b"]
+            want = fields_flat_reference(spec, net, X, nd, True)
+        err = check_close(f"{name} layered replay fields", got, want, **WIDE_FIELD_TOL)
+        us = 1e3 * cuda_ms(replay)
+        bound, by = bound_ms(*replay_work(layers, P, nd))
+        out[name] = {"us": us, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        print(f"phase 15 (e) layered replay {name}: layers {layers} {act} P={P} n_dirs={nd}: the last stash through "
+              f"W_last against the plain fields, max_abs_err {err:.3e} (rtol {WIDE_FIELD_TOL['rtol']} atol "
+              f"{WIDE_FIELD_TOL['atol']}); us/launch (CUDA events, 50 launches) {us:.2f}; the replay's bound "
+              f"{1e3 * bound:.3f} us ({by}), {1e3 * bound / us:.3f} of it", flush=True)
+    return out
+
+
+def taylor_vjp_us(spec, net, X, g, nd) -> float:
+    """µs a call of the "taylor" VJP at these inputs: autograd's backward
+    through ops/taylor.py's forward (cuBLAS), the forward taken once outside
+    the timing.  A yardstick only: the kernel path never calls it."""
+    from hpvpinns_tpu_torch.ops.fused_fields import fields_flat_reference
+
+    with torch.enable_grad():
+        Xd = X.detach().requires_grad_(True)
+        leaves = [t.detach().requires_grad_(True) for layer in net for t in (layer["W"], layer["b"])]
+        prm = [{"W": leaves[i], "b": leaves[i + 1]} for i in range(0, len(leaves), 2)]
+        out = fields_flat_reference(spec, prm, Xd, nd, True)
+        return 1e3 * cuda_ms(lambda: torch.autograd.grad(out, [Xd] + leaves, g, retain_graph=True))
+
+
+def layered_b2(dev) -> dict:
+    """Phase 15 (f): the layered form whole (its launches, then the block sum
+    on its partials) against the plain version at WIDE_GRAD_TOL at
+    WIDE_B2_CASES and, forced, at WIDE_FORCED_CASES; two runs bit-identical;
+    bwd_plan's scratch and partial rows against the kernel's; then the C
+    functions alone by CUDA events over 50 launches in turns v3, layered,
+    layered, v3, beside the bound, the block sum on its partials, the plain
+    version and the "taylor" VJP (taylor_vjp_us).  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        block_sum_kernel,
+        bwd_plan,
+        fields_flat_bwd_reference,
+        fused_fields_bwd,
+        fused_fields_bwd_layered_kernel,
+        fused_fields_bwd_wide_kernel,
+    )
+
+    lib = fused_fields_bwd_layered_kernel.load().lib
+    rng = np.random.default_rng(152)
+    out = {}
+    for name, layers, act, P, nd in WIDE_B2_CASES + [(f"forced {c[0]}", *c[1:]) for c in WIDE_FORCED_CASES]:
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
+        plan = bwd_plan(layers, nd, P, form="layered")
+        c_scratch = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1]), len(layers) - 1, nd, P)
+        if c_scratch != plan.scratch_bytes or plan.n_blocks != -(-P // (16 * plan.tiles_per_block)):
+            fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
+        zero_counts()
+        got, got_x = fused_fields_bwd(spec, net, X, g, nd, form="layered")
+        again, again_x = fused_fields_bwd(spec, net, X, g, nd, form="layered")
+        counts = read_counts()
+        if counts["fused_fields_bwd_layered"] != 2 or counts["block_sum"] != 2 or sum(counts.values()) != 4:
+            fail(f"{name}: host launches {counts}")
+        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} layered gX", got_x, want_x, **WIDE_GRAD_TOL)
+        same = torch.equal(got_x, again_x)
+        for l, (a, b, c) in enumerate(zip(got, want, again)):
+            for k in ("W", "b"):
+                err = max(err, check_close(f"{name} layered g{k}_{l}", a[k], b[k], **WIDE_GRAD_TOL))
+                same = same and torch.equal(a[k], c[k])
+        if not same:
+            fail(f"{name}: two runs of the layered B2 + block sum differ")
+        (la, *lk), partials, _ = fused_fields_bwd_layered_kernel.prepare(spec, net, X, g, nd)
+        (wa, *wk), _, _ = fused_fields_bwd_wide_kernel.prepare(spec, net, X, g, nd)
+        lay = lambda: fused_fields_bwd_layered_kernel.launch(*la)  # noqa: E731
+        v3 = lambda: fused_fields_bwd_wide_kernel.launch(*wa)  # noqa: E731
+        lay()
+        ev = [1e3 * cuda_ms(f) for f in (v3, lay, lay, v3)]
+        lay_dev = device_us(lay)
+        sum_fn = lambda: block_sum_kernel(partials)  # noqa: E731
+        sum_us, sum_dev = 1e3 * cuda_ms(sum_fn), device_us(sum_fn)
+        p_ms = cuda_ms(lambda: fields_flat_bwd_reference(spec, net, X, g, nd))
+        t_us = taylor_vjp_us(spec, net, X, g, nd)
+        bound, by = bound_ms(*bwd_work(layers, P, nd))
+        rows, cols = partials.shape
+        s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
+        us, v3_us = (ev[1] + ev[2]) / 2, (ev[0] + ev[3]) / 2
+        out[name] = {"us": us, "v3_us": v3_us, "turns_us": ev, "device_us": lay_dev, "plain_ms": p_ms,
+                     "taylor_vjp_us": t_us, "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us,
+                     "sum_device_us": sum_dev, "sum_bound_ms": s_bound, "partials": [rows, cols],
+                     "scratch_bytes": plan.scratch_bytes, "layers": list(layers), "P": P, "n_dirs": nd}
+        print(f"phase 15 (f) layered B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {rows} slices of "
+              f"{16 * plan.tiles_per_block} points, scratch {plan.scratch_bytes} B, partials [{rows}, {cols}]; "
+              f"max_abs_err {err:.3e} (rtol {WIDE_GRAD_TOL['rtol']} atol {WIDE_GRAD_TOL['atol']}), two runs "
+              f"bit-identical; C functions us/launch (CUDA events, 50 launches) in turns v3, layered, layered, v3 "
+              f"{ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f} (layered / v3 {us / v3_us:.3f}); layered device us "
+              + (f"{lay_dev:.2f}" if lay_dev else "not measured") + f"; bound {1e3 * bound:.3f} us ({by}), "
+              f"{1e3 * bound / us:.3f} of it; plain ms/call {p_ms:.4f}; taylor VJP us/call {t_us:.2f}; block sum "
+              f"us/call {sum_us:.2f}, device us " + (f"{sum_dev:.2f}" if sum_dev else "not measured")
+              + f", bound {1e3 * s_bound:.3f} us ({s_by})", flush=True)
+    return out
+
+
 def phase15(dev):
-    """B2's wide form.  wide_b2_kernels; then (d) poisson2d_scaled var_form 0
+    """B2's wide and layered forms.  wide_b2_kernels ((a), (b)),
+    layered_replay (e), layered_b2 (f); then (d) poisson2d_scaled var_form 0
     with the (2, 256, 256, 256, 1) network: 50 steps through `train` under
     "pallas" (the loss must fall; B1, the wide B2 and the block sum launch
     and are nodes of the captured step), and graph steps/s of "pallas" and
@@ -1689,6 +1854,8 @@ def phase15(dev):
 
     t0 = time.perf_counter()
     times = wide_b2_kernels(dev)
+    times["layered replay"] = layered_replay(dev)
+    times["layered"] = layered_b2(dev)
     label = "poisson2d_scaled var_form 0 3 x 256"
     c = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1), var_form=0)
     c = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=50, check_every=10, lbfgs_iterations=0,
@@ -2975,12 +3142,13 @@ def main() -> int:
         {"name": "fused_fields_bwd_wide", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
          "launches": paths["poisson2d_scaled var_form 0 3 x 256"]["fused_fields_bwd_wide"],
-         "max_abs_err": max(v["max_abs_err"] for k, v in wide_times.items() if "max_abs_err" in v),
+         "max_abs_err": max(v["max_abs_err"] for v in wide_times.values() if "max_abs_err" in v),
          "ms": wide_times["p2d_scaled 3 x 256"]["us"] * 1e-3, "plain_ms": wide_times["p2d_scaled 3 x 256"]["plain_ms"],
          "bound_ms": wide_times["p2d_scaled 3 x 256"]["bound_ms"], "bound_by": wide_times["p2d_scaled 3 x 256"]["bound_by"],
          "library_ms": None, "shape": "(2, 256, 256, 256, 1) second, P 16384 (C function, CUDA events)",
          "device_us": wide_times["p2d_scaled 3 x 256"]["device_us"],
-         "by_shape": {k: v for k, v in wide_times.items() if k != "train"}, "train": wide_times["train"]},
+         "by_shape": {k: v for k, v in wide_times.items() if k not in ("train", "layered", "layered replay")},
+         "train": wide_times["train"]},
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": paths["poisson1d_quality pallas"]["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],
