@@ -11,13 +11,14 @@
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
-(B1) and the backward kernels csrc/fused_fields_bwd.cu (B2 and its block
-sum) with nvcc for sm_90a, and then, one line per phase:
+(B1) and the backward kernels csrc/fused_fields_bwd.cu (B2's resident and
+wide forms, the block sum) and csrc/fused_fields_bwd_layered.cu (B2's
+layered form) with nvcc for sm_90a, and then, one line per phase:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions
      and both TF32 flags;
-  2. builds both libraries (one nvcc each, started together) and prints the
-     build seconds and ptxas's report;
+  2. builds both libraries (one nvcc a source, all started together) and
+     prints the build seconds and ptxas's report;
   3. holds B1 against its plain PyTorch version on the card, at the first
      slice's shapes, at ragged sin shapes with second derivatives and at the
      second-derivative shapes phases 8-10 train on (rtol 2e-5, atol 1e-6),
@@ -124,18 +125,27 @@ sum) with nvcc for sm_90a, and then, one line per phase:
      and (vx, vy), Adam 5k + L-BFGS 5k) under "pallas": eps's and |V|'s
      relative errors beside 0.13% / 0.17%, rel-L2 beside 2.9e-2; (d)
      AdvDiff2DConfig() as it stands and under "pallas", 3,000 Adam steps.
- 15. B2's wide form (phase15): (a) against its plain version (WIDE_GRAD_TOL)
-     at (2,128,128,128,1) and (2,256,256,256,1) at P 16,384, n_dirs 2,
-     the JAX test's (2,256,1) and (1,200,40,1), and (3,56,56,56,1) and
-     (3,64,64,64,1) at poisson3d_quality's P 8,000, n_dirs 3; two runs
-     bit-identical; bwd_plan's form and scratch against the kernel's own
-     count; its device us beside its bound, the plain version's and the
-     block sum's; (b) forced at (2,20,20,20,1) and (3,48,48,48,1), bit
-     for bit against the resident form, both timed in turns; (d)
+ 15. B2's wide and layered forms (phase15): (a) the wide form, forced,
+     against its plain version (WIDE_GRAD_TOL) at (2,128,128,128,1) and
+     (2,256,256,256,1) at P 16,384, n_dirs 2, the JAX test's (2,256,1) and
+     (1,200,40,1), and (3,56,56,56,1) and (3,64,64,64,1) at
+     poisson3d_quality's P 8,000, n_dirs 3; two runs bit-identical;
+     bwd_plan's scratch against the kernel's own count; its device us
+     beside its bound, the plain version's and the block sum's; (b) forced
+     at (2,20,20,20,1) and (3,48,48,48,1), bit for bit against the resident
+     form, both timed in turns; (e) the layered form's replay alone at (a)'s
+     shapes: the last hidden layer's stash through the last layer against
+     the plain fields (WIDE_FIELD_TOL), timed beside its share of the bound;
+     (f) the layered form whole at (a)'s and (b)'s shapes against its plain
+     version (WIDE_GRAD_TOL), two runs bit-identical, its plan against the
+     kernel's scratch count, timed in turns with the wide form beside its
+     bound, the block sum on its partials, the plain version and the
+     "taylor" VJP (cuBLAS; a yardstick); (g) bwd_plan picks the layered
+     form at (a)'s shapes, each faster than the wide form in (f); (d)
      poisson2d_scaled var_form 0 with the (2,256,256,256,1) network: 50
-     steps through `train` under "pallas" (the loss must fall; B1, the wide
-     B2 and the block sum nodes of the captured step), graph steps/s of
-     "pallas" and "taylor" in turns.
+     steps through `train` under "pallas" (the loss must fall; B1, the
+     layered B2's kernels and the block sum nodes of the captured step, no
+     resident or wide B2), graph steps/s of "pallas" and "taylor" in turns.
  16. Helmholtz-2D and Burgers (phase16): (a) loss and gradients, k^2's
      included, under "taylor", "pallas" and "jvp" at forms 0/1 of
      Helmholtz2DConfig(), its inverse and BurgersConfig(); (b) one chunk as
@@ -201,7 +211,8 @@ and prints no summary; with --poisson3d-quality [SEED...] phases 1 and 2,
 then phase 13 (c)'s poisson3d_quality under "pallas" and with hard BC
 ("jvp") at their full schedules, once for each seed given (default: the
 preset's).
-With --wide-only it runs phases 1, 2 and 15 and prints no summary; with
+With --wide-only it runs phases 1, 2 and 15 (B2's wide and layered forms)
+and prints no summary; with
 --families-quality [SEED...] phases 1 and 2, then burgers_quality (hard BC
 on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
@@ -436,7 +447,7 @@ KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nod
     "block_sum": ("block_sum_kernel",),
 }
 SECOND_PATH = ("fused_fields", "fused_fields_bwd", "block_sum")  # second derivatives, B2's resident form
-WIDE_PATH = ("fused_fields", "fused_fields_bwd_wide", "block_sum")  # second derivatives, B2's wide form
+B2_WRAPPER = {"resident": "fused_fields_bwd", "wide": "fused_fields_bwd_wide", "layered": "fused_fields_bwd_layered"}
 LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered", "block_sum")  # second derivatives, B2's layered form
 GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
 
@@ -1407,12 +1418,12 @@ def volumetric_kernels(dev):
         wspec = MLP(layers=wide, activation="tanh")
         wnet = random_net(wspec, rng, dev)
         form = bwd_plan(wide, 3, P).form
-        if form != ("resident" if wide[1] <= 52 else "wide"):
+        if form != ("resident" if wide[1] <= 52 else "layered"):  # above the card's shared memory: layered
             fail(f"bwd_plan gives B2 at {wide}, n_dirs 3 the {form} form")
         zero_counts()
         got, got_x = fused_fields_bwd(wspec, wnet, X, g7, 3)
         counts = read_counts()
-        if counts["fused_fields_bwd" if form == "resident" else "fused_fields_bwd_wide"] != 1:
+        if counts[B2_WRAPPER[form]] != 1 or counts["block_sum"] != 1 or sum(counts.values()) != 2:
             fail(f"B2 at {wide}, n_dirs 3: host launches {counts}")
         want, want_x = fields_flat_bwd_reference(wspec, wnet, X, g7, 3)
         werr = check_close(f"B2 {wide} gX", got_x, want_x, **WIDE_GRAD_TOL)
@@ -1651,6 +1662,7 @@ def wide_b2_kernels(dev) -> dict:
         rows, cols = partials.shape
         s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
         out[name] = {"us": (ev[0] + ev[1]) / 2, "device_us": b2_dev, "plain_ms": p_ms, "plain_device_us": p_dev,
+                     "launches": counts["fused_fields_bwd_wide"],
                      "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us, "sum_device_us": sum_dev,
                      "sum_bound_ms": s_bound, "partials": [rows, cols], "scratch_bytes": plan.scratch_bytes}
         print(f"phase 15 (a) wide B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {plan.n_blocks} blocks x "
@@ -1841,12 +1853,27 @@ def layered_b2(dev) -> dict:
     return out
 
 
+def plan_rule(lay: dict) -> None:
+    """Phase 15 (g): bwd_plan picks the layered form at every WIDE_B2_CASES
+    shape (the wide form's before), and (f) showed it faster than the wide
+    form there, in turns within this call."""
+    from hpvpinns_tpu_torch.ops.fused_fields import bwd_plan
+
+    for name, layers, _, P, nd in WIDE_B2_CASES:
+        form, r = bwd_plan(layers, nd, P).form, lay[name]
+        if form != "layered" or not r["us"] < r["v3_us"]:
+            fail(f"{name}: bwd_plan picks the {form} form; (f) layered {r['us']:.2f} us, wide {r['v3_us']:.2f} us")
+        print(f"phase 15 (g) {name}: bwd_plan picks the layered form; (f) layered {r['us']:.2f} us against the wide "
+              f"form's {r['v3_us']:.2f} ({r['us'] / r['v3_us']:.3f})", flush=True)
+
+
 def phase15(dev):
     """B2's wide and layered forms.  wide_b2_kernels ((a), (b)),
-    layered_replay (e), layered_b2 (f); then (d) poisson2d_scaled var_form 0
-    with the (2, 256, 256, 256, 1) network: 50 steps through `train` under
-    "pallas" (the loss must fall; B1, the wide B2 and the block sum launch
-    and are nodes of the captured step), and graph steps/s of "pallas" and
+    layered_replay (e), layered_b2 (f), plan_rule (g); then (d)
+    poisson2d_scaled var_form 0 with the (2, 256, 256, 256, 1) network: 50
+    steps through `train` under "pallas" (the loss must fall; B1, the
+    layered B2 and the block sum launch and are nodes of the captured step,
+    the resident and wide forms are not), and graph steps/s of "pallas" and
     "taylor" in turns.  Returns (timings, host launches by path, the captured
     step's nodes by path)."""
     import hpvpinns_tpu_torch as hv
@@ -1856,6 +1883,7 @@ def phase15(dev):
     times = wide_b2_kernels(dev)
     times["layered replay"] = layered_replay(dev)
     times["layered"] = layered_b2(dev)
+    plan_rule(times["layered"])
     label = "poisson2d_scaled var_form 0 3 x 256"
     c = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1), var_form=0)
     c = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=50, check_every=10, lbfgs_iterations=0,
@@ -1867,24 +1895,25 @@ def phase15(dev):
     hist = res.history["loss"]
     if not np.all(np.isfinite(hist)) or not hist[-1] < hist[0]:
         fail(f"{label}: the loss did not fall: {hist.tolist()}")
-    if min(counts[k] for k in WIDE_PATH) < 1 or counts["fused_fields_bwd"] != 0:
+    if min(counts[k] for k in LAYERED_PATH) < 1 or counts["fused_fields_bwd"] or counts["fused_fields_bwd_wide"]:
         fail(f"{label}: host launches {counts}")
     prm, opt = fresh_state(probs["pallas"], c)
     ch = _build_chunk(probs["pallas"].loss_fn, opt, prm, probs["pallas"].data, debug=True)
     gn = graph_nodes(ch.graphs[0], "phase15_pallas")
-    if min(gn[k] for k in WIDE_PATH) < 1:
-        fail(f"{label}: kernels missing from the captured step: {gn}")
+    if min(gn[k] for k in LAYERED_PATH) < 1 or gn["fused_fields_bwd"] or gn["fused_fields_bwd_wide"]:
+        fail(f"{label}: the captured step's kernels: {gn}")
     rates, prof = graph_rates(probs, c, steps=100, chunk=10)
     print(f"phase 15 (d) {label} pallas: 50 Adam steps through train, loss {hist[0]:.6e} -> {hist[-1]:.6e}, "
           f"{res.steps_per_sec:.1f} steps/s; host launches {counts}; captured step {gn['nodes']} nodes (B1 "
-          f"{gn['fused_fields']}, wide B2 {gn['fused_fields_bwd_wide']}, block sum {gn['block_sum']})", flush=True)
+          f"{gn['fused_fields']}, layered B2 {gn['fused_fields_bwd_layered']} (its kernels), wide B2 "
+          f"{gn['fused_fields_bwd_wide']}, block sum {gn['block_sum']})", flush=True)
     for m, r in rates.items():
         us, busy = prof[m]
         print(f"phase 15 (d) {label} {m}: graph steps/s {r[0]!r} {r[1]!r} (100 Adam steps a turn in chunks of 10, "
               f"turns pallas taylor taylor pallas); device us/step "
               + (f"{us!r}, busy {busy!r} in the profiler's window" if us else "not measured"), flush=True)
     times["train"] = {"steps_per_s": {m: r for m, r in rates.items()}, "device_us_per_step": {m: v[0] for m, v in prof.items()}}
-    print(f"phase 15 wide B2: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 15 wide and layered B2: {time.perf_counter() - t0:.1f} s", flush=True)
     return times, {label: counts}, {label: gn}
 
 
@@ -3125,6 +3154,8 @@ def main() -> int:
     b2_bound = bound_ms(*bwd_work((2, 20, 20, 20, 1), 16384, 2))
     sum_bound = bound_ms(4 * (pshape[0] * pshape[1] + pshape[1]), pshape[0] * pshape[1])
     main_counts = paths["poisson2d_scaled var_form 1"]
+    lay = wide_times["layered"]
+    lay_main = lay["p2d_scaled 3 x 256"]
     kernels = [
         {"name": "fused_fields", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:48", "launches": main_counts["fused_fields"],
@@ -3141,7 +3172,9 @@ def main() -> int:
          "device_us": dev7["b2"], "c_function_us": ev7["b2"]},
         {"name": "fused_fields_bwd_wide", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
-         "launches": paths["poisson2d_scaled var_form 0 3 x 256"]["fused_fields_bwd_wide"],
+         # no path takes it by default (bwd_plan picks the layered form): its launches through
+         # fused_fields_bwd(form="wide") in phase 15 (a)
+         "launches": sum(wide_times[name]["launches"] for name, *_ in WIDE_B2_CASES),
          "max_abs_err": max(v["max_abs_err"] for v in wide_times.values() if "max_abs_err" in v),
          "ms": wide_times["p2d_scaled 3 x 256"]["us"] * 1e-3, "plain_ms": wide_times["p2d_scaled 3 x 256"]["plain_ms"],
          "bound_ms": wide_times["p2d_scaled 3 x 256"]["bound_ms"], "bound_by": wide_times["p2d_scaled 3 x 256"]["bound_by"],
@@ -3149,6 +3182,17 @@ def main() -> int:
          "device_us": wide_times["p2d_scaled 3 x 256"]["device_us"],
          "by_shape": {k: v for k, v in wide_times.items() if k not in ("train", "layered", "layered replay")},
          "train": wide_times["train"]},
+        {"name": "fused_fields_bwd_layered", "route": "cuda",
+         "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd_layered.cu",
+         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
+         "launches": paths["poisson2d_scaled var_form 0 3 x 256"]["fused_fields_bwd_layered"],
+         "max_abs_err": max(v["max_abs_err"] for v in lay.values()), "ms": lay_main["us"] * 1e-3,
+         "plain_ms": lay_main["plain_ms"], "bound_ms": lay_main["bound_ms"], "bound_by": lay_main["bound_by"],
+         "library_ms": None, "shape": "(2, 256, 256, 256, 1) second, P 16384 (C function, CUDA events)",
+         "device_us": lay_main["device_us"], "v3_ms": lay_main["v3_us"] * 1e-3,
+         "taylor_vjp_ms": lay_main["taylor_vjp_us"] * 1e-3, "block_sum_us": lay_main["sum_us"],
+         "block_sum_bound_ms": lay_main["sum_bound_ms"], "partials": lay_main["partials"],
+         "replay": wide_times["layered replay"], "by_shape": lay},
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": paths["poisson1d_quality pallas"]["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],

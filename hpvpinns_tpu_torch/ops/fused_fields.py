@@ -507,13 +507,28 @@ def bwd_resident_fits(layers, n_dirs: int) -> bool:
 def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, form: str | None = None) -> BwdPlan:
     """B2's plan, from the shapes alone (so the summation order, and the
     gradient, do not depend on the card).  The resident form where
-    bwd_resident_fits, else the wide form (`form` forces one: for tests and
-    chip_smoke.py; forcing the resident form where it does not fit raises).
+    bwd_resident_fits; else the layered form where bwd_layered_takes (a
+    hidden layer, at most three inputs: every network of the port's
+    problems); else the wide form (`form` forces one: for tests and
+    chip_smoke.py; forcing a form on a network it does not take raises).
+
+    The layered form replaces the wide one wherever it runs: in one call on
+    an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 15 (f), C
+    functions in turns wide, layered, layered, wide) it was faster at every
+    shape the wide form took by default, µs layered / wide: 589.9 / 1,139.0
+    at (2,128,128,128,1) and 1,932.8 / 4,101.9 at (2,256,256,256,1), P
+    16,384, n_dirs 2; 23.1 / 58.8 at (2,256,1) and 54.3 / 78.5 at
+    (1,200,40,1), P 1,000; 223.0 / 257.6 at (3,56,56,56,1) and 229.3 / 284.4
+    at (3,64,64,64,1), P 8,000, n_dirs 3.  Where the resident form fits it
+    stays: forced there the layered form took 235.2 µs at (2,20,20,20,1)
+    against the resident form's 53.4.
+
     T = tiles_per_block, by default as many tiles per block as keep at least
     BWD_BLOCKS blocks (at most BWD_MAX_TILES): a function of P alone, the
-    same for both forms, so that both add in one order."""
+    same for the resident and wide forms, so that both add in one order.
+    The layered form's slices are layered_slice_tiles(P) tiles."""
     fits = bwd_resident_fits(layers, n_dirs)
-    form = form or ("resident" if fits else "wide")
+    form = form or ("resident" if fits else "layered" if bwd_layered_takes(layers) else "wide")
     if form not in BWD_FORMS:
         raise ValueError(f"B2's form is one of {BWD_FORMS}; got {form!r}")
     if form == "resident" and not fits:
@@ -530,8 +545,11 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
     else:
         T = tiles_per_block or max(1, min(BWD_MAX_TILES, n_tiles // BWD_BLOCKS))
     n_blocks = -(-n_tiles // T)
-    scratch = {"resident": 0, "wide": bwd_wide_scratch_bytes(layers, n_dirs, n_blocks),
-               "layered": bwd_layered_scratch_bytes(layers, n_dirs, P) if form == "layered" else 0}[form]
+    scratch = 0
+    if form == "wide":
+        scratch = bwd_wide_scratch_bytes(layers, n_dirs, n_blocks)
+    elif form == "layered":
+        scratch = bwd_layered_scratch_bytes(layers, n_dirs, P)
     return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs), form, scratch)
 
 

@@ -31,6 +31,7 @@ from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
     SUM_THREADS,
     block_sum_kernel,
     block_sum_plan,
+    bwd_layered_scratch_bytes,
     bwd_plan,
     bwd_smem_bytes,
     bwd_wide_scratch_bytes,
@@ -210,37 +211,44 @@ def test_block_sum_plan_at_phase7_shapes(name, layers, n_dirs, P, want, rows):
 
 def test_bwd_plan_takes_the_wide_form_exactly_above_the_resident_limits():
     """The resident form wherever no layer is wider than 64 and its shared
-    memory fits the H100's per-block opt-in; the wide form everywhere else
-    (at n_dirs 3 with three hidden layers from width 55), with the same
-    tiles per block, so that both add in one order.  Forcing the resident
-    form above its limits raises."""
+    memory fits the H100's per-block opt-in; above those limits (at n_dirs
+    3 with three hidden layers from width 55) the layered form by default
+    (these networks have a hidden layer and at most three inputs), and the
+    wide form when forced, with the resident form's tiles per block, so that
+    both add in one order.  Forcing the resident form above its limits
+    raises."""
+    resident_order = bwd_plan((2, 8, 1), 2, 8000)  # the tiles a block of P 8,000 takes, whatever the widths
     for n_dirs in (1, 2, 3):
         for n_hidden in (1, 2, 3, 4):
             for w in (8, 40, 48, 52, 54, 55, 56, 60, 64, 65, 128, 256):
                 layers = (n_dirs, *([w] * n_hidden), 1)
                 fits = w <= BWD_RESIDENT_WIDTH and bwd_smem_bytes(layers, n_dirs) <= H100_SMEM_PER_BLOCK
                 plan = bwd_plan(layers, n_dirs, 8000)
-                assert plan.form == ("resident" if fits else "wide"), layers
-                assert plan.scratch_bytes == (0 if fits else bwd_wide_scratch_bytes(layers, n_dirs, plan.n_blocks))
+                assert plan.form == ("resident" if fits else "layered"), layers
+                assert plan.scratch_bytes == (0 if fits else bwd_layered_scratch_bytes(layers, n_dirs, 8000))
                 forced = bwd_plan(layers, n_dirs, 8000, form="wide")
+                assert forced.form == "wide"
+                assert forced.scratch_bytes == bwd_wide_scratch_bytes(layers, n_dirs, forced.n_blocks)
                 assert (forced.tiles_per_block, forced.n_blocks, forced.row_pitch) == (
-                    plan.tiles_per_block, plan.n_blocks, plan.row_pitch)
+                    resident_order.tiles_per_block, resident_order.n_blocks, plan.row_pitch)
                 if not fits:
                     with pytest.raises(ValueError, match="resident form"):
                         bwd_plan(layers, n_dirs, 8000, form="resident")
     assert bwd_plan((3, 54, 54, 54, 1), 3, 8000).form == "resident"
-    assert bwd_plan((3, 55, 55, 55, 1), 3, 8000).form == "wide"
+    assert bwd_plan((3, 55, 55, 55, 1), 3, 8000).form == "layered"
+    assert bwd_plan((3, 55, 55, 55, 1), 3, 8000, form="wide").form == "wide"
     assert bwd_plan((2, 64, 64, 64, 1), 2, 16384).form == "resident"  # 222,240 B
-    assert bwd_plan((2, 64, 64, 64, 64, 1), 2, 16384).form == "wide"  # 281,120 B
+    assert bwd_plan((2, 64, 64, 64, 64, 1), 2, 16384).form == "layered"  # 281,120 B
+    assert bwd_plan((2, 64, 64, 64, 64, 1), 2, 16384, form="wide").form == "wide"
     with pytest.raises(ValueError, match="form"):
         bwd_plan((2, 8, 1), 2, 100, form="staged")
 
 
 def test_wide_scratch_bytes_by_hand():
-    """The wide form's scratch: per block (n_layers + 2) buffers of
-    (1 + 2 n_dirs) x max width x 16 floats (the stash of the hidden layers
-    and three stream buffers), worked out by hand at chip_smoke.py phase
-    15's shapes."""
+    """The wide form's scratch, the form forced: per block (n_layers + 2)
+    buffers of (1 + 2 n_dirs) x max width x 16 floats (the stash of the
+    hidden layers and three stream buffers), worked out by hand at
+    chip_smoke.py phase 15's shapes."""
     cases = [  # layers, n_dirs, P, blocks, bytes
         ((2, 256, 256, 256, 1), 2, 16384, 512, 4 * 512 * 6 * 5 * 256 * 16),  # 251,658,240
         ((2, 128, 128, 128, 1), 2, 16384, 512, 4 * 512 * 6 * 5 * 128 * 16),
@@ -249,20 +257,20 @@ def test_wide_scratch_bytes_by_hand():
         ((3, 64, 64, 64, 1), 3, 8000, 500, 4 * 500 * 6 * 7 * 64 * 16),  # 86,016,000
     ]
     for layers, n_dirs, P, blocks, want in cases:
-        plan = bwd_plan(layers, n_dirs, P)
+        plan = bwd_plan(layers, n_dirs, P, form="wide")
         assert (plan.form, plan.n_blocks, plan.scratch_bytes) == ("wide", blocks, want), layers
-    assert bwd_plan((2, 256, 256, 256, 1), 2, 16384).scratch_bytes == 251_658_240
-    assert bwd_plan((2, 256, 256, 256, 1), 2, 16384).row_pitch == 132_612
+    assert bwd_plan((2, 256, 256, 256, 1), 2, 16384, form="wide").scratch_bytes == 251_658_240
+    assert bwd_plan((2, 256, 256, 256, 1), 2, 16384, form="wide").row_pitch == 132_612
 
 
 @pytest.mark.parametrize("layers,n_dirs", [((2, 256, 1), 2), ((1, 200, 40, 1), 1)])
 def test_plain_backward_at_the_wide_shapes_matches_jax(layers, n_dirs):
     """B2's plain version at tests/test_pallas_fields.py's wide shapes (the
-    wide form's on the card), float32, against the gradient of JAX's plain
-    _xla_fields_flat at that file's tolerance (rtol 5e-4, atol 1e-4)."""
+    layered form's on the card), float32, against the gradient of JAX's
+    plain _xla_fields_flat at that file's tolerance (rtol 5e-4, atol 1e-4)."""
     jspec, jp, spec, tp = make(layers, "tanh", seed=7)
     X, g = inputs(64, layers[0], 1 + 2 * n_dirs, seed=8)
-    assert bwd_plan(layers, n_dirs, 64).form == "wide"
+    assert bwd_plan(layers, n_dirs, 64).form == "layered"
     tgrads, tgx = fields_flat_bwd_reference(spec, tp, torch.as_tensor(X), torch.as_tensor(g), n_dirs)
     jgrads, jgx = jax.jit(jax.grad(
         lambda p, x: (_xla_fields_flat(jspec, p, x, n_dirs, True) * g).sum(), argnums=(0, 1)

@@ -205,6 +205,33 @@ def test_layered_plan_by_hand_at_phase15_shapes(name, layers, nd, P, want):
     assert plan.scratch_bytes <= 251_658_240  # the wide form's at 3 x 256, never more
 
 
+RULE = [  # layers, n_dirs, the form bwd_plan picks at every P
+    ((2, 20, 20, 20, 1), 2, "resident"),  # poisson2d_scaled
+    ((3, 48, 48, 48, 1), 3, "resident"),  # poisson3d_quality: 200,864 B of shared memory
+    ((3, 54, 54, 54, 1), 3, "resident"),
+    ((3, 55, 55, 55, 1), 3, "layered"),  # above the card's 232,448 B a block
+    ((2, 64, 64, 64, 64, 1), 2, "layered"),
+    ((2, 65, 1), 2, "layered"),  # wider than 64
+    ((2, 256, 256, 256, 1), 2, "layered"),
+    ((1, 200, 40, 1), 1, "layered"),
+    ((4, 20, 1), 2, "resident"),
+    ((4, 128, 128, 1), 2, "wide"),  # four inputs: the layered form takes at most three
+    ((16, 256, 1), 3, "wide"),
+]
+
+
+@pytest.mark.parametrize("layers,nd,form", RULE, ids=[str(c[0]) for c in RULE])
+def test_bwd_plan_three_way_rule_from_shapes_alone(layers, nd, form):
+    """Resident where it fits, else layered where it takes the network (a
+    hidden layer, at most three inputs), else wide; the same at every P."""
+    for P in (1, 64, 1000, 8000, 16384, 10**6):
+        plan = bwd_plan(layers, nd, P)
+        assert plan.form == form
+        assert (plan.scratch_bytes > 0) == (form != "resident")
+        if form == "layered":
+            assert plan == bwd_plan(layers, nd, P, form="layered")
+
+
 def test_layered_slices_depend_on_P_alone():
     for P in (1, 16, 17, 2048, 2049, 8000, 16384, 65536, 10**6):
         tiles = {bwd_plan(layers, nd, P, form="layered").tiles_per_block for _, layers, nd, _, _ in PHASE15}
