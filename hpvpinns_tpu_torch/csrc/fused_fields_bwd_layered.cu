@@ -30,6 +30,9 @@
 // order.  No float atomics, and the plan (ops/fused_fields.py::bwd_plan) comes
 // from the shapes alone: two runs give the same bits on any card.  The form is
 // not bit-identical to the resident and wide forms (another order of sums).
+// bwd_plan takes it above the resident form's limits for a network with a
+// hidden layer and at most three inputs; the wide form keeps the rest.  Its
+// times on the card, beside the wide form's, are in PERF.md §6.
 //
 // What bounds it at (2,256,256,256,1), P 16,384, n_dirs 2 (S = 5): 1,973,248
 // multiply-adds a point, 64.66 GFLOP, about a third each in the replay, gW and
@@ -45,17 +48,21 @@
 // - Few FMAs per shared load: a thread holds acc[S][4 points][4 neurons] (gW:
 //   8 x 8 entries); per k step one 16-byte load of W and S of the streams feed
 //   16 S FMAs (gW: four loads, 64 FMAs).
-// - A barrier every chunk, no overlap: chunks of 8 (gW: 4 points x S) are
-//   double-buffered in shared memory, the next chunk's global loads in flight
-//   in registers during this chunk's FMAs, one barrier a chunk.  The A operand
-//   is transformed on its way to shared memory (outputs() from the stash), so
-//   the copy goes through registers rather than cp.async or TMA.
+// - A barrier every chunk, no overlap: chunks of 8 k (gW: 2 points x S, 4 at
+//   S = 3) are double-buffered in shared memory, the next chunk's cp.async
+//   copies in flight during this chunk's FMAs, one barrier a chunk.  The A
+//   operand (H from the stash) lands in a staging buffer and each thread
+//   applies outputs() to its own words on their way to the chunk's buffer,
+//   so no prefetch registers are held: two blocks an SM at S <= 5.
 // - Small gW bands with short sums: each gW block sums slice_points x S
 //   terms into 64 registers a thread and writes its entries once.
 // - Large partials: one row per slice, about 128 rows at P 16,384 (v3: 512),
 //   so the block sum reads 68 MB there instead of 272 MB.
-// - Spills and occupancy: 256 threads, two blocks an SM (one at S = 7) in the
-//   GEMMs; ptxas's report is printed by chip_smoke.py phase 2.
+// - Spills and occupancy: 256 threads, two blocks an SM (one at S = 7) and
+//   no spill stores in the GEMMs and gW (ptxas's report, chip_smoke.py phase
+//   2).  Chunks of 16 k with dynamic shared memory were 1% faster at 3 x 256
+//   and 2% slower at n_dirs 3; copies spread evenly over all 256 threads were
+//   4% slower in the GEMMs (5% faster in gW, which keeps them).
 //
 // Bytes and chunking: the scratch holds the stash of every hidden layer,
 // (n_layers - 1) x S x P x pitch floats, pitch = the widest hidden layer
@@ -76,6 +83,7 @@ namespace {
 
 constexpr int kLayeredMaxLayers = 16;
 constexpr int kLayeredMaxWidth = 256;
+constexpr int kLayeredMaxInputs = 3;  // x, y, z: the input and gx kernels hold three
 constexpr int kThreadsL = 256;
 constexpr int kSlicePoints = 16;  // a slice is a multiple of this many points
 constexpr int kGemmM = 64;        // replay, gh: points per block tile
@@ -316,9 +324,10 @@ bwd_layered_gemm(const float* __restrict__ A, const float* __restrict__ W, const
 // W_l's entries at `off` (row-major [din, dout]) and, from the blocks of the
 // first row of tiles, gb_l = the column sums of the value stream of GZ at off
 // + din dout.  Chunks of BKP points x S streams, double-buffered as in the
-// GEMM above: threads 0-127 copy H (point t / 32, columns 4 (t % 32)..)
-// with cp.async into `raw` and apply outputs() on the way to their buffer,
-// threads 128-255 copy GZ straight into its buffer.  Thread (ty, tx) owns
+// GEMM above: threads 0-127 copy H (8 bytes a stream at point it / 64,
+// columns 2 (it % 64)..) with cp.async into `raw` and apply outputs() on
+// the way to their buffer, threads 128-255 copy GZ the same way straight
+// into its buffer.  Thread (ty, tx) owns
 // rows ty*4.., 64 + ty*4.. and columns tx*4.., 64 + tx*4..; each entry sums
 // over chunks, then streams, then points, in order.
 template <int S>
@@ -344,55 +353,59 @@ bwd_layered_gw(const float* __restrict__ H, const float* __restrict__ GZ, int di
   const int pe = min(P, pb + slice_points);
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const bool loads_h = tid < 128;  // warp-uniform
+  const bool loads_h = tid < 128;  // warp-uniform: H (0-127) or GZ (128-255)
   const int t = tid & 127;
-  const bool loader = t < BKP * 32;
-  const int lp = t / 32;
-  const int lc = 4 * (t % 32);
+  constexpr int NIT = BKP * 64 / 128;  // pairs of columns a thread copies a chunk: point it / 64, columns 2 (it % 64)..
   const float* src = loads_h ? H : GZ;
   const int width = loads_h ? din : dout;
-  const int col = (loads_h ? i0 : j0) + lc;
+  const int c0 = loads_h ? i0 : j0;
   const bool gb_owner = blockIdx.y == 0 && tid < kGwTile;
 
   // Start the copies of the chunk from point p0 (H into raw, GZ into buffer
-  // buf); rows past the slice and columns past the width are zero (col + 3 <
+  // buf); rows past the slice and columns past the width are zero (col + 1 <
   // pitch: the words past the width are the stash's zero pads).
   auto fetch = [&](int p0, int buf) {
-    if (loader) {
-      const int p = p0 + lp;
+#pragma unroll
+    for (int n = 0; n < NIT; ++n) {
+      const int it = t + 128 * n;
+      const int lp = it / 64, lc = 2 * (it % 64);
+      const int p = p0 + lp, col = c0 + lc;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         float* dst = loads_h ? &sm.raw[s][lp][lc] : &sm.g[buf][s][lp][lc];
         if (p < pe && col < width)
-          __pipeline_memcpy_async(dst, src + s * sstride + (long long)p * pitch + col, 16);
+          __pipeline_memcpy_async(dst, src + s * sstride + (long long)p * pitch + col, 8);
         else
-          *reinterpret_cast<float4*>(dst) = zero4();
+          *reinterpret_cast<float2*>(dst) = make_float2(0.0f, 0.0f);
       }
     }
     __pipeline_commit();
   };
   auto stage = [&](int buf) {
     __pipeline_wait_prior(0);
-    if (!loader || !loads_h) return;
-    float4 r[S], o[S];
+    if (!loads_h) return;
 #pragma unroll
-    for (int s = 0; s < S; ++s) r[s] = *reinterpret_cast<const float4*>(&sm.raw[s][lp][lc]);
+    for (int n = 0; n < NIT; ++n) {
+      const int it = t + 128 * n;
+      const int lp = it / 64, lc = 2 * (it % 64);
+      float2 r[S], o[S];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float v[S], h[S];
+      for (int s = 0; s < S; ++s) r[s] = *reinterpret_cast<const float2*>(&sm.raw[s][lp][lc]);
 #pragma unroll
-      for (int s = 0; s < S; ++s) v[s] = col + e < width ? get(r[s], e) : 0.0f;
-      outputs<ND, ACT>(v, h);  // zeros (past the slice or din) give zeros
+      for (int e = 0; e < 2; ++e) {
+        float v[S], h[S];
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (e == 0) o[s].x = h[s];
-        if (e == 1) o[s].y = h[s];
-        if (e == 2) o[s].z = h[s];
-        if (e == 3) o[s].w = h[s];
+        for (int s = 0; s < S; ++s) v[s] = c0 + lc + e < width ? (e == 0 ? r[s].x : r[s].y) : 0.0f;
+        outputs<ND, ACT>(v, h);  // zeros (past the slice or din) give zeros
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (e == 0) o[s].x = h[s];
+          if (e == 1) o[s].y = h[s];
+        }
       }
-    }
 #pragma unroll
-    for (int s = 0; s < S; ++s) *reinterpret_cast<float4*>(&sm.h[buf][s][lp][lc]) = o[s];
+      for (int s = 0; s < S; ++s) *reinterpret_cast<float2*>(&sm.h[buf][s][lp][lc]) = o[s];
+    }
   };
 
   float acc[8][8];
@@ -678,7 +691,7 @@ cudaError_t layered_args(const float* X, const float* G, const float* params, co
                          int n_dirs, int activation, int tiles, float* scratch, float* partials, float* gX,
                          int device, void* stream, LayeredArgs& a) {
   if (n_layers < 2 || n_layers > kLayeredMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
-      activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0] || widths[0] > 3 ||
+      activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0] || widths[0] > kLayeredMaxInputs ||
       scratch == nullptr)
     return cudaErrorInvalidValue;
   a = LayeredArgs{};

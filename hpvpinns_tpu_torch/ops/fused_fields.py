@@ -422,14 +422,12 @@ BWD_POINT_STRIDE = 20
 BWD_BLOCKS = 512  # T grows only above this many blocks: four per SM of an H100
 BWD_MAX_TILES = 8
 BWD_FORMS = ("resident", "wide", "layered")
-# The layered form (csrc/fused_fields_bwd_layered.cu): its GEMM tiles (points x
-# neurons x k of the replay and gh; gW's square tile) and its point slices,
-# each slice a whole number of BWD_TILE_POINTS tiles, doubled until there are
-# at most LAYERED_ROWS slices (one partial row each).
-LAYERED_GEMM_TILE = (64, 64, 8)
-LAYERED_GW_TILE = 128
+# The layered form (csrc/fused_fields_bwd_layered.cu): its point slices, each a
+# whole number of BWD_TILE_POINTS tiles, doubled until there are at most
+# LAYERED_ROWS slices (one partial row each), and its inputs (widths[0]: x, y,
+# z at most; kLayeredMaxInputs there).
 LAYERED_ROWS = 128
-LAYERED_MAX_INPUTS = 3  # widths[0]: x, y, z at most
+LAYERED_MAX_INPUTS = 3
 
 
 @dataclasses.dataclass(frozen=True)
