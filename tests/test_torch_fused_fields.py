@@ -33,6 +33,7 @@ from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
     fields_flat_reference,
     fused_fields_2d,
     fused_fields_bwd_kernel,
+    fused_fields_bwd_layered_kernel,
     fused_fields_bwd_wide_kernel,
     fused_fields_kernel,
     fwd_plan,
@@ -175,7 +176,8 @@ def test_kernel_rejects_what_it_does_not_take():
 def test_each_kernel_has_its_own_width_limit():
     """B1 and B2 take width 256 (on a CPU tensor they get as far as the
     device check) and raise at 257; B2's resident form takes width 64 and
-    refuses 65, which its wide form takes."""
+    refuses 65, which its layered form takes by default and its wide form
+    when forced."""
     X = torch.as_tensor(inputs(4, 2))
     assert (FWD_MAX_WIDTH, BWD_RESIDENT_WIDTH) == (256, 64)
     for width, match in ((FWD_MAX_WIDTH, "CUDA"), (FWD_MAX_WIDTH + 1, f"widths <= {FWD_MAX_WIDTH}")):
@@ -183,13 +185,16 @@ def test_each_kernel_has_its_own_width_limit():
         tp = init_mlp(spec, torch.Generator().manual_seed(0))
         with pytest.raises(ValueError, match=match):
             fused_fields_kernel(spec, tp, X, 2, True)
-        with pytest.raises(ValueError, match=match):
-            fused_fields_bwd_wide_kernel.prepare(spec, tp, X, torch.zeros(4, 5), 2)
-    for width, form in ((BWD_RESIDENT_WIDTH, "resident"), (BWD_RESIDENT_WIDTH + 1, "wide")):
+        for b2 in (fused_fields_bwd_wide_kernel, fused_fields_bwd_layered_kernel):
+            with pytest.raises(ValueError, match=match):
+                b2.prepare(spec, tp, X, torch.zeros(4, 5), 2)
+    for width, form in ((BWD_RESIDENT_WIDTH, "resident"), (BWD_RESIDENT_WIDTH + 1, "layered")):
         assert bwd_plan((2, width, 1), 2, 4).form == form
+    assert bwd_plan((2, BWD_RESIDENT_WIDTH + 1, 1), 2, 4, form="wide").form == "wide"
     with pytest.raises(ValueError, match=f"widths <= {BWD_RESIDENT_WIDTH}"):
         bwd_plan((2, BWD_RESIDENT_WIDTH + 1, 1), 2, 4, form="resident")
     assert fused_fields_kernel.launches == fused_fields_bwd_kernel.launches == fused_fields_bwd_wide_kernel.launches == 0
+    assert fused_fields_bwd_layered_kernel.launches == 0
 
 
 # chip_smoke.py phase 3's shapes: (layers, n_dirs, second, P) and the plan

@@ -184,8 +184,9 @@ def test_b2_shared_memory_ceiling_at_three_axes():
     """B2's resident form at n_dirs 3 (bwd_smem_bytes, the kernel's own
     count): poisson3d_quality's (3,48,48,48,1) fits the H100's opt-in
     232,448 B per block, one block per SM; from width 56 with three hidden
-    layers it does not, and bwd_plan gives those networks the wide form
-    (its stash in device memory) instead."""
+    layers it does not, and bwd_plan gives those networks the layered form
+    (per-layer GEMMs, its stash in device memory) instead; the wide form
+    takes them when forced."""
     from hpvpinns_tpu_torch.ops.fused_fields import bwd_plan, bwd_smem_bytes
 
     h100_opt_in = 232448
@@ -194,4 +195,6 @@ def test_b2_shared_memory_ceiling_at_three_axes():
     assert got[52] <= h100_opt_in < got[56]
     plan = bwd_plan((3, 48, 48, 48, 1), 3, 8000)
     assert (plan.tiles_per_block, plan.n_blocks, plan.smem_bytes) == (1, 500, 200864)
-    assert [bwd_plan((3, w, w, w, 1), 3, 8000).form for w in (48, 52, 56, 64)] == ["resident", "resident", "wide", "wide"]
+    assert [bwd_plan((3, w, w, w, 1), 3, 8000).form for w in (48, 52, 56, 64)] == [
+        "resident", "resident", "layered", "layered"]
+    assert [bwd_plan((3, w, w, w, 1), 3, 8000, form="wide").form for w in (56, 64)] == ["wide", "wide"]
