@@ -137,11 +137,16 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      shapes: the last hidden layer's stash through the last layer against
      the plain fields (WIDE_FIELD_TOL), timed beside its share of the bound;
      (f) the layered form whole at (a)'s and (b)'s shapes against its plain
-     version (WIDE_GRAD_TOL), two runs bit-identical, its plan against the
-     kernel's scratch count, timed in turns with the wide form beside its
-     bound, the block sum on its partials, the plain version and the
-     "taylor" VJP (cuBLAS; a yardstick); (g) bwd_plan picks the layered
-     form at (a)'s shapes, each faster than the wide form in (f); (d)
+     version (WIDE_GRAD_TOL), and at (2,256,256,256,1), P 131,072 (its
+     scratch 4x the wide form's there), two runs bit-identical, its plan
+     against the kernel's scratch count, timed in turns with the wide form
+     beside its bound, the block sum on its partials, the plain version and
+     the "taylor" VJP (cuBLAS; a yardstick); (g) bwd_plan picks the layered
+     form at (a)'s shapes and P 131,072, each faster than the wide form in
+     (f); (h) the path that takes the wide form by default: fields_flat's
+     VJP through autograd at (4,128,128,1), n_dirs 3, P 8,000 (four inputs,
+     which the layered form does not take), counts zeroed just before, B1,
+     the wide B2 and the block sum launched, against the plain version; (d)
      poisson2d_scaled var_form 0 with the (2,256,256,256,1) network: 50
      steps through `train` under "pallas" (the loss must fall; B1, the
      layered B2's kernels and the block sum nodes of the captured step, no
@@ -1593,6 +1598,12 @@ WIDE_FORCED_CASES = [  # phase 15: the wide form forced where the resident form 
     ("p2d_scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2),
     ("p3d_quality", (3, 48, 48, 48, 1), "tanh", 8000, 3),
 ]
+# phase 15 (f), (g): the layered form at 8x p2d_scaled's points, where its
+# scratch (every point's stash) is 4x the wide form's
+LAYERED_LARGE_P_CASE = ("p2d_scaled 3 x 256 P 131072", (2, 256, 256, 256, 1), "tanh", 131072, 2)
+# phase 15 (h): a network bwd_plan gives the wide form by default: four inputs
+# (x, y, z, t), which the layered form does not take, wider than the resident form
+WIDE_PATH_CASE = ("fields_flat VJP (4, 128, 128, 1)", (4, 128, 128, 1), "tanh", 8000, 3)
 
 
 def b2_inputs(layers, act, P, nd, rng, dev):
@@ -1607,6 +1618,15 @@ def b2_inputs(layers, act, P, nd, rng, dev):
     return spec, net, X, g
 
 
+def forced_b2(kernel, spec, net, X, g, nd):
+    """B2 through `kernel` (a form's wrapper, forced), then the block sum:
+    what fused_fields_bwd runs where bwd_plan gives that form."""
+    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, unpack_params
+
+    partials, gX = kernel(spec, net, X, g, nd)
+    return unpack_params(spec, block_sum_kernel(partials)), gX
+
+
 def wide_b2_kernels(dev) -> dict:
     """Phase 15 (a)-(c): B2's wide form against its plain version at
     WIDE_B2_CASES (WIDE_GRAD_TOL; two runs bit-identical; bwd_plan's form and
@@ -1619,7 +1639,6 @@ def wide_b2_kernels(dev) -> dict:
         block_sum_kernel,
         bwd_plan,
         fields_flat_bwd_reference,
-        fused_fields_bwd,
         fused_fields_bwd_kernel,
         fused_fields_bwd_wide_kernel,
     )
@@ -1634,8 +1653,8 @@ def wide_b2_kernels(dev) -> dict:
         if plan.form != "wide" or c_scratch != plan.scratch_bytes:
             fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
         zero_counts()
-        got, got_x = fused_fields_bwd(spec, net, X, g, nd, form="wide")
-        again, again_x = fused_fields_bwd(spec, net, X, g, nd, form="wide")
+        got, got_x = forced_b2(fused_fields_bwd_wide_kernel, spec, net, X, g, nd)
+        again, again_x = forced_b2(fused_fields_bwd_wide_kernel, spec, net, X, g, nd)
         counts = read_counts()
         if counts["fused_fields_bwd_wide"] != 2 or counts["fused_fields_bwd"] != 0 or counts["block_sum"] != 2:
             fail(f"{name}: host launches {counts}")
@@ -1662,7 +1681,7 @@ def wide_b2_kernels(dev) -> dict:
         rows, cols = partials.shape
         s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
         out[name] = {"us": (ev[0] + ev[1]) / 2, "device_us": b2_dev, "plain_ms": p_ms, "plain_device_us": p_dev,
-                     "launches": counts["fused_fields_bwd_wide"],
+                     "forced_launches": counts["fused_fields_bwd_wide"],
                      "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us, "sum_device_us": sum_dev,
                      "sum_bound_ms": s_bound, "partials": [rows, cols], "scratch_bytes": plan.scratch_bytes}
         print(f"phase 15 (a) wide B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {plan.n_blocks} blocks x "
@@ -1792,7 +1811,6 @@ def layered_b2(dev) -> dict:
         block_sum_kernel,
         bwd_plan,
         fields_flat_bwd_reference,
-        fused_fields_bwd,
         fused_fields_bwd_layered_kernel,
         fused_fields_bwd_wide_kernel,
     )
@@ -1800,15 +1818,16 @@ def layered_b2(dev) -> dict:
     lib = fused_fields_bwd_layered_kernel.load().lib
     rng = np.random.default_rng(152)
     out = {}
-    for name, layers, act, P, nd in WIDE_B2_CASES + [(f"forced {c[0]}", *c[1:]) for c in WIDE_FORCED_CASES]:
+    cases = WIDE_B2_CASES + [LAYERED_LARGE_P_CASE] + [(f"forced {c[0]}", *c[1:]) for c in WIDE_FORCED_CASES]
+    for name, layers, act, P, nd in cases:
         spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
         plan = bwd_plan(layers, nd, P, form="layered")
         c_scratch = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1]), len(layers) - 1, nd, P)
         if c_scratch != plan.scratch_bytes or plan.n_blocks != -(-P // (16 * plan.tiles_per_block)):
             fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
         zero_counts()
-        got, got_x = fused_fields_bwd(spec, net, X, g, nd, form="layered")
-        again, again_x = fused_fields_bwd(spec, net, X, g, nd, form="layered")
+        got, got_x = forced_b2(fused_fields_bwd_layered_kernel, spec, net, X, g, nd)
+        again, again_x = forced_b2(fused_fields_bwd_layered_kernel, spec, net, X, g, nd)
         counts = read_counts()
         if counts["fused_fields_bwd_layered"] != 2 or counts["block_sum"] != 2 or sum(counts.values()) != 4:
             fail(f"{name}: host launches {counts}")
@@ -1855,11 +1874,11 @@ def layered_b2(dev) -> dict:
 
 def plan_rule(lay: dict) -> None:
     """Phase 15 (g): bwd_plan picks the layered form at every WIDE_B2_CASES
-    shape (the wide form's before), and (f) showed it faster than the wide
-    form there, in turns within this call."""
+    shape (the wide form's before) and at LAYERED_LARGE_P_CASE, and (f)
+    showed it faster than the wide form there, in turns within this call."""
     from hpvpinns_tpu_torch.ops.fused_fields import bwd_plan
 
-    for name, layers, _, P, nd in WIDE_B2_CASES:
+    for name, layers, _, P, nd in WIDE_B2_CASES + [LAYERED_LARGE_P_CASE]:
         form, r = bwd_plan(layers, nd, P).form, lay[name]
         if form != "layered" or not r["us"] < r["v3_us"]:
             fail(f"{name}: bwd_plan picks the {form} form; (f) layered {r['us']:.2f} us, wide {r['v3_us']:.2f} us")
@@ -1867,9 +1886,52 @@ def plan_rule(lay: dict) -> None:
               f"form's {r['v3_us']:.2f} ({r['us'] / r['v3_us']:.3f})", flush=True)
 
 
+def wide_path(dev):
+    """Phase 15 (h): the wide form on the path that takes it by default, the
+    VJP of fields_flat (torch.autograd through B1 and B2) at WIDE_PATH_CASE.
+    Counts zeroed just before, read just after: B1, the wide B2 and the block
+    sum launch, no other form of B2.  The fields against the plain ones
+    (WIDE_FIELD_TOL), gX and the gradients against the plain version
+    (WIDE_GRAD_TOL).  Returns (host launches, max_abs_err)."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        bwd_plan,
+        fields_flat,
+        fields_flat_bwd_reference,
+        fields_flat_reference,
+    )
+
+    name, layers, act, P, nd = WIDE_PATH_CASE
+    spec, net, X, g = b2_inputs(layers, act, P, nd, np.random.default_rng(153), dev)
+    plan = bwd_plan(layers, nd, P)
+    if plan.form != "wide":
+        fail(f"{name}: bwd_plan gives the {plan.form} form")
+    leaves = [t for layer in net for t in (layer["W"], layer["b"])]
+    Xg = X.clone().requires_grad_(True)
+    zero_counts()
+    fields = fields_flat(spec, net, Xg, nd, True)
+    got_x, *got = torch.autograd.grad(fields, [Xg] + leaves, g)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if (min(counts[k] for k in ("fused_fields", "fused_fields_bwd_wide", "block_sum")) < 1
+            or counts["fused_fields_bwd"] or counts["fused_fields_bwd_layered"]):
+        fail(f"{name}: host launches {counts}")
+    with torch.no_grad():
+        f_err = check_close(f"{name} fields", fields.detach(), fields_flat_reference(spec, net, X, nd, True),
+                            **WIDE_FIELD_TOL)
+    want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
+    err = check_close(f"{name} gX", got_x, want_x, **WIDE_GRAD_TOL)
+    for i, t in enumerate(got):
+        err = max(err, check_close(f"{name} grad {i}", t, want[i // 2]["Wb"[i % 2]], **WIDE_GRAD_TOL))
+    print(f"phase 15 (h) {name} {act} P={P} n_dirs={nd}: bwd_plan gives the wide form ({plan.n_blocks} blocks, "
+          f"scratch {plan.scratch_bytes} B); fields max_abs_err {f_err:.3e} (rtol {WIDE_FIELD_TOL['rtol']} atol "
+          f"{WIDE_FIELD_TOL['atol']}), gX and gradients {err:.3e} (rtol {WIDE_GRAD_TOL['rtol']} atol "
+          f"{WIDE_GRAD_TOL['atol']}); host launches {counts}", flush=True)
+    return counts, err
+
+
 def phase15(dev):
     """B2's wide and layered forms.  wide_b2_kernels ((a), (b)),
-    layered_replay (e), layered_b2 (f), plan_rule (g); then (d)
+    layered_replay (e), layered_b2 (f), plan_rule (g), wide_path (h); then (d)
     poisson2d_scaled var_form 0 with the (2, 256, 256, 256, 1) network: 50
     steps through `train` under "pallas" (the loss must fall; B1, the
     layered B2 and the block sum launch and are nodes of the captured step,
@@ -1884,6 +1946,7 @@ def phase15(dev):
     times["layered replay"] = layered_replay(dev)
     times["layered"] = layered_b2(dev)
     plan_rule(times["layered"])
+    wide_counts, times["wide path"] = wide_path(dev)
     label = "poisson2d_scaled var_form 0 3 x 256"
     c = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1), var_form=0)
     c = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=50, check_every=10, lbfgs_iterations=0,
@@ -1914,7 +1977,7 @@ def phase15(dev):
               + (f"{us!r}, busy {busy!r} in the profiler's window" if us else "not measured"), flush=True)
     times["train"] = {"steps_per_s": {m: r for m, r in rates.items()}, "device_us_per_step": {m: v[0] for m, v in prof.items()}}
     print(f"phase 15 wide and layered B2: {time.perf_counter() - t0:.1f} s", flush=True)
-    return times, {label: counts}, {label: gn}
+    return times, {label: counts, WIDE_PATH_CASE[0]: wide_counts}, {label: gn}
 
 
 # The JAX package's rows for Helmholtz-2D and Burgers (benchmarks/ACCURACY.json;
@@ -3172,15 +3235,16 @@ def main() -> int:
          "device_us": dev7["b2"], "c_function_us": ev7["b2"]},
         {"name": "fused_fields_bwd_wide", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
-         # no path takes it by default (bwd_plan picks the layered form): its launches through
-         # fused_fields_bwd(form="wide") in phase 15 (a)
-         "launches": sum(wide_times[name]["launches"] for name, *_ in WIDE_B2_CASES),
-         "max_abs_err": max(v["max_abs_err"] for v in wide_times.values() if "max_abs_err" in v),
+         # launches from phase 15 (h)'s path, the one that takes it by default; phase 15 (a)'s
+         # forced checks apart
+         "launches": paths[WIDE_PATH_CASE[0]]["fused_fields_bwd_wide"],
+         "forced_check_launches": sum(wide_times[name]["forced_launches"] for name, *_ in WIDE_B2_CASES),
+         "max_abs_err": max([wide_times["wide path"]] + [wide_times[name]["max_abs_err"] for name, *_ in WIDE_B2_CASES]),
          "ms": wide_times["p2d_scaled 3 x 256"]["us"] * 1e-3, "plain_ms": wide_times["p2d_scaled 3 x 256"]["plain_ms"],
          "bound_ms": wide_times["p2d_scaled 3 x 256"]["bound_ms"], "bound_by": wide_times["p2d_scaled 3 x 256"]["bound_by"],
          "library_ms": None, "shape": "(2, 256, 256, 256, 1) second, P 16384 (C function, CUDA events)",
          "device_us": wide_times["p2d_scaled 3 x 256"]["device_us"],
-         "by_shape": {k: v for k, v in wide_times.items() if k not in ("train", "layered", "layered replay")},
+         "by_shape": {k: v for k, v in wide_times.items() if k not in ("train", "layered", "layered replay", "wide path")},
          "train": wide_times["train"]},
         {"name": "fused_fields_bwd_layered", "route": "cuda",
          "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd_layered.cu",

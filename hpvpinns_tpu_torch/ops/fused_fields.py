@@ -521,6 +521,13 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
     stays: forced there the layered form took 235.2 µs at (2,20,20,20,1)
     against the resident form's 53.4.
 
+    The layered form's scratch (bwd_layered_scratch_bytes) holds every
+    point's stash, so it grows with P with no cap; the wide form's stops
+    growing as fast once its blocks reach BWD_MAX_TILES tiles.  Layered /
+    wide scratch is 0.5 below P 16,384, 1 at 16,384, 2 at 32,768 and 4
+    from 65,536 up: 2.01 GB against 0.50 GB at (2,256,256,256,1), n_dirs 2,
+    P 131,072; 15.4 GB against 3.8 GB at P 10^6.
+
     T = tiles_per_block, by default as many tiles per block as keep at least
     BWD_BLOCKS blocks (at most BWD_MAX_TILES): a function of P alone, the
     same for the resident and wide forms, so that both add in one order.
@@ -696,15 +703,14 @@ class BlockSumKernel(KernelWrapper):
 block_sum_kernel = BlockSumKernel(_BWD_LIBRARY, "hp_block_sum_f32")
 
 
-def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
-                     form: str | None = None):
+def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True):
     """(gparams, gX) of sum(g * fields_flat(..., second=True)): on a CUDA
-    tensor B2 in the form bwd_plan gives (`form` forces one), then the block
-    sum; on a CPU tensor the plain version, whatever the form."""
-    plan = bwd_plan(spec.layers, n_dirs, X.shape[0], form=form)
+    tensor B2 in the form bwd_plan gives, then the block sum; on a CPU
+    tensor the plain version."""
     if not X.is_cuda:
         return fields_flat_bwd_reference(spec, params, X, g, n_dirs, want_x)
-    partials, gX = _BWD_KERNELS[plan.form](spec, params, X, g, n_dirs, want_x)
+    kernel = _BWD_KERNELS[bwd_plan(spec.layers, n_dirs, X.shape[0]).form]
+    partials, gX = kernel(spec, params, X, g, n_dirs, want_x)
     return unpack_params(spec, block_sum_kernel(partials)), gX  # the pad columns are left out
 
 

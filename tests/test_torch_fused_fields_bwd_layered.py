@@ -205,6 +205,22 @@ def test_layered_plan_by_hand_at_phase15_shapes(name, layers, nd, P, want):
     assert plan.scratch_bytes <= 251_658_240  # the wide form's at 3 x 256, never more
 
 
+@pytest.mark.parametrize("P,wide_blocks,ratio", [(8000, 500, 0.5), (16384, 512, 1.0), (32768, 512, 2.0),
+                                                 (65536, 512, 4.0), (131072, 1024, 4.0)])
+def test_layered_scratch_grows_with_P_against_the_wide_forms(P, wide_blocks, ratio):
+    """At (2,256,256,256,1), n_dirs 2, by hand: the layered scratch is every
+    point's stash, 4 x 3 layers x 5 streams x P x 256; the wide form's is 4 x
+    blocks x (n_layers + 2 = 6) buffers x 5 streams x 256 x 16 points, its blocks
+    ceil(P / 16 / T) with T = min(8, max(1, P // 16 // 512)) tiles."""
+    layers = (2, 256, 256, 256, 1)
+    lay, wide = bwd_plan(layers, 2, P, form="layered"), bwd_plan(layers, 2, P, form="wide")
+    assert lay.scratch_bytes == 4 * 3 * 5 * P * 256
+    assert wide.n_blocks == wide_blocks and wide.scratch_bytes == 4 * wide_blocks * 6 * 5 * 256 * 16
+    assert lay.scratch_bytes == ratio * wide.scratch_bytes
+    if P == 131072:
+        assert (lay.scratch_bytes, wide.scratch_bytes) == (2_013_265_920, 503_316_480)
+
+
 RULE = [  # layers, n_dirs, the form bwd_plan picks at every P
     ((2, 20, 20, 20, 1), 2, "resident"),  # poisson2d_scaled
     ((3, 48, 48, 48, 1), 3, "resident"),  # poisson3d_quality: 200,864 B of shared memory
@@ -253,14 +269,15 @@ def test_layered_refuses_what_it_does_not_take():
 
 
 def test_forcing_layered_on_a_cpu_tensor_takes_the_plain_version():
-    """fused_fields_bwd with form="layered" on a CPU tensor is the plain
-    version, bit for bit; the layered wrapper itself raises on a CPU tensor
-    before any launch."""
+    """fused_fields_bwd at a network bwd_plan gives the layered form, on a
+    CPU tensor, is the plain version, bit for bit; the layered wrapper
+    itself, forced, raises on a CPU tensor before any launch."""
     layers = (2, 96, 80, 1)
+    assert bwd_plan(layers, 2, 40).form == "layered"
     spec = MLP(layers=layers, activation="tanh")
     net = net_of(layers, 3, torch.float32)
     X, g = points_of(40, 2, 2, 4, torch.float32)
-    got, got_x = fused_fields_bwd(spec, net, X, g, 2, form="layered")
+    got, got_x = fused_fields_bwd(spec, net, X, g, 2)
     want, want_x = fields_flat_bwd_reference(spec, net, X, g, 2)
     assert torch.equal(flat(got), flat(want)) and torch.equal(got_x, want_x)
     with pytest.raises(ValueError, match="CUDA"):
