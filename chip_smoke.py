@@ -7,7 +7,8 @@
                            | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]
                            | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
-                           | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]]
+                           | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
+                           | --ensemble-only | --march-only | --march]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -209,6 +210,33 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      still allocated after train grows with the rounds; (d)
      adaptive_galerkin_1d (five rounds, p 12, theta 0.7) on the recorded
      trajectory.
+ 20. The network's last options, the seed ensemble and time marching
+     (phase20): (a) matmul_precision "high"/"default" against "highest" at
+     (2,256,256,256,1), P 16,384: mlp_apply, taylor_fields_2d and their
+     gradients differ by TF32's rounding (nonzero, below TF32_REL_MAX);
+     torch.profiler's kernel names: the network's products TF32 GEMMs in
+     the forward and the backward, the contraction einsum and B1 not; a
+     captured "high" step keeps TF32 GEMM nodes; poisson2d_quality "taylor"
+     "high" against "highest" in turns at a cut schedule (graph steps/s,
+     rel-L2); (b) gelu, swish and tanh with the adaptive slope, 500 Adam
+     steps of poisson2d_scaled under "taylor" and "jvp" (the loss falls;
+     the two engines' fields agree), "pallas" raising the JAX package's
+     ValueErrors; (c) train_ensemble at poisson2d_scaled (2,20,20,20,1)
+     var_form 1, S 1, 4 and 8, "taylor" against "pallas" in turns (steps/s,
+     seed-steps/s), B1 S launches a step (an eager step's count and the
+     captured step's nodes), one step of every member against its serial
+     `train` twin; (d) var_form 0, S 4: B2 (resident) and the block sum S
+     launches a step, each member's gradient against its own unbatched
+     "pallas" gradient; (e) the wide point (2,256,256,256,1), S 4, var_form
+     1 and 0 (the layered B2), "pallas" against "taylor" in turns with the
+     peak device memory, and the block sum beside partials.sum(0) at the
+     3 x 256 network's two large partial shapes; (f) time_march: burgers_quality (hard BC, S 2,
+     ic "net" and "exact"), AdvDiffConfig(inverse=False,
+     deriv_mode="pallas") (S 4, budget weights (2.2, 0.8, 0.5, 0.5); B1 +
+     B2) and taylorgreen_quality (hard BC, S 2, "jvp") at cut schedules:
+     per-slab and global rel-L2 beside MEASUREMENTS.md's rows, per-slab
+     wall seconds and device memory (flat from slab to slab), and each
+     slab's params unchanged by the slabs after it.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -223,6 +251,11 @@ on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
+With --ensemble-only it runs phases 1, 2 and 20 (a)-(e), with --march-only
+phases 1, 2 and 20 (f), and prints no summary; with --march phases 1 and 2,
+then 20 (f)'s marches at the study's equal-total schedules
+(benchmarks/timemarch_study.py: every phase's budget split over the slabs,
+burgers with its 40-step QR Gauss-Newton tail).
 With --adaptive-only it runs phases 1, 2 and 19 and prints no summary;
 with --adaptive [studies] [burgers] [sweep] phases 1 and 2, then the parts
 of phase 19 (c) named (default all): (b)'s two studies at their recorded
@@ -457,10 +490,9 @@ LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered", "block_sum")  # seco
 GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
 
 
-def graph_nodes(graph, name: str) -> dict:
-    """Nodes of a CUDA graph captured in debug mode, from its DOT dump: all
-    nodes, kernel nodes, and the kernel nodes of each wrapper of
-    KERNEL_NODES."""
+def dot_nodes(graph, name: str) -> list:
+    """The node labels of a CUDA graph captured in debug mode, from its DOT
+    dump (written under GRAPH_DUMPS as `name`.dot)."""
     import os
     import re
 
@@ -469,7 +501,14 @@ def graph_nodes(graph, name: str) -> dict:
     graph.debug_dump(path)
     with open(path) as f:
         # a node is defined at the start of a line; an edge line goes on with "->"
-        nodes = re.findall(r'^\s*"graph_\d+_node_\d+"\s*\[(.*?)\];?\s*$', f.read(), re.S | re.M)
+        return re.findall(r'^\s*"graph_\d+_node_\d+"\s*\[(.*?)\];?\s*$', f.read(), re.S | re.M)
+
+
+def graph_nodes(graph, name: str) -> dict:
+    """Nodes of a CUDA graph captured in debug mode, from its DOT dump: all
+    nodes, kernel nodes, and the kernel nodes of each wrapper of
+    KERNEL_NODES."""
+    nodes = dot_nodes(graph, name)
     kernels = [n for n in nodes if "KERNEL" in n]
     out = {"nodes": len(nodes), "kernels": len(kernels)}
     for wrapper, names in KERNEL_NODES.items():
@@ -2899,6 +2938,584 @@ def p1d_h_sweep(dev) -> None:
     print(f"phase 19 (c) h_sweep: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 20: the network's last options, the seed ensemble and slab time
+# marching.
+TF32_REL_MAX = 5e-2  # (a): "high" against "highest", max |diff| over max |highest|: TF32 rounding, well below this
+ENS_SEEDS = (1, 4, 8)  # (c): ensemble sizes at record width
+ENS_STEPS = 300  # (c), (e): Adam steps a turn (the first chunk, with the capture, is outside the rate)
+ENS_CHECK = 50
+ENS_STEP_TOL = dict(rtol=1e-5, atol=1e-6)  # (c): one step against the serial twin, f32
+ENS_GRAD_TOL = dict(rtol=2e-4, atol=1e-5)  # (d): B2's tolerance, against each leaf's largest entry
+WIDE_ENS_STEPS = 100  # (e)
+ACT_STEPS = 500  # (b)
+ACT_FIELD_TOL = dict(rtol=1e-4, atol=1e-5)  # (b): the JVP engine against the Taylor fields, f32
+P2DQ_PRECISION_CUT = 2000  # (a): poisson2d_quality's Adam steps a turn, no L-BFGS
+MARCH_MEM_GROWTH = 64 << 20  # (f): device memory still allocated after a slab's train, above slab 0's
+# (f): the marches, each at a cut schedule (per slab), and the rows of
+# benchmarks/MEASUREMENTS.md:1864-1926 beside them (accuracy comparators at
+# their own, uncut budgets; not targets)
+MARCH_CUT = {"burgers": (1000, 0), "advdiff": (1000, 0), "taylorgreen": (150, 0)}
+JAX_MARCH_ROWS = {"burgers net": "2.87e-2 (hard BC, S 2)", "burgers exact": "4.07e-3 (hard BC, S 2)",
+                  "advdiff net": "1.00e-2 (advdiff_forward_precision, S 4, the same weights)",
+                  "taylorgreen net": "8.28e-3 (hard BC, S 2)"}
+
+
+def tf32_gemm(name: str) -> bool:
+    """A cuBLAS/CUTLASS GEMM kernel that runs float32 inputs on the tensor
+    cores (TF32): its name says tf32, or it is a tensor-op float GEMM."""
+    low = name.lower()
+    return "tf32" in low or ("tensorop" in low and "gemm" in low and "_s" in low)
+
+
+def gemm_kernel(name: str) -> bool:
+    low = name.lower()
+    return "gemm" in low or "xmma" in low or "cutlass" in low
+
+
+def profiled_kernels(fn, n: int = 20, tries: int = 3) -> dict:
+    """{kernel name: launches} of the CUDA kernels n calls of fn run, by
+    torch.profiler.  Late in a whole run the profiler loses some of a
+    window's device records (phase 7 reads "not measured" at times), so
+    the checks on these counts ask only what a lost record cannot fake: a
+    kernel's presence or absence.  A window with no device record at all is
+    taken again, up to `tries` windows."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)}
+        if out:
+            return out
+    return out
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def precision_checks(dev) -> dict:
+    """Phase 20 (a): matmul_precision "high"/"default" against "highest" at
+    (2,256,256,256,1), P 16,384: mlp_apply, taylor_fields_2d and their
+    gradients differ by TF32's rounding (nonzero, below TF32_REL_MAX);
+    torch.profiler shows the network's products as TF32 GEMMs in the
+    forward and the backward and the contraction einsums and B1 as not; a
+    captured "high" step keeps TF32 GEMM nodes; then poisson2d_quality
+    "taylor" at "high" against "highest" in turns (graph steps/s, rel-L2) at
+    a cut schedule."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.models.mlp import MLP, _TF32Matmul, mlp_apply
+    from hpvpinns_tpu_torch.ops.contract import contract_2d
+    from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+    from hpvpinns_tpu_torch.problems.base import parameters
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    layers = (2, 256, 256, 256, 1)
+    net = random_net(MLP(layers=layers), rng, dev)
+    X = torch.as_tensor(rng.uniform(-1, 1, (16384, 2)), dtype=torch.float32, device=dev)
+    out = {}
+    for prec in ("highest", "high", "default"):
+        spec = MLP(layers=layers, precision=prec)
+        u = mlp_apply(spec, net, X)
+        f = taylor_fields_2d(spec, net, X[:, 0], X[:, 1])
+        g = torch.autograd.grad(u.square().sum() + sum(v.square().sum() for v in f.values()),
+                                parameters({"net": net, "pde": {}}))
+        out[prec] = (u.detach(), {k: v.detach() for k, v in f.items()}, g)
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"phase 20 (a): TF32 left on after the {prec} products")
+    u0, f0, g0 = out["highest"]
+    diffs = {}
+    for prec in ("high", "default"):
+        u1, f1, g1 = out[prec]
+        d = {"mlp_apply": rel_diff(u1, u0), **{f"fields {k}": rel_diff(f1[k], f0[k]) for k in f0},
+             "grads": max(rel_diff(a, b) for a, b in zip(g1, g0))}
+        bad = {k: v for k, v in d.items() if not 0.0 < v < TF32_REL_MAX}
+        if bad:
+            fail(f"phase 20 (a) {prec}: differences from highest outside (0, {TF32_REL_MAX}): {bad}")
+        diffs[prec] = d
+    A, W = X.new_empty((16384, 256)).uniform_(-1, 1), net[1]["W"].detach()
+    tf32_k = profiled_kernels(lambda: _TF32Matmul.apply(A, W))
+    ieee_k = profiled_kernels(lambda: A @ W)
+    if not all(tf32_gemm(k) for k in tf32_k if gemm_kernel(k)) or not any(gemm_kernel(k) for k in tf32_k) \
+            or any(tf32_gemm(k) for k in ieee_k):
+        fail(f"phase 20 (a): the TF32 function ran {tf32_k}, the plain product {ieee_k}")
+    # a training step of poisson2d_scaled at 3 x 256 ("taylor" at "highest" and
+    # "high", "pallas" at "high"): the network's products TF32 forward and
+    # backward at "high" only; B1 and the contractions never
+    cfg = dataclasses.replace(hv.poisson2d_scaled(), layers=layers)
+    steps = {}
+    for label, mode, prec in (("taylor highest", "taylor", "highest"), ("taylor high", "taylor", "high"),
+                              ("pallas high", "pallas", "high")):
+        prob = hv.build(dataclasses.replace(cfg, deriv_mode=mode, matmul_precision=prec), device=dev)
+        prm, opt = fresh_state(prob, cfg)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            prob.loss_fn(prm, prob.data)[0].backward()
+
+        k = profiled_kernels(step, n=3)
+        steps[label] = {"tf32": sum(v for n, v in k.items() if tf32_gemm(n)),
+                        "ieee_gemm": sum(v for n, v in k.items() if gemm_kernel(n) and not tf32_gemm(n)),
+                        "b1": sum(v for n, v in k.items() if "fused_fields" in n)}
+    el, bx, by = prob.data["elements"], prob.data["basis_x"], prob.data["basis_y"]
+    contraction_k = profiled_kernels(lambda: contract_2d(bx.wphi, by.wphi, el.x))
+    # "pallas": the forward's products are in B1 (IEEE fp32), its firsts-only VJP is the plain Taylor
+    # backward (TF32, as the JAX package's XLA VJP runs at the spec's precision)
+    if (steps["taylor highest"]["tf32"] or not steps["taylor high"]["tf32"] or not steps["pallas high"]["b1"]
+            or not steps["pallas high"]["tf32"] or any(tf32_gemm(n) for n in contraction_k)):
+        fail(f"phase 20 (a): the training steps' kernels {steps}, the contraction's {contraction_k}")
+    prob = hv.build(dataclasses.replace(cfg, deriv_mode="taylor", matmul_precision="high"), device=dev)
+    prm, opt = fresh_state(prob, cfg)
+    ch = _build_chunk(prob.loss_fn, opt, prm, prob.data, debug=True)
+    names = [n for n in dot_nodes(ch.graphs[0], "phase20_high_step") if "KERNEL" in n]
+    captured_tf32 = sum(tf32_gemm(n) for n in names)
+    if captured_tf32 < 1:
+        fail(f"phase 20 (a): the captured 'high' step has no TF32 GEMM node ({len(names)} kernel nodes)")
+    del ch
+    print(f"phase 20 (a) precision at {layers}, P 16384: max |diff| / max |highest| "
+          + "; ".join(f"{p}: " + ", ".join(f"{k} {v:.3e}" for k, v in d.items()) for p, d in diffs.items())
+          + f"; the TF32 function's kernels {sorted(tf32_k)}, the plain product's {sorted(ieee_k)}, the "
+          f"contraction's {sorted(contraction_k)}; poisson2d_scaled 3 x 256 kernel launches in three forward + "
+          f"backward steps {steps}; the captured 'high' step {len(names)} kernel nodes, {captured_tf32} TF32 GEMMs", flush=True)
+    # poisson2d_quality "taylor" at "high" against "highest", in turns
+    q = hv.poisson2d_quality()
+    q = dataclasses.replace(q, train=dataclasses.replace(q.train, iterations=P2DQ_PRECISION_CUT, lbfgs_iterations=0,
+                                                          check_every=200))
+    rows = {"highest": [], "high": []}
+    for prec in ("highest", "high", "high", "highest"):
+        c = dataclasses.replace(q, matmul_precision=prec)
+        prob = hv.build(c, device=dev)
+        res = hv.train(prob, verbose=False)
+        rows[prec].append((res.steps_per_sec, hv.evaluate_problem(prob, res.eval_params)["rel_l2"]))
+    for prec, r in rows.items():
+        if not all(math.isfinite(e) for _, e in r):
+            fail(f"phase 20 (a) poisson2d_quality {prec}: rel-L2 {r}")
+    print(f"phase 20 (a) poisson2d_quality taylor, Adam {P2DQ_PRECISION_CUT} (cut from 10k + 5k L-BFGS), turns "
+          f"highest high high highest: " + "; ".join(
+              f"{p} graph steps/s {[s for s, _ in r]} rel-L2 {[e for _, e in r]}" for p, r in rows.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"diffs": diffs, "steps": steps, "captured_tf32": captured_tf32, "p2d_quality": rows}
+
+
+def activation_checks(dev) -> None:
+    """Phase 20 (b): gelu, swish, and tanh with the adaptive slope, each
+    trained ACT_STEPS Adam steps on poisson2d_scaled under "taylor" and
+    "jvp": the loss falls, the two engines give the same fields at the
+    trained params to f32 tolerance (ACT_FIELD_TOL, over each field's
+    largest entry: the nested JVP and the Taylor propagation round
+    differently), and "pallas" raises the JAX package's ValueError."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
+    from hpvpinns_tpu_torch.models.mlp import mlp_apply
+    from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+
+    t0 = time.perf_counter()
+    base = hv.poisson2d_scaled()
+    base = dataclasses.replace(base, train=dataclasses.replace(base.train, iterations=ACT_STEPS,
+                                                               check_every=ACT_STEPS // 5))
+    for label, kw, message in (
+            ("gelu", {"activation": "gelu"}, "pallas fields kernel supports sin/tanh activations; got 'gelu'"),
+            ("swish", {"activation": "swish"}, "pallas fields kernel supports sin/tanh activations; got 'swish'"),
+            ("tanh + slope", {"adaptive_slope": True},
+             "deriv_mode='pallas' does not support adaptive_slope; use 'taylor'")):
+        rows = {}
+        for mode in ("taylor", "jvp"):
+            c = dataclasses.replace(base, deriv_mode=mode, **kw)
+            prob = hv.build(c, device=dev)
+            res = hv.train(prob, verbose=False)
+            loss = res.history["loss"]
+            if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+                fail(f"phase 20 (b) {label} {mode}: loss {loss.tolist()}")
+            rows[mode] = (res, prob, loss)
+        res, prob, _ = rows["taylor"]
+        el = prob.data["elements"]
+        x, y = el.x.reshape(-1), el.y.reshape(-1)
+        with torch.no_grad():
+            ft = taylor_fields_2d(prob.spec, res.params["net"], x, y)
+        fj = scalar_fields_2d(lambda Z: mlp_apply(prob.spec, res.params["net"], Z), x, y)
+        err = max(check_close(f"phase 20 (b) {label} {k}", fj[k].detach() / ft[k].abs().max(),
+                              ft[k] / ft[k].abs().max(), **ACT_FIELD_TOL) for k in ft)
+        slopes = [float(layer["s"].detach()) for layer in res.params["net"][:-1] if "s" in layer]
+        pp = hv.build(dataclasses.replace(base, deriv_mode="pallas", **kw), device=dev)
+        try:
+            pp.loss_fn(pp.init_params(torch.Generator().manual_seed(0)), pp.data)
+            fail(f"phase 20 (b) {label}: 'pallas' did not raise")
+        except ValueError as e:
+            if str(e) != message:
+                fail(f"phase 20 (b) {label}: 'pallas' raised {e!r}")
+        print(f"phase 20 (b) {label}: {ACT_STEPS} Adam steps, loss taylor {rows['taylor'][2][0]:.4e} -> "
+              f"{rows['taylor'][2][-1]:.4e} ({rows['taylor'][0].steps_per_sec:.1f} steps/s), jvp "
+              f"{rows['jvp'][2][0]:.4e} -> {rows['jvp'][2][-1]:.4e} ({rows['jvp'][0].steps_per_sec:.1f} steps/s); "
+              f"fields jvp vs taylor at the trained params, max abs err over the field's largest {err:.3e}"
+              + (f"; trained slopes {slopes}" if slopes else "") + "; pallas raises JAX's ValueError", flush=True)
+    print(f"phase 20 (b): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def ens_config(var_form: int, layers=None, iterations: int = ENS_STEPS, check: int = ENS_CHECK):
+    import hpvpinns_tpu_torch as hv
+
+    c = dataclasses.replace(hv.poisson2d_scaled(), var_form=var_form)
+    if layers is not None:
+        c = dataclasses.replace(c, layers=layers)
+    return dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=iterations, check_every=check,
+                                                            threshold=None))
+
+
+def replay_profile(ch, n_chunks: int = 2, chunk: int = 10) -> dict:
+    """Per step of a graph chunk, from torch.profiler over n_chunks chunks:
+    the kernels' device µs, the busy share (their device time over the
+    window's wall time) and the five largest kernels' µs."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ch(chunk)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            ch(chunk)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)]
+    total, steps = sum(e.self_device_time_total for e in kernels), n_chunks * chunk
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"device_us": total / steps, "busy": total / wall_us,
+            "top": [(e.key[:70], round(e.self_device_time_total / steps, 2), e.count // steps) for e in top]}
+
+
+def ensemble_step_launches(prob, seeds, label: str, profile: bool = False) -> tuple:
+    """One eager ensemble step (its launches counted) and the captured step's
+    nodes: (host launches of one step, graph nodes of the captured step,
+    and with `profile` the chunk's replay_profile, else None)."""
+    from hpvpinns_tpu_torch.training import ensemble as ens
+    from hpvpinns_tpu_torch.training.trainer import make_optimizer
+
+    stack = ens.init_ensemble(prob, seeds)
+    opt = make_optimizer(prob.config.train, stack)
+    step = ens._ensemble_step(prob.loss_fn, opt, stack, prob.data)
+    zero_counts()
+    step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ch = ens._build_ens_chunk(prob.loss_fn, opt, stack, prob.data, debug=True)
+    nodes = graph_nodes(ch.graphs[0], f"phase20_{label}")
+    prof = replay_profile(ch) if profile else None
+    del ch
+    return counts, nodes, prof
+
+
+def ensemble_rates(probs: dict, seeds, label: str) -> dict:
+    """train_ensemble's steps/s (after its first chunk) and peak device
+    memory, the modes of `probs` in turns a b b a, each run's kernel launches
+    counted (zeroed just before, read just after): {mode: [(steps/s,
+    seed-steps/s, peak MiB, launches), ...]}."""
+    import hpvpinns_tpu_torch as hv
+
+    a, b = list(probs)
+    out = {a: [], b: []}
+    for mode in (a, b, b, a):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = hv.train_ensemble(probs[mode], seeds=seeds, verbose=False)
+        counts = read_counts()
+        loss = res.history["loss"]
+        if not (np.all(np.isfinite(loss)) and np.all(loss[-1] < loss[0])):
+            fail(f"phase 20 {label} {mode}: member losses {loss[0].tolist()} -> {loss[-1].tolist()}")
+        out[mode].append((res.steps_per_sec, res.seed_steps_per_sec, torch.cuda.max_memory_allocated() / 2**20,
+                          counts))
+    return out
+
+
+def ensemble_record_width(dev) -> dict:
+    """Phase 20 (c): poisson2d_scaled (2,20,20,20,1) var_form 1, S in
+    ENS_SEEDS, "taylor" and "pallas": steps/s and seed-steps/s in turns; B1
+    launches S a step (an eager step's count and the captured step's
+    nodes); after one step every member equals its serial `train` twin
+    (ENS_STEP_TOL, f32; an entry whose twin gradient is below 1e-3 of its
+    leaf's largest is excused, where Adam's first step is lr x sign(g) and
+    the sign is rounding).  Returns the launches of each path."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+
+    t0 = time.perf_counter()
+    paths = {}
+    for S in ENS_SEEDS:
+        seeds = tuple(range(S))
+        probs = {m: hv.build(dataclasses.replace(ens_config(1), deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
+        counts, nodes, _ = ensemble_step_launches(probs["pallas"], seeds, f"p2d_scaled_f1_S{S}")
+        if counts["fused_fields"] != S or nodes["fused_fields"] != S:
+            fail(f"phase 20 (c) S {S}: B1 launched {counts['fused_fields']} times in a step, {nodes['fused_fields']} "
+                 f"nodes in the captured step; expected {S}")
+        rates = ensemble_rates(probs, seeds, f"(c) S {S}")
+        paths[f"ensemble p2d_scaled f1 S={S} pallas"] = rates["pallas"][0][3]
+        print(f"phase 20 (c) poisson2d_scaled (2,20,20,20,1) var_form 1 S {S}: B1 {counts['fused_fields']} launches "
+              f"an eager step, {nodes['fused_fields']} nodes in the captured step ({nodes['nodes']} nodes); "
+              f"{ENS_STEPS} steps a run, turns taylor pallas pallas taylor: "
+              + "; ".join(f"{m} steps/s {[r[0] for r in v]} seed-steps/s {[r[1] for r in v]}" for m, v in rates.items())
+              + f"; host launches of a pallas run {rates['pallas'][0][3]}", flush=True)
+    # where an S 4 step's device time goes, both modes (replays of the captured chunk)
+    for mode in ("taylor", "pallas"):
+        prob = hv.build(dataclasses.replace(ens_config(1), deriv_mode=mode), device=dev)
+        _, nodes, prof = ensemble_step_launches(prob, (0, 1, 2, 3), f"p2d_scaled_f1_S4_{mode}", profile=True)
+        print(f"phase 20 (c) S 4 {mode}, the captured step ({nodes['nodes']} nodes): device us/step "
+              f"{prof['device_us']!r}, busy {prof['busy']!r}; top kernels (us/step, launches/step) {prof['top']}",
+              flush=True)
+    # one step against the serial twins, S 4, both modes
+    for mode in ("taylor", "pallas"):
+        c = ens_config(1, iterations=1, check=1)
+        prob = hv.build(dataclasses.replace(c, deriv_mode=mode), device=dev)
+        res = hv.train_ensemble(prob, seeds=(0, 1, 2, 3), verbose=False)
+        worst, excused = 0.0, 0
+        for i in range(4):
+            twin = hv.train(prob, dataclasses.replace(c.train, seed=i), verbose=False)
+            init = prob.init_params(torch.Generator().manual_seed(i))
+            loss, _ = prob.loss_fn(init, prob.data)
+            grads = torch.autograd.grad(loss, parameters(init))
+            for a, b, g in zip(parameters(res.member(i)), parameters(twin.params), grads):
+                b = b.detach()
+                err = (a - b).abs()
+                ok = (err <= ENS_STEP_TOL["atol"] + ENS_STEP_TOL["rtol"] * b.abs()) | (g.abs() <= 1e-3 * g.abs().max())
+                if not ok.all():
+                    fail(f"phase 20 (c) {mode} member {i}: one step differs from its serial twin by "
+                         f"{err.max().item():.3e}")
+                excused += int(((err > ENS_STEP_TOL["atol"] + ENS_STEP_TOL["rtol"] * b.abs()) & ok).sum())
+                worst = max(worst, float((err / (b.abs() + 1e-30)).masked_fill(~ok | (b.abs() < 1e-6), 0).max()))
+            check_close(f"phase 20 (c) {mode} member {i} loss", torch.tensor(res.final_aux["loss"][i]),
+                        torch.tensor(twin.final_aux["loss"]), rtol=1e-5, atol=0.0)
+        print(f"phase 20 (c) {mode}: one ensemble step (S 4) against each member's serial train: max relative "
+              f"difference {worst:.3e} (rtol {ENS_STEP_TOL['rtol']}, atol {ENS_STEP_TOL['atol']}; {excused} entries "
+              f"excused at a rounding-level gradient); losses after the step within 1e-5", flush=True)
+    print(f"phase 20 (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def ensemble_through_b2(dev) -> dict:
+    """Phase 20 (d): var_form 0, S 4, "pallas": B2 (resident) and the block
+    sum launch S times a step (an eager step's count and the captured
+    step's nodes); each member's vmapped gradient against its own unbatched
+    "pallas" gradient (ENS_GRAD_TOL: the same kernels on the same member
+    parameters, but the vmapped loss's contractions add in another order,
+    so B2's cotangent differs by rounding)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import parameters
+    from hpvpinns_tpu_torch.training import ensemble as ens
+
+    t0 = time.perf_counter()
+    S, seeds = 4, (0, 1, 2, 3)
+    prob = hv.build(dataclasses.replace(ens_config(0), deriv_mode="pallas"), device=dev)
+    counts, nodes, _ = ensemble_step_launches(prob, seeds, "p2d_scaled_f0_S4")
+    for k in SECOND_PATH:
+        if counts[k] != S or nodes[k] != S:
+            fail(f"phase 20 (d): {k} launched {counts[k]} times in a step, {nodes[k]} nodes; expected {S}")
+    stack = ens.init_ensemble(prob, seeds)
+    zero_counts()
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(lambda p: prob.loss_fn(p, prob.data), has_aux=True))(
+        ens._detached(stack))
+    vm_counts = read_counts()
+    worst = 0.0
+    for i in range(S):
+        member = prob.init_params(torch.Generator().manual_seed(i))
+        loss, _ = prob.loss_fn(member, prob.data)
+        own = torch.autograd.grad(loss, parameters(member))
+        for j, (a, b) in enumerate(zip(parameters(grads), own)):
+            scale = b.abs().max()
+            worst = max(worst, check_close(f"phase 20 (d) member {i} leaf {j}", a[i] / scale, b / scale,
+                                           **ENS_GRAD_TOL))
+    rates = ensemble_rates({"taylor": hv.build(dataclasses.replace(ens_config(0), deriv_mode="taylor"), device=dev),
+                            "pallas": prob}, seeds, "(d)")
+    print(f"phase 20 (d) poisson2d_scaled var_form 0 S 4 pallas: an eager step launches {counts} (the captured step's "
+          f"nodes {nodes}); the vmapped gradient's launches {vm_counts}; each member's gradient against its own "
+          f"unbatched pallas gradient, max abs err over the leaf's largest {worst:.3e} (rtol {ENS_GRAD_TOL['rtol']}, "
+          f"atol {ENS_GRAD_TOL['atol']}); turns: "
+          + "; ".join(f"{m} steps/s {[r[0] for r in v]} seed-steps/s {[r[1] for r in v]}" for m, v in rates.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"ensemble p2d_scaled f0 S=4 pallas": rates["pallas"][0][3]}
+
+
+def ensemble_wide_point(dev) -> dict:
+    """Phase 20 (e): the JAX package's wide ensemble operating point
+    (bench.py::measure_wide_point): poisson2d_scaled at (2,256,256,256,1),
+    S 4, P 16,384; var_form 1 and var_form 0 (the layered B2, S launches a
+    step), "pallas" against "taylor" in turns: graph steps/s, seed-steps/s
+    and peak device memory."""
+    import hpvpinns_tpu_torch as hv
+
+    t0 = time.perf_counter()
+    layers, seeds, paths = (2, 256, 256, 256, 1), (0, 1, 2, 3), {}
+    for vf in (1, 0):
+        c = ens_config(vf, layers=layers, iterations=WIDE_ENS_STEPS, check=WIDE_ENS_STEPS // 2)
+        probs = {m: hv.build(dataclasses.replace(c, deriv_mode=m), device=dev) for m in ("pallas", "taylor")}
+        path = SECOND_PATH[:1] + ("fused_fields_bwd_layered", "block_sum") if vf == 0 else ("fused_fields",)
+        counts, nodes, _ = ensemble_step_launches(probs["pallas"], seeds, f"wide_f{vf}_S4")
+        # the layered B2 is one wrapper call of several kernels: its nodes are a multiple of S
+        if any(counts[k] != 4 or nodes[k] % 4 or nodes[k] < 4 or (nodes[k] != 4 and k != "fused_fields_bwd_layered")
+               for k in path):
+            fail(f"phase 20 (e) var_form {vf}: an eager step launched {counts}, the captured step's nodes {nodes}")
+        rates = ensemble_rates(probs, seeds, f"(e) var_form {vf}")
+        paths[f"ensemble p2d_scaled 3 x 256 f{vf} S=4 pallas"] = rates["pallas"][0][3]
+        print(f"phase 20 (e) poisson2d_scaled {layers} var_form {vf} S 4, P 16384: an eager pallas step launches "
+              f"{ {k: counts[k] for k in path} }; {WIDE_ENS_STEPS} steps a run, turns pallas taylor taylor pallas: "
+              + "; ".join(f"{m} steps/s {[r[0] for r in v]} seed-steps/s {[r[1] for r in v]} peak MiB "
+                          f"{[round(r[2], 1) for r in v]}" for m, v in rates.items()), flush=True)
+    block_sum_beside_torch(dev)
+    print(f"phase 20 (e): {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def block_sum_beside_torch(dev) -> dict:
+    """Phase 20 (e): the block sum against `partials.sum(0)` at the two
+    large partial shapes of the 3 x 256 network (v3's 512 rows and the
+    layered form's 128 rows of 132,612 columns): device µs (torch.profiler)
+    and ms a call (CUDA events), the results within SUM_TOL of the largest
+    column sum.  Returns
+    {shape: {kernel: (device µs, ms)}}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel
+
+    out = {}
+    rng = np.random.default_rng(15)
+    for rows in (512, 128):
+        partials = torch.as_tensor(rng.standard_normal((rows, 132612)), dtype=torch.float32, device=dev)
+        want = partials.sum(0)
+        scale = want.abs().max()  # random partials: a column's sum can cancel to ~0, so against the largest
+        err = check_close(f"phase 20 (e) block sum {rows} x 132612", block_sum_kernel(partials) / scale, want / scale,
+                          **SUM_TOL)
+        out[f"{rows} x 132612"] = {name: (device_us(fn), cuda_ms(fn)) for name, fn in (
+            ("block_sum", lambda: block_sum_kernel(partials)), ("torch.sum", lambda: partials.sum(0)))}
+        b = bound_ms(4 * (rows * 132612 + 132612), rows * 132612)
+        print(f"phase 20 (e) block sum against partials.sum(0) at {rows} x 132612: max abs err {err:.3e}; "
+              + "; ".join(f"{k} device us {v[0]!r} ms {v[1]!r}" for k, v in out[f"{rows} x 132612"].items())
+              + f"; bound {b[0] * 1e3:.2f} us ({b[1]})", flush=True)
+    return out
+
+
+def march_configs(full: bool = False) -> list:
+    """Phase 20 (f)'s marches: (label, config, time_march arguments, the
+    kernels of its path).  Cut schedules (MARCH_CUT, per slab) unless
+    `full`, which runs the study's equal-total arms
+    (benchmarks/timemarch_study.py: every phase's budget split over the
+    slabs, burgers with its GN-40 QR tail)."""
+    import hpvpinns_tpu_torch as hv
+
+    def cut(c, family, s):
+        """The study's per-slab shape (the single arm's time elements split
+        over the slabs), at its equal-total schedule or the cut one."""
+        c = dataclasses.replace(c, n_elements_t=max(1, c.n_elements_t // s))
+        t = c.train
+        if full:
+            return dataclasses.replace(c, train=dataclasses.replace(
+                t, iterations=max(1, t.iterations // s), lbfgs_iterations=t.lbfgs_iterations // s,
+                gn_iterations=t.gn_iterations // s, check_every=max(1, t.check_every // s)))
+        adam, lbfgs = MARCH_CUT[family]
+        return dataclasses.replace(c, train=dataclasses.replace(t, iterations=adam, lbfgs_iterations=lbfgs,
+                                                                gn_iterations=0, check_every=100))
+
+    bq = hv.burgers_quality()
+    bq = dataclasses.replace(bq, n_elements_t=2, train=dataclasses.replace(bq.train, gn_iterations=40, gn_solve="qr"))
+    adv = dataclasses.replace(hv.AdvDiffConfig(inverse=False, deriv_mode="pallas"), n_elements_t=4)
+    adv = dataclasses.replace(adv, train=dataclasses.replace(adv.train, iterations=4 * adv.train.iterations))
+    tg = dataclasses.replace(hv.taylorgreen_quality(), hard_bc=True, p_zero_mean_weight=10.0)
+    return [
+        ("burgers net", cut(bq, "burgers", 2), dict(n_slabs=2, ic="net"), ()),
+        ("burgers exact", cut(bq, "burgers", 2), dict(n_slabs=2, ic="exact"), ()),
+        ("advdiff net", cut(adv, "advdiff", 4), dict(n_slabs=4, ic="net", budget_weights=(2.2, 0.8, 0.5, 0.5)),
+         SECOND_PATH),
+        ("taylorgreen net", cut(tg, "taylorgreen", 2), dict(n_slabs=2, ic="net"), ()),
+    ]
+
+
+def marches(dev, full: bool = False) -> dict:
+    """Phase 20 (f): each march of march_configs through `time_march`, each
+    slab's `train` measured (wall s, device memory still allocated after
+    it, the kernels' host launches) and its params snapshotted: per-slab and
+    global rel-L2 beside MEASUREMENTS.md's rows; fails on a non-finite
+    rel-L2, memory still allocated after a slab's train more than
+    MARCH_MEM_GROWTH above slab 0's, a kernel of the path that did not
+    launch, or a slab's params changed by the slabs after it."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.problems.base import map_params, parameters
+    from hpvpinns_tpu_torch.training import timemarch as tm
+
+    t_all = time.perf_counter()
+    paths = {}
+    real_train = tm.train
+    for label, c, kw, kernels in march_configs(full):
+        rows = []
+
+        def train_fn(problem, tc=None, mesh=None, params=None, verbose=False):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = real_train(problem, tc, mesh=mesh, params=params, verbose=verbose)
+            torch.cuda.synchronize()
+            rows.append({"wall_s": time.perf_counter() - t0, "allocated": torch.cuda.memory_allocated(),
+                         "counts": read_counts(), "iterations": res.iterations_run,
+                         "snapshot": map_params(lambda t: t.detach().clone(), res.eval_params)})
+            return res
+
+        tm.train = train_fn
+        try:
+            t0 = time.perf_counter()
+            res = hv.time_march(c, verbose=False, device=dev, **kw)
+            wall = time.perf_counter() - t0
+        finally:
+            tm.train = real_train
+        total = {}
+        for k, row in enumerate(rows):
+            for name, v in row["counts"].items():
+                total[name] = total.get(name, 0) + v
+            if kernels and min(row["counts"][n] for n in kernels) < 1:
+                fail(f"phase 20 (f) {label} slab {k}: host launches {row['counts']}")
+            if row["allocated"] - rows[0]["allocated"] > MARCH_MEM_GROWTH:
+                fail(f"phase 20 (f) {label} slab {k}: {row['allocated']} B allocated after its train, slab 0 "
+                     f"{rows[0]['allocated']} B: memory grows with the slabs")
+            for a, b in zip(parameters(res.params[k]), parameters(row["snapshot"])):
+                if not torch.equal(a.detach(), b):
+                    fail(f"phase 20 (f) {label}: slab {k}'s params changed after it trained")
+        per = [m["rel_l2"] for m in res.per_slab]
+        if not (all(math.isfinite(e) for e in per) and math.isfinite(res.metrics["rel_l2"])):
+            fail(f"phase 20 (f) {label}: rel-L2 {per}, global {res.metrics['rel_l2']}")
+        if kernels:
+            paths[f"march {label}"] = total
+        jax = JAX_MARCH_ROWS.get(label)
+        extra = ", ".join(f"{k} {v:.4e}" for k, v in res.metrics.items() if k.startswith("rel_l2_"))
+        t = c.train
+        print(f"phase 20 (f) {label}: {kw['n_slabs']} slabs, a slab Adam {t.iterations} + L-BFGS "
+              f"{t.lbfgs_iterations} + GN {t.gn_iterations}{' x weights ' + str(kw['budget_weights']) if 'budget_weights' in kw else ''}"
+              f" ({'the study arm' if full else 'cut'}); per-slab rel-L2 {[f'{e:.4e}' for e in per]}, global "
+              f"{res.metrics['rel_l2']:.4e}" + (f" ({extra})" if extra else "")
+              + (f" (MEASUREMENTS.md row {jax} at its own budget)" if jax else "")
+              + f"; per-slab wall s {[round(r['wall_s'], 2) for r in rows]}; device MiB allocated after each slab "
+              f"{[round(r['allocated'] / 2**20, 1) for r in rows]}; host launches {total}; {wall:.1f} s", flush=True)
+    print(f"phase 20 (f): {time.perf_counter() - t_all:.1f} s", flush=True)
+    return paths
+
+
+def phase20(dev, parts=("precision", "activations", "ensemble", "march")) -> dict:
+    """Phase 20, the parts named: (a) precision and (b) activations
+    ("precision", "activations"), (c)-(e) the ensemble ("ensemble"), (f)
+    the marches ("march").  Returns the ensemble's and the marches' host
+    launches by path."""
+    t0 = time.perf_counter()
+    paths = {}
+    if "precision" in parts:
+        precision_checks(dev)
+    if "activations" in parts:
+        activation_checks(dev)
+    if "ensemble" in parts:
+        paths.update(ensemble_record_width(dev))
+        paths.update(ensemble_through_b2(dev))
+        paths.update(ensemble_wide_point(dev))
+    if "march" in parts:
+        paths.update(marches(dev))
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3017,6 +3634,21 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--adaptive"]:  # phase 19 (c): the parts named (default all) at their recorded budgets
         adaptive_full(dev, sys.argv[2:] or ("studies", "burgers", "sweep"))
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--ensemble-only"]:  # for work on the options and the ensemble: phases 1, 2, 20 (a)-(e)
+        phase20(dev, ("precision", "activations", "ensemble"))
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--march-only"]:  # for work on time marching: phases 1, 2 and 20 (f), no summary
+        phase20(dev, ("march",))
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--march"]:  # phase 20 (f)'s marches at the study's equal-total schedules
+        marches(dev, full=True)
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -3209,6 +3841,11 @@ def main() -> int:
     # adaptive_solve under "pallas" round by round, the direct-solver loop
     paths.update(phase19(dev))
 
+    # 20. the network's last options (TF32 precision, gelu/swish, the
+    # adaptive slope), the seed ensemble with the kernels under vmap, and
+    # slab time marching
+    ens_paths = phase20(dev)
+
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
     wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
@@ -3281,6 +3918,12 @@ def main() -> int:
                                 "jacobian_s": gn_jac["jacobian_s"], "taylor_jacobian_s": gn_jac["taylor_jacobian_s"],
                                 "shape": "advdiff_forward_precision without layer_feature, f32, one reverse build"}
         k["launches_by_path"] = {path: c.get(k["name"], 0) for path, c in paths.items()}
+        # phase 20's train_ensemble runs (S members: the warm-up and capture of the step and of the
+        # metrics, S launches each) and the "pallas" AdvDiff march, counted apart from `launches`
+        k["ensemble_launches"] = {path: c.get(k["name"], 0) for path, c in ens_paths.items()
+                                  if path.startswith("ensemble") and c.get(k["name"], 0)}
+        k["march_launches"] = {path: c.get(k["name"], 0) for path, c in ens_paths.items()
+                               if path.startswith("march") and c.get(k["name"], 0)}
         k["graph_nodes_by_path"] = {path: n.get(k["name"], 0) for path, n in nodes.items()}
         if k["name"] in adv:
             k["advdiff_of_record"] = adv[k["name"]]

@@ -11,7 +11,8 @@ velocity vector), Burgers (forms 0/1, hard BC, the front feature, strong
 collocation) and the Navier-Stokes systems Kovasznay and Taylor-Green (forms
 0/1, hard BC, viscosity identification, the pressure gauges) problems with the Adam, L-BFGS (optax's) and Gauss-Newton/LM
 trainer, checkpoints (training/checkpoint.py) and the float64 polish
-(training/hybrid.py).  Their derivative fields come from the
+(training/hybrid.py), the seed ensemble (training/ensemble.py) and slab
+time marching (training/timemarch.py).  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
@@ -58,12 +59,24 @@ from hpvpinns_tpu_torch.convert import params_from_jax, params_to_numpy
 from hpvpinns_tpu_torch.evaluate import evaluate as evaluate_problem
 from hpvpinns_tpu_torch.evaluate import per_element_rel_l2, predict, rel_l2, strong_residual
 from hpvpinns_tpu_torch.problems import build
-from hpvpinns_tpu_torch.training import GNResult, TrainResult, gauss_newton, train
+from hpvpinns_tpu_torch.training import (
+    EnsembleResult,
+    GNResult,
+    TimeMarchResult,
+    TrainResult,
+    gauss_newton,
+    time_march,
+    train,
+    train_ensemble,
+)
+
+__version__ = "0.1.0"
 
 __all__ = [
     "AdvDiff2DConfig",
     "AdvDiffConfig",
     "BurgersConfig",
+    "EnsembleResult",
     "Helmholtz2DConfig",
     "KovasznayConfig",
     "Poisson1DConfig",
@@ -71,6 +84,7 @@ __all__ = [
     "Poisson3DConfig",
     "GNResult",
     "TaylorGreenConfig",
+    "TimeMarchResult",
     "TrainConfig",
     "TrainResult",
     "advdiff2d_precision",
@@ -104,5 +118,7 @@ __all__ = [
     "strong_residual",
     "taylorgreen_precision",
     "taylorgreen_quality",
+    "time_march",
     "train",
+    "train_ensemble",
 ]

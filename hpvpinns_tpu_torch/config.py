@@ -3,9 +3,8 @@ AdvDiff, AdvDiff-2D, Burgers, Kovasznay and Taylor-Green subset of
 hpvpinns_tpu/config.py.
 
 Same frozen dataclasses, fields and defaults, so a JAX configuration maps one
-to one.  Fields whose feature is not ported yet (matmul precision
-"high"/"default", the adaptive slope) are kept and rejected with
-NotImplementedError where they are used; ROADMAP.md lists them.
+to one.  matmul_precision "high"/"default" is TF32 on the card for the
+network's products only (models/mlp.py).
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ class Poisson1DConfig:
     layers: Tuple[int, ...] = (1, 20, 20, 20, 20, 1)
     activation: str = "sin"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 1  # 1 | 2 | 3 (zero/one/two integrations by parts)
     n_elements: int = 1
     grid: Optional[Tuple[float, ...]] = None  # non-uniform element boundaries
@@ -73,7 +72,7 @@ class Poisson2DConfig:
     layers: Tuple[int, ...] = (2, 5, 5, 5, 1)
     activation: str = "tanh"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     scheme: str = "VPINNs"  # 'VPINNs' | 'PINNs' (strong-form collocation)
     var_form: object = 1  # 0 | 1 | 2 | "2c"
     n_elements_x: int = 4
@@ -109,7 +108,7 @@ class Helmholtz2DConfig:
     layers: Tuple[int, ...] = (2, 30, 30, 30, 1)
     activation: str = "tanh"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 1  # 0 | 1 (Laplacian once integrated by parts; the mass term needs no derivatives)
     n_elements_x: int = 4
     n_elements_y: int = 4
@@ -146,7 +145,7 @@ class AdvDiffConfig:
     layers: Tuple[int, ...] = (2, 5, 5, 5, 1)
     activation: str = "tanh"  # AdvDiff.py:226
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 0  # 0 | 1 (AdvDiff.py:38) | 2 (twice-IBP diffusion with a
     # live boundary flux; scalar eps)
     n_elements_x: int = 1
@@ -205,7 +204,7 @@ class Poisson3DConfig:
     activation: str = "tanh"
     var_form: int = 1  # 0 | 1
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     n_elements_x: int = 2
     n_elements_y: int = 2
     n_elements_z: int = 2
@@ -241,7 +240,7 @@ class AdvDiff2DConfig:
     layers: Tuple[int, ...] = (3, 16, 16, 16, 1)
     activation: str = "tanh"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 1  # 0 | 1 (both diffusion terms once integrated by parts)
     n_elements_x: int = 1
     n_elements_y: int = 1
@@ -290,7 +289,7 @@ class BurgersConfig:
     layers: Tuple[int, ...] = (2, 20, 20, 20, 20, 1)
     activation: str = "tanh"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 1  # 0 | 1 (conservation-form convection integrated by parts)
     n_elements_x: int = 4
     n_elements_t: int = 2
@@ -339,7 +338,7 @@ class KovasznayConfig:
     layers: Tuple[int, ...] = (2, 30, 30, 30, 3)  # (u, v, p) output triple
     activation: str = "tanh"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 1  # 0 | 1 (once-IBP diffusion + pressure gradient)
     re: float = 40.0  # Reynolds number; nu = 1/re
     n_elements_x: int = 2
@@ -395,7 +394,7 @@ class TaylorGreenConfig:
     layers: Tuple[int, ...] = (3, 30, 30, 30, 3)
     activation: str = "tanh"
     adaptive_slope: bool = False
-    matmul_precision: str = "highest"  # "highest" = IEEE fp32 matmuls, TF32 off
+    matmul_precision: str = "highest"  # "highest" = IEEE fp32; "high"/"default" = TF32 (models/mlp.py)
     var_form: int = 1  # 0 | 1 (once-IBP diffusion + pressure, in space)
     hard_bc: bool = False  # lifted ansatz: the velocity exact on the side walls and
     # the t = t_start face (the space-time Coons interpolant); requires bc_pressure=True

@@ -75,14 +75,23 @@ def pack_params(spec: MLP, params):
     return packed.contiguous(), np.asarray(spec.layers, dtype=np.int32)
 
 
-def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int, max_width: int = FWD_MAX_WIDTH) -> None:
-    """Raise on anything a kernel does not take: widths above max_width (the
-    limit of the kernel that is served), more than MAX_LAYERS layers, a
-    non-scalar output, activations other than sin/tanh, X that is not
-    contiguous float32 on a CUDA device, or params of another type, shape or
-    device."""
+def check_kernel_network(spec: MLP) -> None:
+    """Raise the JAX package's ValueErrors for a network no kernel takes, on
+    every device: an adaptive slope (pallas_fields.py:113-116), then an
+    activation other than sin/tanh (:40-45)."""
+    if spec.adaptive_slope:
+        raise ValueError("deriv_mode='pallas' does not support adaptive_slope; use 'taylor'")
     if spec.activation not in _ACTIVATION_CODE:
-        raise ValueError(f"fused_fields kernel supports sin/tanh; got {spec.activation!r}")
+        raise ValueError(f"pallas fields kernel supports sin/tanh activations; got {spec.activation!r}")
+
+
+def check_kernel_args(spec: MLP, params, X: torch.Tensor, n_dirs: int, max_width: int = FWD_MAX_WIDTH) -> None:
+    """Raise on anything a kernel does not take: an adaptive slope or an
+    activation other than sin/tanh (check_kernel_network), widths above
+    max_width (the limit of the kernel that is served), more than MAX_LAYERS
+    layers, a non-scalar output, X that is not contiguous float32 on a CUDA
+    device, or params of another type, shape or device."""
+    check_kernel_network(spec)
     if spec.layers[-1] != 1:
         raise ValueError(f"fused_fields kernel needs a scalar output; got layers {spec.layers}")
     if max(spec.layers) > max_width or spec.n_layers > MAX_LAYERS:
@@ -730,12 +739,28 @@ def _fields_flat_vjp(spec: MLP, n_dirs: int, second: bool, want_x: bool, g: torc
         return tuple(torch.autograd.grad(out, ([Xd] if want_x else []) + fd, g))
 
 
+def _member(t: torch.Tensor, dim, i: int) -> torch.Tensor:
+    """Member i of a tensor batched along `dim` (None: not batched, the same
+    tensor for every member).  A contiguous stack gives a contiguous view
+    whose data_ptr is the member's own slice of the stack."""
+    return t if dim is None else t.select(dim, i).contiguous()
+
+
+def _members(info, in_dims, args):
+    """[args of member i for i in range(batch_size)], each batched tensor
+    replaced by its member's slice."""
+    return [[_member(a, d, i) for a, d in zip(args, in_dims)] for i in range(info.batch_size)]
+
+
 class _FieldsFlatVjp(torch.autograd.Function):
-    """The VJP of fields_flat as a function of its cotangent g, so that
-    torch.func.vmap can batch it: the vmap rule runs the VJP once for each
-    cotangent of the batch, on the one primal (the JAX package batches B2's
-    grid instead; a batched launch is ROADMAP B' 5).  Not differentiable
-    again, as the JAX kernel's VJP is not."""
+    """The VJP of fields_flat as a function of its cotangent, so that
+    torch.func.vmap can batch it.  The vmap rule runs the VJP once for each
+    member of the batch: over the cotangent alone on one primal (the
+    Gauss-Newton dual Jacobian), or over the parameters with the cotangent
+    (and X where batched) alongside (a seed ensemble: `grad` inside
+    `vmap`).  The JAX package batches B2's grid instead; one launch for the
+    whole batch is ROADMAP B' 5 (cotangents) and B' 6 (members).  Not
+    differentiable again, as the JAX kernel's VJP is not."""
 
     @staticmethod
     def forward(spec, n_dirs, second, want_x, g, X, *flat):
@@ -751,26 +776,31 @@ class _FieldsFlatVjp(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, spec, n_dirs, second, want_x, g, X, *flat):
-        if any(d is not None for d in in_dims[5:]):
-            raise NotImplementedError("fields_flat's VJP is batched over its cotangent only")
-        gb = g.movedim(in_dims[4], 0)
-        per = [_fields_flat_vjp(spec, n_dirs, second, want_x, gi, X, flat) for gi in gb.unbind(0)]
+        per = [_fields_flat_vjp(spec, n_dirs, second, want_x, gi, Xi, fi)
+               for gi, Xi, *fi in _members(info, in_dims[4:], (g, X, *flat))]
         out = tuple(torch.stack(parts) for parts in zip(*per))
         return out, (0,) * len(out)
 
 
+def _fields_flat_forward(spec: MLP, n_dirs: int, second: bool, X: torch.Tensor, flat) -> torch.Tensor:
+    params = _unflatten(flat)
+    if X.is_cuda:
+        return fused_fields_kernel(spec, params, X, n_dirs, second)
+    return fields_flat_reference(spec, params, X, n_dirs, second)
+
+
 class _FieldsFlat(torch.autograd.Function):
-    """fields_flat with B1 as its forward and _FieldsFlatVjp as its VJP.  It
-    has no forward-mode rule, as the JAX package's custom_vjp has none: a
-    JVP through it (torch.func.jvp, the forward-mode Jacobian, Gauss-Newton's
-    matrix-free solves) raises."""
+    """fields_flat with B1 as its forward and _FieldsFlatVjp as its VJP.  Its
+    vmap rule runs the forward once for each member of a batch of networks
+    (and of X where batched): B1 on a CUDA tensor, each launch reading its
+    member's slices of the stacked parameters, the plain version on a CPU
+    one.  It has no forward-mode rule, as the JAX package's custom_vjp has
+    none: a JVP through it (torch.func.jvp, the forward-mode Jacobian,
+    Gauss-Newton's matrix-free solves) raises."""
 
     @staticmethod
     def forward(spec, n_dirs, second, X, *flat):
-        params = _unflatten(flat)
-        if X.is_cuda:
-            return fused_fields_kernel(spec, params, X, n_dirs, second)
-        return fields_flat_reference(spec, params, X, n_dirs, second)
+        return _fields_flat_forward(spec, n_dirs, second, X, flat)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -790,9 +820,16 @@ class _FieldsFlat(torch.autograd.Function):
     def jvp(ctx, *tangents):
         raise TypeError(FORWARD_MODE_ERROR)
 
+    @staticmethod
+    def vmap(info, in_dims, spec, n_dirs, second, X, *flat):
+        out = [_fields_flat_forward(spec, n_dirs, second, Xi, fi) for Xi, *fi in _members(info, in_dims[3:], (X, *flat))]
+        return torch.stack(out), 0
+
 
 def fields_flat(spec: MLP, params, X: torch.Tensor, n_dirs: int, second: bool) -> torch.Tensor:
-    """Differentiable fused fields at X [P, d]: [P, F] (u, u_1..u_n[, u_11..u_nn])."""
+    """Differentiable fused fields at X [P, d]: [P, F] (u, u_1..u_n[, u_11..u_nn]).
+    A network no kernel takes raises on the CPU too, as in the JAX package."""
+    check_kernel_network(spec)
     return _FieldsFlat.apply(spec, n_dirs, second, X, *_flatten(params))
 
 

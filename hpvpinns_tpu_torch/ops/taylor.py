@@ -7,20 +7,29 @@ layer, with z = h W + b (W constant w.r.t. x):
     z_kk = h_kk W           a_kk = act''(z) z_k^2 + act'(z) z_kk
 
 One traversal gives u and, per direction k, u_k (and u_kk when `second`).
-Autograd differentiates straight through it.  This is the port's plain
-version of the fused field kernel (ops/fused_fields.py) and the oracle it is
-checked against.
+With an adaptive slope s the activation is act(s z), so act' and act''
+gain s and s^2.  The products run at the spec's matmul precision
+(models/mlp.py::network_matmul).  Autograd differentiates straight through
+it.  This is the port's plain version of the fused field kernel
+(ops/fused_fields.py) and the oracle it is checked against.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from hpvpinns_tpu_torch.models.mlp import MLP
+from hpvpinns_tpu_torch.models.mlp import MLP, network_matmul
+
+_GELU_C = math.sqrt(2.0 / math.pi)
+_GELU_A = 0.044715
 
 
 def act_derivs(name: str, z):
-    """(act, act', act'') for sin/tanh."""
+    """(act, act', act'') for sin, tanh, gelu (the tanh form, as
+    jax.nn.gelu's default; closed forms where the JAX package takes gelu's
+    by autodiff) and swish (JAX taylor.py:52-57)."""
     if name == "sin":
         s, c = torch.sin(z), torch.cos(z)
         return s, c, -s
@@ -28,6 +37,16 @@ def act_derivs(name: str, z):
         t = torch.tanh(z)
         d1 = 1.0 - t * t
         return t, d1, -2.0 * t * d1
+    if name == "gelu":  # 0.5 z (1 + tanh(u)), u = c (z + a z^3)
+        zz = z * z
+        t = torch.tanh(_GELU_C * (z + _GELU_A * zz * z))
+        u1 = _GELU_C * (1.0 + 3.0 * _GELU_A * zz)
+        sech2 = 1.0 - t * t
+        return (0.5 * z * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * z * sech2 * u1,
+                sech2 * (u1 + 0.5 * z * (6.0 * _GELU_A * _GELU_C * z - 2.0 * t * u1 * u1)))
+    if name == "swish":
+        s = torch.sigmoid(z)
+        return z * s, s * (1.0 + z * (1.0 - s)), s * (1.0 - s) * (2.0 + z * (1.0 - 2.0 * s))
     raise ValueError(f"no closed-form derivatives for activation {name!r}")
 
 
@@ -51,6 +70,7 @@ def mlp_fields(spec: MLP, params, X: torch.Tensor, directions, second: bool = Tr
     Returns (u [P, out], firsts, seconds): tuples of [P, out] ordered like
     `directions`; seconds is () when second=False.
     """
+    dot = network_matmul(spec)
     h = X
     hk = []
     for k in directions:
@@ -61,18 +81,23 @@ def mlp_fields(spec: MLP, params, X: torch.Tensor, directions, second: bool = Tr
 
     for layer in params[:-1]:
         W, b = layer["W"], layer["b"]
-        z = h @ W + b
-        zk = [t @ W for t in hk]
-        zkk = [t @ W for t in hkk]
-        a, d1, d2 = act_derivs(spec.activation, z)
+        z = dot(h, W) + b
+        zk = [dot(t, W) for t in hk]
+        zkk = [dot(t, W) for t in hkk]
+        if "s" in layer:  # adaptive slope: act(s z) gains s and s^2 in its derivatives
+            slope = layer["s"]
+            a, d1, d2 = act_derivs(spec.activation, slope * z)
+            d1, d2 = d1 * slope, d2 * slope * slope
+        else:
+            a, d1, d2 = act_derivs(spec.activation, z)
         h = a
         hkk = [d2 * t * t + d1 * s for t, s in zip(zk, zkk)]
         hk = [d1 * t for t in zk]
 
     W, b = params[-1]["W"], params[-1]["b"]
-    u = h @ W + b
-    firsts = tuple(t @ W for t in hk)
-    seconds = tuple(t @ W for t in hkk)
+    u = dot(h, W) + b
+    firsts = tuple(dot(t, W) for t in hk)
+    seconds = tuple(dot(t, W) for t in hkk)
     return u, firsts, seconds
 
 

@@ -107,16 +107,23 @@ def make_net_init(spec: MLP, pde_init: Optional[Callable] = None, dtype=torch.fl
     return init
 
 
+def _layer_leaves(layers):
+    """A network's leaves layer by layer: W, b, then the adaptive slope s
+    where the layer has one (the JAX package's sorted-key order)."""
+    return [layer[k] for layer in layers for k in ("W", "b", "s") if k in layer]
+
+
 def _pde_leaves(value):
-    if isinstance(value, (list, tuple)):  # a network: layer by layer, W then b
-        return [t for layer in value for t in (layer["W"], layer["b"])]
+    if isinstance(value, (list, tuple)):  # a network
+        return _layer_leaves(value)
     return [value]
 
 
 def parameters(params):
-    """Every trainable leaf once, in a fixed order: net W_0, b_0, ..., then
-    the pde values by sorted name, a network value layer by layer, W then b."""
-    leaves = [t for layer in params["net"] for t in (layer["W"], layer["b"])]
+    """Every trainable leaf once, in a fixed order (JAX's tree-leaf order):
+    the net layer by layer (W, b, and s with an adaptive slope), then the
+    pde values by sorted name, a network value layer by layer."""
+    leaves = _layer_leaves(params["net"])
     return leaves + [t for k in sorted(params["pde"]) for t in _pde_leaves(params["pde"][k])]
 
 

@@ -75,21 +75,57 @@ def default_lift(X):
     return -torch.sin(np.pi * X[:, 0:1])
 
 
+@functools.lru_cache(maxsize=8)
+def _hermite(n_hermite: int, dtype, device):
+    """Gauss-Hermite nodes and log-weights on `device`, made once: an ansatz
+    that calls u_exact_torch inside a captured CUDA graph (a time slab's
+    lift) finds them there, and copies nothing from the host during the
+    capture."""
+    z, w = np.polynomial.hermite.hermgauss(n_hermite)
+    return (torch.as_tensor(z, dtype=dtype, device=device),
+            torch.as_tensor(np.log(w), dtype=dtype, device=device))
+
+
 def u_exact_torch(x, t, nu, n_hermite: int = 96):
     """u_exact in torch operations, for use inside an ansatz (the
     counterpart of u_exact_jnp): x [P, 1], t > 0 a number or a tensor
     broadcastable to x.  log(w) is taken in host float64 before the cast
     (the tail weights underflow float32, their logs do not), and the
     per-point maximum taken off the exponent is a constant for autograd."""
-    z, w = np.polynomial.hermite.hermgauss(n_hermite)
-    lw = torch.as_tensor(np.log(w), dtype=x.dtype, device=x.device)
-    z = torch.as_tensor(z, dtype=x.dtype, device=x.device)
+    z, lw = _hermite(n_hermite, x.dtype, x.device)
     eta = x - 2.0 * (nu * t) ** 0.5 * z[None, :]
     e = lw[None, :] - torch.cos(np.pi * eta) / (2.0 * np.pi * nu)
     f = torch.exp(e - e.max(dim=1, keepdim=True).values.detach())
     num = torch.sum(torch.sin(np.pi * eta) * f, dim=1, keepdim=True)
     den = torch.sum(f, dim=1, keepdim=True)
     return -num / den
+
+
+def make_interface_lift(u0_fn, domain_x):
+    """Hard-BC lift of a time slab from its start-face state (the JAX
+    package's make_interface_lift, problems/burgers.py:106-135).
+    `u0_fn(x) -> [n, 1]` (torch operations) is the slab's initial condition:
+    a previous slab's trained ansatz at the interface time in a time march,
+    or u_exact_torch at t0 for the exact restart.  The lift is constant in t,
+
+        g(x, t) = u0(x) - [(1 - s) u0(a) + s u0(b)],   s = (x - a)/(b - a),
+
+    u0 minus its linear wall interpolant: zero on both walls for all t, and
+    u0 on the start face up to u0's own wall residue (none when the previous
+    slab was itself hard-BC, so hard-BC slabs chain with an exact handoff).
+    Pair it with make_default_envelope(slab config), whose time factor
+    vanishes at the slab's own t_start."""
+    a, b = domain_x
+
+    def lift(X):
+        x = X[:, 0:1]
+        u0 = u0_fn(x)
+        ua = u0_fn(torch.full((1, 1), a, dtype=X.dtype, device=X.device))
+        ub = u0_fn(torch.full((1, 1), b, dtype=X.dtype, device=X.device))
+        s = (x - a) / (b - a)
+        return u0 - ((1.0 - s) * ua + s * ub)
+
+    return lift
 
 
 def make_default_envelope(cfg: BurgersConfig, rate: float = 4.0):

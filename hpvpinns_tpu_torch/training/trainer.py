@@ -137,9 +137,9 @@ def _eager_metrics(loss_fn: Callable, params, data):
     return aux
 
 
-def _graph_metrics(loss_fn: Callable, params, data, debug: bool = False):
-    """The metrics as a replayed CUDA graph: (() -> aux, the graph)."""
-    graph, out = _capture(_eager_metrics(loss_fn, params, data), debug)
+def _graph_metrics(aux: Callable, debug: bool = False):
+    """The metrics `aux()` as a replayed CUDA graph: (() -> aux, the graph)."""
+    graph, out = _capture(aux, debug)
 
     def replay():
         graph.replay()
@@ -150,8 +150,8 @@ def _graph_metrics(loss_fn: Callable, params, data, debug: bool = False):
 
 class _Chunk:
     """chunk(n): n optimizer iterations, then the metrics at the updated
-    params (a dict of 0-d tensors).  `graphs` holds the CUDA graphs it
-    replays (empty when it runs eagerly)."""
+    params (a dict of tensors).  `graphs` holds the CUDA graphs it replays
+    (empty when it runs eagerly)."""
 
     def __init__(self, iterate: Callable[[int], None], metrics: Callable, graphs=()):
         self._iterate, self._metrics, self.graphs = iterate, metrics, tuple(g for g in graphs if g is not None)
@@ -171,40 +171,36 @@ def _adam_step(loss_fn: Callable, opt, params, data):
     return step
 
 
-def _build_stepwise_chunk(loss_fn: Callable, opt, params, data) -> _Chunk:
-    """The eager Adam chunk: n steps of zero-grad, forward, backward and
-    update, each with its own launches, then the metrics.  The CPU path, and
-    what the card's graph chunk is held against."""
-    step = _adam_step(loss_fn, opt, params, data)
-
+def _repeat(step: Callable[[], None]) -> Callable[[int], None]:
     def iterate(n):
         for _ in range(n):
             step()
 
-    return _Chunk(iterate, _eager_metrics(loss_fn, params, data))
+    return iterate
 
 
-def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False) -> _Chunk:
-    """The Adam chunk.  On the CPU the stepwise chunk.  On the card one step
-    captured once as a CUDA graph (`opt` must be capturable), plus a graph
-    of the metrics: a chunk of n steps is n replays of the first and one of
-    the second, so a shorter last chunk needs no new capture.  `debug` keeps
-    the graphs for `debug_dump`.
+def _build_stepwise_chunk(loss_fn: Callable, opt, params, data) -> _Chunk:
+    """The eager Adam chunk: n steps of zero-grad, forward, backward and
+    update, each with its own launches, then the metrics.  The CPU path, and
+    what the card's graph chunk is held against."""
+    return _Chunk(_repeat(_adam_step(loss_fn, opt, params, data)), _eager_metrics(loss_fn, params, data))
 
-    The warm-up before the capture steps Adam and moves the parameters, so
-    both are saved before it and written back, into the same tensors, after
-    the capture: the graph then starts where the eager loop would.  The
-    gradients are None when the capture starts, so the captured backward
-    writes them afresh, into buffers of the graph's pool, on every replay.
-    The captured launches keep the addresses of the parameters, the
-    optimizer state and `data`: none of them may be rebound afterwards."""
-    if not _on_card(params):
-        return _build_stepwise_chunk(loss_fn, opt, params, data)
-    leaves = parameters(params)
+
+def _graph_chunk(step: Callable[[], None], aux: Callable, opt, leaves, debug: bool = False) -> _Chunk:
+    """A chunk of CUDA graphs: `step` (one optimizer step of `opt` over the
+    tensors `leaves`) captured once, and the metrics `aux()`; a chunk of n
+    steps is n replays of the first and one of the second, so a shorter last
+    chunk needs no new capture.  `debug` keeps the graphs for `debug_dump`.
+
+    The warm-up before the capture steps the optimizer and moves the
+    parameters, so both are saved before it and written back, into the same
+    tensors, after the capture: the graph then starts where the eager loop
+    would.  The captured launches keep the addresses of the parameters, the
+    optimizer state and the data: none of them may be rebound afterwards."""
     with torch.no_grad():
         saved = [t.clone() for t in leaves]
         saved_state = {p: {k: v.clone() for k, v in s.items() if torch.is_tensor(v)} for p, s in opt.state.items()}
-    step_graph, _ = _capture(_adam_step(loss_fn, opt, params, data), debug)
+    step_graph, _ = _capture(step, debug)
     with torch.no_grad():
         for t, s in zip(leaves, saved):
             t.copy_(s)
@@ -212,13 +208,20 @@ def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False) -> _
             for k, v in s.items():
                 if torch.is_tensor(v):
                     v.copy_(saved_state[p][k]) if p in saved_state else v.zero_()
-    metrics, metrics_graph = _graph_metrics(loss_fn, params, data, debug)
+    metrics, metrics_graph = _graph_metrics(aux, debug)
+    return _Chunk(_repeat(step_graph.replay), metrics, (step_graph, metrics_graph))
 
-    def iterate(n):
-        for _ in range(n):
-            step_graph.replay()
 
-    return _Chunk(iterate, metrics, (step_graph, metrics_graph))
+def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False) -> _Chunk:
+    """The Adam chunk.  On the CPU the stepwise chunk.  On the card one step
+    captured once as a CUDA graph (`opt` must be capturable), plus a graph
+    of the metrics (_graph_chunk).  The gradients are None when the capture
+    starts, so the captured backward writes them afresh, into buffers of the
+    graph's pool, on every replay."""
+    if not _on_card(params):
+        return _build_stepwise_chunk(loss_fn, opt, params, data)
+    return _graph_chunk(_adam_step(loss_fn, opt, params, data), _eager_metrics(loss_fn, params, data), opt,
+                        parameters(params), debug)
 
 
 def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
@@ -248,7 +251,7 @@ def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
             graph.replay()
             return loss
 
-        metrics, metrics_graph = _graph_metrics(loss_fn, params, data)
+        metrics, metrics_graph = _graph_metrics(metrics)
 
     def iterate(n):
         for _ in range(n):

@@ -48,8 +48,9 @@ def to_jax(tree):
 
 def named_leaves(tree):
     """[(name, leaf)] of a params tree, net then pde by sorted key, a network
-    value layer by layer, W then b: the order of `parameters`."""
-    out = [(f"net.{i}.{k}", layer[k]) for i, layer in enumerate(tree["net"]) for k in ("W", "b")]
+    value layer by layer, W, b and an adaptive slope s: the order of
+    `parameters`."""
+    out = [(f"net.{i}.{k}", layer[k]) for i, layer in enumerate(tree["net"]) for k in ("W", "b", "s") if k in layer]
     for key in sorted(tree["pde"]):
         v = tree["pde"][key]
         if isinstance(v, (list, tuple)):
@@ -84,6 +85,31 @@ def compare_loss_and_grads(jprob, tprob, tree=None, dtype=torch.float64, tight=T
     for (name, j), t in zip(jnamed, tgrads):
         np.testing.assert_allclose(tnp(t), np.asarray(j), **tight, err_msg=name)
     return tparams
+
+
+def option_matches_default(tcfg, **cfg_kw):
+    """The network options the port once refused (an adaptive slope, the
+    matmul precision "high"/"default") build and run on the CPU: at the
+    initial slope s = 1, and with no TF32 on the CPU, the loss and the
+    gradients of W and b equal the default's (to rounding: the JVP engine's
+    backward may add its terms in another order), and every slope's
+    gradient is finite.  Returns the option's problem."""
+    base, prob = tv.build(tcfg, device="cpu"), tv.build(dataclasses.replace(tcfg, **cfg_kw), device="cpu")
+    out = []
+    for p in (base, prob):
+        params = p.init_params(torch.Generator().manual_seed(0))
+        loss, _ = p.loss_fn(params, p.data)
+        out.append((loss, dict(zip([n for n, _ in named_leaves(params)],
+                                   torch.autograd.grad(loss, parameters(params))))))
+    (lb, gb), (lo, go) = out
+    np.testing.assert_allclose(tnp(lo), tnp(lb), rtol=1e-13)
+    for name, g in go.items():
+        if name.endswith(".s"):
+            assert cfg_kw.get("adaptive_slope") and torch.isfinite(g), name
+        else:
+            np.testing.assert_allclose(tnp(g), tnp(gb[name]), rtol=1e-13, atol=1e-15, err_msg=name)
+    assert any(n.endswith(".s") for n in go) == bool(cfg_kw.get("adaptive_slope"))
+    return prob
 
 
 @contextlib.contextmanager

@@ -34,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 import hpvpinns_tpu as jv  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
+from test_torch_parity import option_matches_default  # noqa: E402
 
 SMALL = dict(
     grid=(-1.0, -0.1, 0.1, 1.0), n_elements=3, n_quad=12, n_test=5,
@@ -165,8 +166,18 @@ def test_presets_match_jax_fields():
 
 @pytest.mark.parametrize("cfg_kw", [{"adaptive_slope": True}, {"matmul_precision": "high"}])
 def test_unported_options_raise(cfg_kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tv.build(dataclasses.replace(configs()[1], **cfg_kw), device="cpu")
+    """The adaptive slope and matmul precision "high" are ported: they build
+    and match the default on the CPU at the initial state.  Under "pallas"
+    the slope still raises, with the JAX package's ValueError, on the CPU
+    too; "high" runs there (the kernels stay IEEE fp32)."""
+    option_matches_default(configs()[1], **cfg_kw)
+    prob = tv.build(dataclasses.replace(configs("pallas")[1], **cfg_kw), device="cpu")
+    params = prob.init_params(torch.Generator().manual_seed(0))
+    if cfg_kw.get("adaptive_slope"):
+        with pytest.raises(ValueError, match="deriv_mode='pallas' does not support adaptive_slope; use 'taylor'"):
+            prob.loss_fn(params, prob.data)
+    else:
+        assert torch.isfinite(prob.loss_fn(params, prob.data)[0])
 
 
 def test_quality_lbfgs_phase_raises_and_bad_forms_are_refused():

@@ -34,7 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 import hpvpinns_tpu as jv  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
-from test_torch_parity import one_torch_thread  # noqa: E402
+from test_torch_parity import one_torch_thread, option_matches_default  # noqa: E402
 
 SMALL = dict(
     n_elements_x=2, n_elements_y=2, n_quad=6, n_test_x=3, n_test_y=3,
@@ -180,8 +180,12 @@ def test_unported_training_phases_raise(train_kw, tmp_path):
                {"adaptive_slope": True}, {"matmul_precision": "high"}]
 )
 def test_unported_problem_options_raise(cfg_kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tv.build(dataclasses.replace(configs()[1], **cfg_kw), device="cpu")
+    """The adaptive slope and matmul precision "high"/"default" are ported,
+    with hard BC and the PINN scheme too: they build and match the default
+    on the CPU at the initial state (s = 1, no TF32 on the CPU)."""
+    base = {k: v for k, v in cfg_kw.items() if k not in ("adaptive_slope", "matmul_precision")}
+    option_matches_default(dataclasses.replace(configs()[1], **base),
+                           **{k: v for k, v in cfg_kw.items() if k not in base})
 
 
 def test_presets_match_jax_fields():

@@ -105,9 +105,17 @@ def test_init_mlp_statistics_and_roundtrip():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MLP(layers=(2, 4, 1), precision="high")
-    with pytest.raises(NotImplementedError, match="adaptive_slope"):
-        MLP(layers=(2, 4, 1), adaptive_slope=True)
-    with pytest.raises(ValueError, match="gelu"):
-        MLP(layers=(2, 4, 1), activation="gelu")
+    """The options the port once refused are ported (precision "high" and
+    "default", the adaptive slope, gelu and swish); what neither package
+    takes still raises ValueError."""
+    for kw in ({"precision": "high"}, {"precision": "default"}, {"adaptive_slope": True},
+               {"activation": "gelu"}, {"activation": "swish"}):
+        spec = MLP(layers=(2, 4, 1), **kw)
+        net = init_mlp(spec, torch.Generator().manual_seed(0), dtype=torch.float64)
+        assert mlp_apply(spec, net, torch.zeros((3, 2), dtype=torch.float64)).shape == (3, 1)
+        assert [sorted(layer) for layer in net] == ([["W", "b", "s"], ["W", "b"]] if "adaptive_slope" in kw
+                                                    else [["W", "b"]] * 2)
+    with pytest.raises(ValueError, match="unknown activation"):
+        MLP(layers=(2, 4, 1), activation="relu")
+    with pytest.raises(ValueError, match="matmul precision"):
+        MLP(layers=(2, 4, 1), precision="bf16")
