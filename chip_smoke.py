@@ -8,7 +8,7 @@
                            | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
                            | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
-                           | --ensemble-only | --march-only | --march]
+                           | --ensemble-only | --march-only | --march | --inverse-only]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -237,6 +237,26 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      per-slab and global rel-L2 beside MEASUREMENTS.md's rows, per-slab
      wall seconds and device memory (flat from slab to slab), and each
      slab's params unchanged by the slabs after it.
+ 21. The inverse suite (phase21): (a) MEASUREMENTS.md:270-271's `run
+     advdiff` command (manufactured V 1.0, eps(x) = 0.0318 (1 + 0.5 sin
+     pi x), the "cos" profile, a neural eps with epsilon_reg 1e-2; Adam
+     2,000 + L-BFGS 2,000) under "pallas" (var_form 0: B1 second, B2
+     resident, the block sum; their host launches in the kernels line) and
+     "taylor" from the same draw, then inverse.fit_epsilon_field(6, 1e-3) on
+     each trained u's fields on the card: the field rel-L2 beside the JAX
+     rows, and the "pallas" fit against the same fit on the CPU from the
+     same params (INV_CARD_CPU_TOL); bfloat16 Poisson-2D trains on
+     "taylor" and "pallas" refuses it, swish's second derivatives run
+     under no_grad on "jvp"; (b) the network-free routes in float64 on a
+     problem built on the card and on one built on the CPU (the estimate's
+     error beside the JAX test's bound and the README's figure, both wall
+     times, the two estimates against each other), each with its interval
+     (reduced_scalar_ci, reduced_field_ci, als_bootstrap,
+     reduced_scalar_ci2d, reduced_ns_ci, reduced_ns_unsteady_ci,
+     reduced_helmholtz_ci); (c) reduced_identify_field's misfit and
+     gradient (autograd through matrix_exp) and reduced_field_ci's
+     Jacobian (torch.func.jacfwd) on the card against the CPU
+     (INV_F64_TOL), with torch.profiler's CUDA kernels of each.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -251,6 +271,9 @@ on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
+With --inverse-only it runs phases 1, 2 and 21, (b)'s routes at the
+README's sizes (the whole run cuts them: INV_ROUTES), and prints no
+summary.
 With --ensemble-only it runs phases 1, 2 and 20 (a)-(e), with --march-only
 phases 1, 2 and 20 (f), and prints no summary; with --march phases 1 and 2,
 then 20 (f)'s marches at the study's equal-total schedules
@@ -3516,6 +3539,337 @@ def phase20(dev, parts=("precision", "activations", "ensemble", "march")) -> dic
     return paths
 
 
+# Phase 21: the inverse suite (inverse.py, uncertainty.py) on the card.
+INV_TWO_PHASE_STEPS = (2000, 2000)  # (a): Adam, L-BFGS (MEASUREMENTS.md:270-271's `run advdiff` command)
+INV_FIT = (6, 1e-3)  # (a): the fit's Legendre order and Tikhonov weight (`--fit-epsilon-field 6,1e-3`)
+INV_EPS = (0.0318, 0.5)  # (a), (b): the manufactured truth eps(x) = a (1 + b sin(pi x)) (`sin:0.0318,0.5`)
+# (a): the fit's field rel-L2 on an Adam + L-BFGS u (INVERSE.md:30) and in the
+# data-rich regime (MEASUREMENTS.md:264-266): accuracy comparators, not targets
+JAX_FIT_ROWS = "0.120 (Adam + L-BFGS u), 0.064-0.118 (data-rich)"
+# (a): the fit on the card's fields against the same fit on the CPU's, both
+# float32 from the same trained params, as the rel-L2 of the two fields.  The
+# u fields differ by float32 rounding (a few ulps through three JVP levels of
+# a 4-layer network: ~1e-6 of their size) and the field error is ~130 x the u
+# error (MEASUREMENTS.md:250-254), so ~1.3e-4; 1e-3 leaves a factor ~8 for the
+# float32 contractions and the cancellation in the rhs.
+INV_CARD_CPU_TOL = 1e-3
+INV_F64_TOL = 1e-9  # (b), (c): float64 on the card against the CPU, over the largest entry
+INV_BOOT = 4  # (b): als_bootstrap's replicates (default 16)
+# (b): the card's estimate against the CPU's, over the largest entry: 1e-12
+# for the host-only routes (the same numpy/scipy on the same data); ALS's
+# lstsq on contractions that round differently, 1e-8; the field route as the
+# rel-L2 of the two fields (L-BFGS-B's paths may part on rounding; its own
+# accuracy is 2.4e-2), 1e-4
+INV_AGREE = {"als_identify": 1e-8, "reduced_identify_field": 1e-4}
+# (b): each route's sizes under --inverse-only (the README's and the JAX
+# tests': 502.4 s for (b) with both twins on an NVIDIA H100 80GB HBM3 host)
+# and in the whole run (cut so that phase 21 adds ~150 s: a larger p or
+# maxiter moves the estimate by less than the bound, as the CPU measured
+# them), the bound the JAX package's own test holds the route to (met at
+# both sizes), and the README's figure (README.md:117-145, verify notes).
+INV_ROUTES = {
+    "reduced_identify": (dict(p=40), dict(p=40), 1e-6, "eps ~1e-8 (1.3e-8)"),
+    "reduced_identify (eps, V)": (dict(p=36), dict(p=28, maxiter=80), 1e-5, "(eps, V) ~1e-8 (3.6e-8, 1.5e-10)"),
+    "reduced_identify_field": (dict(eps_order=8, p=24), dict(eps_order=8, p=20), 0.06,
+                               "field 2.4e-2 from 35 sensors"),
+    "als_identify": (dict(eps_order=8), dict(eps_order=8), 2e-3, "field 4e-4"),
+    "reduced_identify2d": (dict(p=10), dict(p=10, maxiter=100), 1e-3, "3 scalars ~1e-7 (at p 12)"),
+    "reduced_identify_burgers": (dict(p=16, n_steps=300), dict(p=16, n_steps=300), 1e-3,
+                                 "nu ~6e-7 (at p 20, n_steps 600)"),
+    "reduced_identify_kovasznay": ({}, {}, 1e-6, "nu 3e-8"),
+    "reduced_identify_taylorgreen": ({}, dict(n_steps=30), 5e-4, "nu 4.6e-5 raw, 2.7e-7 debiased (n_steps 60)"),
+    "reduced_identify_helmholtz": ({}, dict(p=10, n_scan=31), 1e-5, "k^2 1.8e-9 (p 14, n_scan 61)"),
+}
+
+
+def inv_eps(x):
+    """The manufactured truth eps(x), numpy or torch."""
+    a, b = INV_EPS
+    return a * (1.0 + b * (torch.sin if isinstance(x, torch.Tensor) else np.sin)(np.pi * x))
+
+
+def inv_manufactured(c, device):
+    """The `run advdiff --manufactured-velocity 1.0 --manufactured-epsilon
+    sin:0.0318,0.5 --manufactured-profile cos` problem of config c."""
+    from hpvpinns_tpu_torch.problems import advdiff
+
+    def vfn(x):
+        return 1.0 + 0.0 * x
+
+    u_fn, f_fn = advdiff.make_manufactured(c, vfn, epsilon=inv_eps, profile="cos")
+    return advdiff.build(c, u_fn=u_fn, f_fn=f_fn, velocity_fn=vfn, epsilon_fn=inv_eps, device=device)
+
+
+def field_rel(fn, truth=inv_eps) -> float:
+    xs = np.linspace(-1.0, 1.0, 513)
+    t = np.asarray(truth(xs)).reshape(-1)
+    return float(np.linalg.norm(np.asarray(fn(xs)).reshape(-1) - t) / np.linalg.norm(t))
+
+
+def synced(fn):
+    """(fn(), wall seconds to the card's end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def inverse_two_phase(dev) -> dict:
+    """Phase 21 (a): MEASUREMENTS.md:270-271's command on the card, trained
+    under "pallas" (var_form 0: B1 with second derivatives, B2's resident
+    form, the block sum) and under "taylor" from the same draw, Adam then
+    L-BFGS; then inverse.fit_epsilon_field on each trained u's fields on the
+    card, and the "pallas" fit again on the CPU from the same params.  Also
+    the two repairs of this slice on the card: bfloat16 trains Poisson-2D on
+    "taylor" and "pallas" refuses it; swish's nested JVPs under no_grad (a
+    "jvp" Poisson-1D run's metrics).  Returns the "pallas" run's host
+    launches."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import inverse as inv
+
+    order, reg = INV_FIT
+    fits, paths = {}, {}
+    for mode in ("pallas", "taylor"):
+        c = hv.AdvDiffConfig(epsilon_model="mlp", epsilon_reg=1e-2, deriv_mode=mode)
+        c = dataclasses.replace(c, train=dataclasses.replace(
+            c.train, iterations=INV_TWO_PHASE_STEPS[0], lbfgs_iterations=INV_TWO_PHASE_STEPS[1]))
+        prob = inv_manufactured(c, dev)
+        label = f"inverse two-phase fit {mode}"
+        (res, counts, ev), train_s = synced(lambda: train_checked(prob, c, label, SECOND_PATH if mode == "pallas" else ()))
+        if mode == "pallas":
+            paths["inverse two-phase fit (manufactured advdiff, mlp eps)"] = counts
+        (coef, eps_hat, info), fit_s = synced(lambda: inv.fit_epsilon_field(prob, res.eval_params, order=order, reg=reg))
+        err = field_rel(eps_hat)
+        if not (math.isfinite(err) and info["residual_after"] <= info["residual_before"]):
+            fail(f"phase 21 (a) {mode}: field rel-L2 {err}, residuals {info['residual_before']} -> {info['residual_after']}")
+        fits[mode] = (err, ev["rel_l2"])
+        line = (f"phase 21 (a) {mode}: Adam {c.train.iterations} + L-BFGS {c.train.lbfgs_iterations} in {train_s:.1f} s "
+                f"({res.iterations_run} iterations; {lbfgs_note(res.phases['lbfgs'])}), u rel-L2 {ev['rel_l2']:.4e}, "
+                f"net eps mean {float(prob.extras['eps_domain_mean'](res.eval_params)):.5f} (truth "
+                f"{prob.extras['eps_true']:.5f}); fit_epsilon_field({order}, {reg}) on the card's fields in "
+                f"{fit_s * 1e3:.1f} ms: field rel-L2 {err:.4e} (JAX rows {JAX_FIT_ROWS}), residual "
+                f"{info['residual_before']:.4e} -> {info['residual_after']:.4e}; host launches {counts}")
+        if mode == "pallas":
+            cpu = inv_manufactured(c, "cpu")
+            p_cpu = hv.params_from_jax(hv.params_to_numpy(res.eval_params), dtype=torch.float32)
+            (_, eps_cpu, _), cpu_s = synced(lambda: inv.fit_epsilon_field(cpu, p_cpu, order=order, reg=reg))
+            gap = field_rel(eps_hat, eps_cpu)
+            ut, ux = inv._u_fields(prob, res.eval_params)
+            ut_c, ux_c = inv._u_fields(cpu, p_cpu)
+            du = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in ((ut, ut_c), (ux, ux_c)))
+            if not gap <= INV_CARD_CPU_TOL:
+                fail(f"phase 21 (a): the card's fit differs from the CPU's by {gap:.3e} (rel-L2), above {INV_CARD_CPU_TOL}")
+            line += (f"; the same fit on the CPU's fields ({cpu_s * 1e3:.1f} ms): fields differ by {gap:.3e} rel-L2 "
+                     f"(tolerance {INV_CARD_CPU_TOL}; u_t, u_x card vs CPU {du:.2e} of their largest, x 130 = "
+                     f"{130 * du:.2e})")
+        print(line, flush=True)
+    print(f"phase 21 (a): field rel-L2 pallas {fits['pallas'][0]:.4e} taylor {fits['taylor'][0]:.4e} from one draw; "
+          f"u rel-L2 pallas {fits['pallas'][1]:.4e} taylor {fits['taylor'][1]:.4e}", flush=True)
+
+    # the repairs: bfloat16 (C18) and swish's nested JVPs (C17) on the card
+    b16 = hv.Poisson2DConfig(dtype="bfloat16", n_quad=5, layers=(2, 6, 1), train=hv.TrainConfig(iterations=30, check_every=10))
+    rb = hv.train(hv.build(b16, device=dev), verbose=False)
+    bp = hv.build(dataclasses.replace(b16, deriv_mode="pallas"), device=dev)
+    try:
+        bp.loss_fn(bp.init_params(torch.Generator().manual_seed(0)), bp.data)
+        fail("phase 21 (a): a bfloat16 'pallas' loss ran on the card; the kernels take float32 only")
+    except ValueError as e:
+        refusal = str(e)
+    sw = hv.Poisson1DConfig(activation="swish", deriv_mode="jvp", var_form=1, n_elements=2, n_test=6, n_quad=12,
+                            layers=(1, 8, 8, 1), train=hv.TrainConfig(iterations=20, check_every=5))
+    rs = hv.train(hv.build(sw, device=dev), verbose=False)
+    losses = (float(rb.final_aux["loss"]), float(rs.final_aux["loss"]))
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"phase 21 (a): bfloat16 / swish runs ended at losses {losses}")
+    print(f"phase 21 (a) repairs: Poisson-2D bfloat16 'taylor' 30 steps on the card, loss {losses[0]:.4e}; bfloat16 "
+          f"'pallas' refused: {refusal!r}; swish Poisson-1D 'jvp' (second derivatives, metrics under no_grad) "
+          f"20 steps, loss {losses[1]:.4e}", flush=True)
+    return paths
+
+
+def inverse_routes(dev, full: bool) -> dict:
+    """Phase 21 (b): the network-free routes and their intervals, each on a
+    float64 problem built on the card and again on one built on the CPU
+    (the torch work runs on the problem's device; the rest is host
+    numpy/scipy either way): the estimate's error beside the bound of the
+    JAX package's own test and the README's figure, the wall time on each,
+    and the two estimates against each other; at the README's sizes when
+    `full`, else at the whole run's (INV_ROUTES).  Returns the field route's
+    problems and info for (c)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import inverse as inv
+    from hpvpinns_tpu_torch import uncertainty as uq
+
+    f64 = dict(dtype="float64")
+    rec = hv.AdvDiffConfig(**f64)
+    field_cfg = dataclasses.replace(rec, sensor_stations=tuple(float(s) for s in np.linspace(-0.95, 0.95, 7)))
+    als_cfg = dataclasses.replace(rec, n_quad=24, n_test_x=14, n_test_t=10, n_sensors_per_station=20,
+                                  sensor_stations=tuple(float(s) for s in np.linspace(-0.95, 0.95, 19)))
+    size = {route: row[0 if full else 1] for route, row in INV_ROUTES.items()}
+    builders = {  # route -> (build on a device, run the route on a problem)
+        "reduced_identify": (lambda d: hv.build(rec, device=d), lambda p: inv.reduced_identify(p, **size["reduced_identify"])),
+        "reduced_identify (eps, V)": (lambda d: hv.build(rec, device=d), lambda p: inv.reduced_identify(
+            p, identify_velocity=True, **size["reduced_identify (eps, V)"])),
+        "reduced_identify_field": (lambda d: inv_manufactured(field_cfg, d),
+                                   lambda p: inv.reduced_identify_field(p, **size["reduced_identify_field"])),
+        "als_identify": (lambda d: inv_manufactured(als_cfg, d), lambda p: inv.als_identify(p, **size["als_identify"])),
+        "reduced_identify2d": (lambda d: hv.build(hv.AdvDiff2DConfig(**f64), device=d),
+                               lambda p: inv.reduced_identify2d(p, **size["reduced_identify2d"])),
+        "reduced_identify_burgers": (lambda d: hv.build(hv.BurgersConfig(**f64), device=d),
+                                     lambda p: inv.reduced_identify_burgers(p, **size["reduced_identify_burgers"])),
+        "reduced_identify_kovasznay": (lambda d: hv.build(hv.KovasznayConfig(inverse=True, **f64), device=d),
+                                       lambda p: inv.reduced_identify_kovasznay(p, **size["reduced_identify_kovasznay"])),
+        "reduced_identify_taylorgreen": (lambda d: hv.build(hv.TaylorGreenConfig(inverse=True, **f64), device=d),
+                                         lambda p: inv.reduced_identify_taylorgreen(
+                                             p, **size["reduced_identify_taylorgreen"])),
+        "reduced_identify_helmholtz": (lambda d: hv.build(hv.Helmholtz2DConfig(inverse=True, **f64), device=d),
+                                       lambda p: inv.reduced_identify_helmholtz(p, **size["reduced_identify_helmholtz"])),
+    }
+
+    def errors(route, prob, out):
+        """{name: relative error} of a route's estimate against the truth."""
+        if route == "reduced_identify":
+            return {"eps": abs(out[0][0] - prob.extras["eps_true"]) / prob.extras["eps_true"]}
+        if route == "reduced_identify (eps, V)":
+            return {"eps": abs(out[0][0] - prob.extras["eps_true"]) / prob.extras["eps_true"],
+                    "V": abs(out[2]["velocity"] - 1.0)}
+        if route in ("reduced_identify_field", "als_identify"):
+            return {"field": field_rel(out[1] if route == "reduced_identify_field" else out[2])}
+        if route == "reduced_identify2d":
+            vx, vy = prob.config.velocity
+            return {"eps": abs(out[0][0] - prob.extras["eps_true"]) / prob.extras["eps_true"],
+                    "vx": abs(out[0][1] - vx), "vy": abs(out[0][2] - vy)}
+        truth = {"reduced_identify_burgers": lambda: prob.config.nu,
+                 "reduced_identify_helmholtz": lambda: prob.extras["k_sq_true"]}.get(route, lambda: prob.extras["nu_true"])()
+        return {"estimate": abs(out[0] - truth) / truth}
+
+    def estimate(route, out) -> np.ndarray:
+        if route in ("reduced_identify", "reduced_identify (eps, V)", "reduced_identify_field"):
+            return np.atleast_1d(np.asarray(out[0], dtype=np.float64))
+        if route == "als_identify":
+            return np.asarray(out[1], dtype=np.float64)
+        if route == "reduced_identify2d":
+            return np.asarray(out[0], dtype=np.float64)
+        return np.atleast_1d(float(out[0]))
+
+    keep = {}
+    t_all = time.perf_counter()
+    for route, (build, run) in builders.items():
+        setup = ", ".join(f"{k} {v}" for k, v in size[route].items()) or "the route's defaults"
+        bound, figure = INV_ROUTES[route][2:]
+        card, cpu = build(dev), build("cpu")
+        out, card_s = synced(lambda: run(card))
+        out_cpu, cpu_s = synced(lambda: run(cpu))
+        err = errors(route, card, out)
+        if route == "reduced_identify_field":  # the fields, after L-BFGS-B paths that rounding may part
+            agree = field_rel(out[1], out_cpu[1])
+        else:
+            a, b = estimate(route, out), estimate(route, out_cpu)
+            agree = float(np.abs(a - b).max() / np.abs(b).max())
+        if not all(math.isfinite(v) and v <= bound for v in err.values()):
+            fail(f"phase 21 (b) {route} ({setup}): errors {err} above the JAX test's bound {bound}")
+        if not agree <= INV_AGREE.get(route, 1e-12):
+            fail(f"phase 21 (b) {route}: the card's estimate and the CPU's differ by {agree:.2e}")
+        extra = ""
+        if route == "reduced_identify (eps, V)":
+            ci, ci_s = synced(lambda: uq.reduced_scalar_ci(card, out[0], p=size[route]["p"], velocity=out[2]["velocity"]))
+            extra = f"; reduced_scalar_ci std {ci['std']} (eps, V), covers eps {covers(ci, 0, card.extras['eps_true'])} ({ci_s:.2f} s)"
+        elif route == "reduced_identify_field":
+            keep.update(field=(card, cpu, out, out_cpu))
+            ci, ci_s = synced(lambda: uq.reduced_field_ci(out[0], out[2], domain=card.config.domain_x))
+            band = ci["std_fn"](np.linspace(-1.0, 1.0, 257))
+            extra = f"; reduced_field_ci sigma {ci['sigma']:.3e}, band mean {band.mean():.3e} max {band.max():.3e} ({ci_s:.2f} s)"
+        elif route == "als_identify":
+            bs, bs_s = synced(lambda: uq.als_bootstrap(card, out[1], out[0], n_boot=INV_BOOT, **size[route]))
+            extra = f"; als_bootstrap {INV_BOOT} replicates: coef std max {bs['coef_std'].max():.3e} ({bs_s:.1f} s)"
+        elif route == "reduced_identify2d":
+            ci, ci_s = synced(lambda: uq.reduced_scalar_ci2d(card, out[0], p=size[route]["p"]))
+            extra = f"; reduced_scalar_ci2d std {[f'{s:.2e}' for s in ci['std']]} ({ci_s:.2f} s)"
+        elif route == "reduced_identify_kovasznay":
+            ci, ci_s = synced(lambda: uq.reduced_ns_ci(card, out[0]))
+            extra = f"; reduced_ns_ci std {ci['std'][0]:.3e}, covers {covers(ci, 0, card.extras['nu_true'])} ({ci_s:.2f} s)"
+        elif route == "reduced_identify_taylorgreen":
+            ci, ci_s = synced(lambda: uq.reduced_ns_unsteady_ci(card, out[0], p=out[1]["p"], n_steps=out[1]["n_steps"]))
+            nu_t = card.extras["nu_true"]
+            extra = (f"; reduced_ns_unsteady_ci debiased nu rel err {abs(ci['debiased'][0] - nu_t) / nu_t:.3e}, covers "
+                     f"{covers(ci, 0, nu_t)} ({ci_s:.2f} s)")
+        elif route == "reduced_identify_helmholtz":
+            ci, ci_s = synced(lambda: uq.reduced_helmholtz_ci(card, out[0], p=out[1]["p"]))
+            extra = f"; reduced_helmholtz_ci std {ci['std'][0]:.3e}, covers {covers(ci, 0, card.extras['k_sq_true'])} ({ci_s:.2f} s)"
+        print(f"phase 21 (b) {route} ({setup}): errors " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+              + f" (JAX test bound {bound}; README {figure}); card {card_s:.2f} s, CPU {cpu_s:.2f} s; card vs CPU "
+              f"estimate {agree:.2e}" + extra, flush=True)
+    print(f"phase 21 (b) ({'the README sizes' if full else 'the whole run cut'}): {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+    return keep
+
+
+def covers(ci, i, truth) -> bool:
+    lo, hi = ci["ci95"][i]
+    return bool(lo <= truth <= hi)
+
+
+def inverse_torch_on_card(keep) -> None:
+    """Phase 21 (c): reduced_identify_field's torch work on the card against
+    the CPU in float64, each within INV_F64_TOL of its largest entry, with
+    torch.profiler's CUDA kernels of each on the card: the prediction
+    (matrix_exp over the sensor times) and reduced_field_ci's Jacobian
+    (torch.func.jacfwd under no_grad) at the route's estimate, and the
+    misfit with its gradient (autograd through matrix_exp) at the route's
+    start, log eps = log 0.1 flat.  At the estimate the misfit's residuals
+    are ~1e-5 (the data's own floor), a difference of O(1) predictions:
+    there rounding alone parts card and CPU by ~1e-6 of the gradient."""
+    card, cpu, out, out_cpu = keep["field"]
+    s_hat = out[0]
+    s0 = np.zeros_like(s_hat)
+    s0[0] = np.log(0.1)
+    pc, ph = out[2]["predict"], out_cpu[2]["predict"]
+    ds = out[2]["sensor_values"]
+
+    def prediction(predict, device):
+        with torch.no_grad():
+            return predict(torch.tensor(s_hat, dtype=torch.float64, device=device))
+
+    def misfit_grad(predict, device):
+        z = torch.tensor(s0, dtype=torch.float64, device=device, requires_grad=True)
+        m = torch.sum((predict(z) - torch.as_tensor(ds, device=device)) ** 2)
+        return torch.cat([m.detach()[None], torch.autograd.grad(m, z)[0]])
+
+    def jac(predict, device):
+        with torch.no_grad():
+            return torch.func.jacfwd(predict)(torch.tensor(s_hat, dtype=torch.float64, device=device))
+
+    lines = []
+    dev = card.data["xb"].device
+    for name, fn in (("prediction at the estimate", prediction), ("misfit and gradient at the start", misfit_grad),
+                     ("jacfwd Jacobian at the estimate", jac)):
+        got, want = fn(pc, dev), fn(ph, "cpu")
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        kern = profiled_kernels(lambda: fn(pc, dev), n=3)
+        if got.device.type != "cuda" or not kern:
+            fail(f"phase 21 (c) {name}: ran on {got.device}, CUDA kernels {kern}")
+        if not err <= INV_F64_TOL:
+            fail(f"phase 21 (c) {name}: card against CPU {err:.3e} of the largest entry, above {INV_F64_TOL}")
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:3]
+        lines.append(f"{name} {err:.2e} of the largest (tolerance {INV_F64_TOL}), {len(kern)} CUDA kernels "
+                     f"(top {', '.join(f'{k[:40]} x{v}' for k, v in top)})")
+    print("phase 21 (c) reduced_identify_field on the card: " + "; ".join(lines), flush=True)
+
+
+def phase21(dev, full: bool = False) -> dict:
+    """Phase 21: (a) the two-phase field fit after "pallas" and "taylor"
+    trainings and the two repairs, (b) the network-free routes and their
+    intervals on the card and the CPU (at the README's sizes when `full`),
+    (c) the field route's torch work on the card.  Returns (a)'s host
+    launches."""
+    t0 = time.perf_counter()
+    paths = inverse_two_phase(dev)
+    inverse_torch_on_card(inverse_routes(dev, full))
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3649,6 +4003,11 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--march"]:  # phase 20 (f)'s marches at the study's equal-total schedules
         marches(dev, full=True)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--inverse-only"]:  # for work on the inverse suite: phases 1, 2 and 21, no summary
+        phase21(dev, full=True)
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -3845,6 +4204,11 @@ def main() -> int:
     # adaptive slope), the seed ensemble with the kernels under vmap, and
     # slab time marching
     ens_paths = phase20(dev)
+
+    # 21. the inverse suite: the two-phase field fit after a "pallas"
+    # training, the network-free routes and their intervals in float64, the
+    # field route's torch work on the card
+    paths.update(phase21(dev))
 
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]

@@ -11,8 +11,11 @@ velocity vector), Burgers (forms 0/1, hard BC, the front feature, strong
 collocation) and the Navier-Stokes systems Kovasznay and Taylor-Green (forms
 0/1, hard BC, viscosity identification, the pressure gauges) problems with the Adam, L-BFGS (optax's) and Gauss-Newton/LM
 trainer, checkpoints (training/checkpoint.py) and the float64 polish
-(training/hybrid.py), the seed ensemble (training/ensemble.py) and slab
-time marching (training/timemarch.py).  Their derivative fields come from the
+(training/hybrid.py), the seed ensemble (training/ensemble.py), slab
+time marching (training/timemarch.py), and the coefficient-identification
+suite: the two-phase field fits, ALS and the network-free reduced routes
+(inverse.py) with their error bars (uncertainty.py), whose torch work runs
+on the problem's device.  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
@@ -55,6 +58,7 @@ from hpvpinns_tpu_torch.config import (
     taylorgreen_precision,
     taylorgreen_quality,
 )
+from hpvpinns_tpu_torch import inverse, uncertainty  # noqa: F401  (tv.inverse, tv.uncertainty)
 from hpvpinns_tpu_torch.convert import params_from_jax, params_to_numpy
 from hpvpinns_tpu_torch.evaluate import evaluate as evaluate_problem
 from hpvpinns_tpu_torch.evaluate import per_element_rel_l2, predict, rel_l2, strong_residual

@@ -38,7 +38,10 @@ _ACTIVATIONS = {
     "sin": torch.sin,
     "tanh": torch.tanh,
     "gelu": lambda z: F.gelu(z, approximate="tanh"),  # jax.nn.gelu's default, approximate=True
-    "swish": F.silu,
+    # swish as z * sigmoid(z), not F.silu: silu's forward-mode rule goes
+    # through aten::silu_backward, which has none of its own, so a nested
+    # JVP (a second derivative) through it raises with grad mode off.
+    "swish": lambda z: z * torch.sigmoid(z),
 }
 PRECISIONS = ("highest", "high", "default")
 

@@ -32,6 +32,7 @@ from hpvpinns_tpu_torch.ops.derivatives import dir_deriv
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
 from hpvpinns_tpu_torch.problems.base import (
+    DTYPES,
     Problem,
     make_composite_apply,
     make_feature_apply,
@@ -43,7 +44,6 @@ from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
 
 _FIELDS = {"taylor": taylor_fields_2d, "pallas": fused_fields_2d, "jvp": None}  # None: ops/fields.py on the ansatz
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _SERIES_ROWS = 4096  # u_exact evaluates the series this many points at a time
 
 
@@ -267,7 +267,7 @@ def build(
     if cfg.deriv_mode not in _FIELDS:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
     device = resolve_device(device)
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     eps_true = _domain_mean(epsilon_fn, *cfg.domain_x) if epsilon_fn is not None else cfg.gamma / np.pi
     mesh = _mesh(cfg)

@@ -28,13 +28,12 @@ from hpvpinns_tpu_torch.ops.assembly import advdiff2d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.derivatives import dir_deriv
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_3d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_3d
-from hpvpinns_tpu_torch.problems.base import Problem, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_3d, build_enriched_3d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
 
 _FIELDS = {"taylor": taylor_fields_3d, "pallas": fused_fields_3d, "jvp": None}  # None: ops/fields.py on the net
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def u_exact(x, y, t):
@@ -126,7 +125,7 @@ def build(
     if cfg.deriv_mode not in _FIELDS:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
     device = resolve_device(device)
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     if epsilon_fn is not None:
         GX, GY = np.meshgrid(np.linspace(*cfg.domain_x, 257), np.linspace(*cfg.domain_y, 257), indexing="ij")

@@ -22,6 +22,11 @@ import torch
 
 from hpvpinns_tpu_torch.models.mlp import MLP, init_mlp, mlp_apply
 
+# Every family's cfg.dtype, as JAX builds it with jnp.dtype(cfg.dtype): the
+# host build stays float64 and is cast to this at the end.  The kernels of
+# deriv_mode="pallas" take float32 only (ops/fused_fields.py).
+DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
+
 
 @dataclass
 class Problem:

@@ -30,6 +30,7 @@ from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
 from hpvpinns_tpu_torch.problems.base import (
+    DTYPES,
     Problem,
     make_composite_apply,
     make_feature_apply,
@@ -41,7 +42,6 @@ from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
 
 _FIELDS = {"taylor": taylor_fields_2d, "pallas": fused_fields_2d, "jvp": None}  # None: ops/fields.py on the ansatz
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def u_initial(x):
@@ -204,7 +204,7 @@ def build(
     if cfg.deriv_mode not in _FIELDS:
         raise ValueError(f"deriv_mode must be one of {sorted(_FIELDS)}; got {cfg.deriv_mode!r}")
     device = resolve_device(device)
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     if (cfg.hard_bc or envelope_fn is not None) and lift_fn is None and (ic_fn is not None or cfg.t_start != 0.0):
         raise ValueError(

@@ -31,12 +31,11 @@ from hpvpinns_tpu_torch.config import KovasznayConfig
 from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import ns_residual, variational_loss
-from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_interval
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def lam_of(re: float) -> float:
@@ -139,7 +138,7 @@ def build(cfg: KovasznayConfig, rng: np.random.Generator | None = None, *, devic
     sensors.  The derivative fields come from the JVP engine whatever
     cfg.deriv_mode says, as in the JAX package."""
     device = resolve_device(device)
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     mesh = TensorMesh2D(axis_x=Interval1D.grid_or_uniform(cfg.grid_x, *cfg.domain_x, cfg.n_elements_x),
                         axis_y=Interval1D.grid_or_uniform(cfg.grid_y, *cfg.domain_y, cfg.n_elements_y))

@@ -20,7 +20,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson1d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_1d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_1d
-from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_1d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 
@@ -29,7 +29,6 @@ AMP = 1.0
 R1 = 80.0
 
 _FIELDS = {"taylor": taylor_fields_1d, "pallas": fused_fields_1d, "jvp": None}  # None: ops/fields.py on the ansatz
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def u_exact(x):
@@ -96,7 +95,7 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
     device = resolve_device(device)
     u_ex = u_fn or u_exact
     f_rh = f_fn or f_rhs
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     mesh = make_mesh(cfg)
     xq, wq = gauss_lobatto_jacobi(cfg.n_quad, 0.0, 0.0)
     n_per_elem = (

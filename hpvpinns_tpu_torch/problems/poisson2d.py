@@ -23,7 +23,7 @@ from hpvpinns_tpu_torch.ops.assembly import poisson2d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
-from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
@@ -33,7 +33,6 @@ OMEGA_Y = 2 * np.pi
 R1 = 10.0
 
 _FIELDS = {"taylor": taylor_fields_2d, "pallas": fused_fields_2d, "jvp": None}  # None: ops/fields.py on the ansatz
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def u_exact(x, y):
@@ -134,7 +133,7 @@ def build(
     device = resolve_device(device)
     u_ex = u_fn or u_exact
     f_rh = f_fn or f_rhs
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     if cfg.grid_x is not None or cfg.grid_y is not None:
         ax = (

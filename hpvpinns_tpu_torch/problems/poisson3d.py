@@ -20,7 +20,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson3d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_3d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_3d
-from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_3d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box
@@ -29,7 +29,6 @@ OMEGA = 2 * np.pi
 R1 = 5.0
 
 _FIELDS = {"taylor": taylor_fields_3d, "pallas": fused_fields_3d, "jvp": None}  # None: ops/fields.py on the ansatz
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def _gx(x):
@@ -104,7 +103,7 @@ def build(
     device = resolve_device(device)
     u_ex = u_fn or u_exact
     f_rh = f_fn or f_rhs
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     mesh = TensorMesh3D.uniform(
         *cfg.domain_x, cfg.n_elements_x, *cfg.domain_y, cfg.n_elements_y, *cfg.domain_z, cfg.n_elements_z,

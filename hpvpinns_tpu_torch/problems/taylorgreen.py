@@ -33,13 +33,12 @@ from hpvpinns_tpu_torch.config import TaylorGreenConfig
 from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh3D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import ns_unsteady_residual, variational_loss
-from hpvpinns_tpu_torch.problems.base import Problem, make_composite_apply, make_net_init, resolve_device
+from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_3d, build_enriched_3d, make_weighted_basis
 from hpvpinns_tpu_torch.problems.kovasznay import coons_lift
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
 from hpvpinns_tpu_torch.utils.sampling import lhs_box, lhs_interval
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 N_QUAD_ZERO_MEAN = 16  # GLL points per space axis of the zero-mean gauge's slice means
 
 
@@ -177,7 +176,7 @@ def build(
     derivative fields come from the JVP engine whatever cfg.deriv_mode says,
     as in the JAX package."""
     device = resolve_device(device)
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     rng = rng or np.random.default_rng(cfg.train.seed)
     if cfg.hard_bc and ic_fn is not None and ic_lift_fns is None:
         raise ValueError(

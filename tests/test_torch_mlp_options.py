@@ -206,3 +206,117 @@ def test_pallas_refuses_with_jax_messages_on_the_cpu(kw, message):
 
 def test_version():
     assert tv.__version__ == jv.__version__ == "0.1.0"
+
+
+@pytest.mark.parametrize("grad_mode", [False, True])
+def test_swish_nested_jvps_match_jax(grad_mode):
+    """swish = z * sigmoid(z) against jax.nn.swish in float64: the value and
+    the first and second derivatives by nested JVPs, with grad mode off
+    (where F.silu's forward-mode rule raised) and on, to 1e-13."""
+    from hpvpinns_tpu_torch.models.mlp import _ACTIVATIONS
+    from hpvpinns_tpu_torch.ops.derivatives import value_and_dir_derivs2
+
+    z = np.linspace(-8.0, 8.0, 161)
+
+    def jfirst(x):
+        return jax.jvp(jax.nn.swish, (x,), (jnp.ones_like(x),))
+
+    (jv0, jv1), (_, jv2) = jax.jvp(jfirst, (jnp.asarray(z),), (jnp.ones_like(jnp.asarray(z)),))
+    zt = torch.tensor(z)
+    with torch.set_grad_enabled(grad_mode):
+        got = value_and_dir_derivs2(_ACTIVATIONS["swish"], zt, torch.ones_like(zt))
+    for t, j in zip(got, (jv0, jv1, jv2)):
+        np.testing.assert_allclose(tnp(t), np.asarray(j), rtol=1e-13, atol=1e-14)
+
+
+def _fuzz_rng(name, trial):
+    """tests/test_fuzz_configs.py's per-test stream."""
+    return np.random.default_rng([20260816, trial, sum(name.encode())])
+
+
+def _fuzz_config(pkg, name, trial):
+    """The config that tests/test_fuzz_configs.py draws for (name, trial),
+    built from package `pkg`'s config classes, draw for draw."""
+    RNG = _fuzz_rng(name, trial)
+
+    def act():
+        return str(RNG.choice(["sin", "tanh", "gelu", "swish"]))
+
+    def tc():
+        return pkg.TrainConfig(iterations=int(RNG.integers(5, 25)), check_every=5)
+
+    if name == "p1d":
+        n_elem = int(RNG.integers(1, 5))
+        return pkg.Poisson1DConfig(
+            dtype=str(RNG.choice(["float32", "float64"])), activation=act(),
+            var_form=int(RNG.choice([1, 2, 3])), n_elements=n_elem, n_test=int(RNG.integers(2, 12)),
+            n_quad=int(RNG.integers(4, 24)),
+            layers=(1,) + tuple(int(RNG.integers(3, 12)) for _ in range(int(RNG.integers(1, 3)))) + (1,),
+            adaptive_slope=bool(RNG.integers(0, 2)), deriv_mode=str(RNG.choice(["taylor", "jvp"])), train=tc(),
+        )
+    return pkg.Poisson2DConfig(
+        dtype="float64", activation=act(), scheme=str(RNG.choice(["VPINNs", "PINNs"])),
+        var_form=int(RNG.choice([0, 1, 2])), n_elements_x=int(RNG.integers(1, 4)),
+        n_elements_y=int(RNG.integers(1, 4)), n_test_x=int(RNG.integers(2, 6)), n_test_y=int(RNG.integers(2, 6)),
+        n_quad=int(RNG.integers(4, 10)), n_bound=int(RNG.integers(4, 30)), layers=(2, int(RNG.integers(3, 10)), 1),
+        deriv_mode=str(RNG.choice(["taylor", "jvp"])), train=tc(),
+    )
+
+
+@pytest.mark.parametrize("name,trial", [("p1d", 5), ("p2d", 2)])
+def test_swish_fuzz_configs_train_on_jvp(name, trial):
+    """The two configs of tests/test_fuzz_configs.py that train swish on the
+    JVP engine with second derivatives (test_fuzz_poisson1d[5],
+    test_fuzz_poisson2d[2]): the port builds the same config and trains it
+    (the metrics run under torch.no_grad), and the hierarchical indicator
+    (adaptive.element_indicator, under no_grad too) is finite."""
+    from hpvpinns_tpu_torch.adaptive import element_indicator
+
+    jcfg, cfg = _fuzz_config(jv, name, trial), _fuzz_config(tv, name, trial)
+    assert (cfg.activation, cfg.deriv_mode) == (jcfg.activation, jcfg.deriv_mode) == ("swish", "jvp")
+    prob = tv.build(cfg, device="cpu")
+    res = tv.train(prob, verbose=False)
+    assert np.isfinite(float(res.final_aux["loss"]))
+    assert np.isfinite(tv.evaluate_problem(prob, res.params)["rel_l2"])
+    assert np.all(np.isfinite(element_indicator(prob, res.params)))
+
+
+def test_bfloat16_trains():
+    """The port's twin of tests/test_problems.py::test_bfloat16_trains: a
+    bfloat16 Poisson-2D builds (the host build in float64, cast at the end
+    to what JAX's cast gives, bit for bit) and trains 30 steps to a finite
+    loss."""
+    kw = dict(dtype="bfloat16", n_quad=5, layers=(2, 6, 1))
+    jprob = jv.build(jv.Poisson2DConfig(**kw))
+    prob = tv.build(tv.Poisson2DConfig(**kw, train=tv.TrainConfig(iterations=30, check_every=10)), device="cpu")
+    assert prob.data["xb"].dtype == torch.bfloat16
+    for key in ("xb", "ub"):
+        np.testing.assert_array_equal(tnp(prob.data[key].float()), np.asarray(jprob.data[key], dtype=np.float32))
+    np.testing.assert_array_equal(tnp(prob.data["elements"].f_proj.float()),
+                                  np.asarray(jprob.data["elements"].f_proj, dtype=np.float32))
+    res = tv.train(prob, verbose=False)
+    assert np.isfinite(float(res.final_aux["loss"]))
+
+
+@pytest.mark.parametrize("family", ["Poisson1DConfig", "AdvDiffConfig", "BurgersConfig", "Helmholtz2DConfig",
+                                    "KovasznayConfig", "TaylorGreenConfig", "Poisson3DConfig", "AdvDiff2DConfig"])
+def test_bfloat16_builds_in_every_family(family):
+    """Every family takes dtype="bfloat16" on "taylor" and "jvp" (it raised
+    a bare KeyError): the loss is finite and in bfloat16 under both."""
+    for mode in ("taylor", "jvp"):
+        prob = tv.build(getattr(tv, family)(dtype="bfloat16", deriv_mode=mode), device="cpu")
+        loss, _ = prob.loss_fn(prob.init_params(torch.Generator().manual_seed(0)), prob.data)
+        assert loss.dtype == torch.bfloat16 and torch.isfinite(loss)
+
+
+def test_pallas_refuses_bfloat16():
+    """The kernels take float32 only: their argument check raises a
+    ValueError that names bfloat16 (on the card a bfloat16 "pallas" loss
+    raises it, chip_smoke.py phase 21)."""
+    from hpvpinns_tpu_torch.ops.fused_fields import check_kernel_args
+
+    prob = tv.build(tv.Poisson2DConfig(dtype="bfloat16", deriv_mode="pallas", n_quad=5, layers=(2, 6, 1)),
+                    device="cpu")
+    params = prob.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="bfloat16"):
+        check_kernel_args(prob.spec, params["net"], torch.zeros((4, 2), dtype=torch.bfloat16), 2)
