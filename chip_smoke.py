@@ -8,7 +8,7 @@
                            | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
                            | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
-                           | --ensemble-only | --march-only | --march | --inverse-only]
+                           | --ensemble-only | --march-only | --march | --inverse-only | --cli-only]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -257,6 +257,21 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      gradient (autograd through matrix_exp) and reduced_field_ci's
      Jacobian (torch.func.jacfwd) on the card against the CPU
      (INV_F64_TOL), with torch.profiler's CUDA kernels of each.
+ 22. The user surface (phase22): (a) `python -m hpvpinns_tpu_torch run
+     poisson2d --preset quality` at the preset's full width with its budgets
+     cut (CLI_CUT), --record, --record-params and --export, in a process of
+     its own: rel-L2 below CLI_REL_L2_MAX and the CUDA memory the process
+     allocated; (b) `serve --check` on the card and with --device cpu
+     (rel-L2 against (a)'s), the artifact's predict on the card against the
+     live ansatz of params_from_record (CLI_SERVE_ATOL), the export and load
+     times, the artifact's size and serve's wall seconds on the test grid;
+     (c) the record's .npz and .mat, params_from_record's prediction, and a
+     zero-iteration --init-record run reporting (a)'s rel-L2; (d) `python -m
+     hpvpinns_tpu_torch presets` and the other subcommands at cut budgets
+     (CLI_COMMANDS, through cli.main, each with the CUDA memory it
+     allocated), and --mesh's NotImplementedError; (f) --plots where
+     matplotlib is installed.  It launches no kernel (no CLI preset selects
+     deriv_mode="pallas") and says so.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -271,6 +286,7 @@ on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
+With --cli-only it runs phases 1, 2 and 22 and prints no summary.
 With --inverse-only it runs phases 1, 2 and 21, (b)'s routes at the
 README's sizes (the whole run cuts them: INV_ROUTES), and prints no
 summary.
@@ -3870,6 +3886,225 @@ def phase21(dev, full: bool = False) -> dict:
     return paths
 
 
+# Phase 22: the user surface through the command line.  (a) runs
+# `python -m hpvpinns_tpu_torch run poisson2d --preset quality` at the
+# preset's full width with its budgets cut to CLI_CUT; its rel-L2 must be
+# finite and below CLI_REL_L2_MAX (the band written down before the first
+# run: PERF.md section 6, the user surface).
+CLI_CUT = ("--iterations", "2000", "--lbfgs-iterations", "500")
+CLI_REL_L2_MAX = 3e-2
+CLI_SERVE_RTOL = 1e-5  # (b): serve's rel-L2 on the card against (a)'s; (c): the warm start's
+# (b): the float32 artifact's predictions on the CPU against the card's (max
+# abs, outputs of order 1): two devices' float32 arithmetic, not bit-equal
+CLI_DEVICE_ATOL = 1e-4
+CLI_SERVE_ATOL = 5e-6  # (b): the artifact against the live ansatz (tests/test_serving.py:46)
+CLI_RECORD_ATOL = 1e-6  # (c): params_from_record's prediction against the record's u_pred
+# (d): the other subcommands at cut budgets, each through cli.main
+CLI_SMALL = ("--iterations", "200", "--lbfgs-iterations", "0")
+CLI_COMMANDS = (
+    ("identify advdiff", ["identify", "advdiff"]),
+    ("adapt poisson1d --rounds 2", ["adapt", "poisson1d", "--rounds", "2", *CLI_SMALL]),
+    ("march burgers --slabs 2", ["march", "burgers", "--slabs", "2", "--quiet", *CLI_SMALL]),
+    ("sweep poisson1d --axis h --values 1,2", ["sweep", "poisson1d", "--axis", "h", "--values", "1,2", *CLI_SMALL]),
+    ("run poisson2d --seeds 2", ["run", "poisson2d", "--seeds", "2", "--quiet", *CLI_SMALL]),
+)
+# The command line of `python -m hpvpinns_tpu_torch ARGS` (runpy, as -m runs a
+# module), which reports at its exit the CUDA memory the process allocated.
+CLI_MAIN = (
+    "import atexit, json, runpy, sys, torch\n"
+    "atexit.register(lambda: print(json.dumps({'cuda_max_memory_allocated': torch.cuda.max_memory_allocated(),"
+    " 'cuda_initialized': torch.cuda.is_initialized()}), file=sys.stderr, flush=True))\n"
+    "runpy.run_module('hpvpinns_tpu_torch', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def cli_subprocess(args, label: str, timeout: float = 600) -> tuple:
+    """(summaries, CUDA bytes the process allocated at its peak, wall s) of
+    `python -m hpvpinns_tpu_torch ARGS`, run from the repository's root."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_MAIN, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 22 {label}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    mem = json_lines(proc.stderr)[-1]
+    return json_lines(proc.stdout), mem, wall
+
+
+def cli_in_process(args, label: str) -> tuple:
+    """(summaries, CUDA bytes allocated above the start at the peak, wall s)
+    of cli.main(ARGS) in this process."""
+    import contextlib
+    import io
+
+    from hpvpinns_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 22 {label}: exit {rc}\n{out.getvalue()[-3000:]}")
+    lines = json_lines(out.getvalue())
+    if not lines:
+        fail(f"phase 22 {label}: no summary\n{out.getvalue()[-3000:]}")
+    return lines, torch.cuda.max_memory_allocated() - base, wall
+
+
+def phase22(dev) -> None:
+    """The user surface on the card: (a) `run poisson2d --preset quality`
+    as a subprocess with --record, --record-params and --export; (b) `serve
+    --check` on the card and on the CPU, and the artifact against the live
+    ansatz rebuilt from the record; (c) the record's .npz and .mat, and a
+    zero-iteration --init-record run; (d) the other subcommands at cut
+    budgets and --mesh's refusal; (e) the CUDA memory each run allocated;
+    (f) --plots where matplotlib is installed."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch import serving
+    from hpvpinns_tpu_torch.utils.records import load_record, params_from_record
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, art = os.path.join(tmp, "R"), os.path.join(tmp, "A")
+        run_args = ["run", "poisson2d", "--preset", "quality", *CLI_CUT, "--quiet", "--record", rec,
+                    "--record-params", "--export", art]
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        if has_mpl:
+            run_args += ["--plots", "--outdir", os.path.join(tmp, "plots")]
+        # (a) the real entry point, a process of its own
+        lines, mem, wall = cli_subprocess(run_args, "(a) run")
+        summary = lines[0]
+        by_key = {k: d for d in lines[1:] for k in d}
+        rel = summary["rel_l2"]
+        layers = hv.poisson2d_quality().layers
+        if not math.isfinite(rel) or not rel < CLI_REL_L2_MAX:
+            fail(f"phase 22 (a): rel-L2 {rel} is not below {CLI_REL_L2_MAX}")
+        if not mem["cuda_initialized"] or mem["cuda_max_memory_allocated"] <= 0:
+            fail(f"phase 22 (a): the run allocated no CUDA memory: {mem}")
+        if by_key["export"]["platforms"] != ["cpu", "cuda"] or set(by_key) < {"record", "export"}:
+            fail(f"phase 22 (a): lines {lines[1:]}")
+        print(f"phase 22 (a) python -m hpvpinns_tpu_torch run poisson2d --preset quality {' '.join(CLI_CUT)} "
+              f"(layers {layers}): rel_l2 {rel:.4e} (below {CLI_REL_L2_MAX}), max_abs_err {summary['max_abs_err']:.4e}, "
+              f"{summary['iterations']} iterations in {summary['wall_time_s']} s of training, the process {wall:.1f} s; "
+              f"CUDA memory allocated at its peak {mem['cuda_max_memory_allocated'] / 2**20:.1f} MiB",
+              flush=True)
+        if has_mpl:
+            print(f"phase 22 (f): --plots wrote {len(by_key['plots']['plots'])} files", flush=True)
+        else:
+            print("phase 22 (f): this machine has no matplotlib; the plot set (--plots, viz.py) is covered by the CPU "
+                  "tests (tests/test_torch_records_viz.py, tests/test_torch_cli.py)", flush=True)
+
+        # (b) serve on the card and on the CPU; the artifact against the live ansatz
+        served = {}
+        for device, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            (out,), smem, swall = cli_in_process(["serve", art, "--check", *extra], f"(b) serve {device}")
+            served[device] = (out, smem, swall)
+        rel_card, rel_cpu = served["cuda"][0]["rel_l2"], served["cpu"][0]["rel_l2"]
+        if abs(rel_card - rel) > CLI_SERVE_RTOL * rel:
+            fail(f"phase 22 (b) serve on the card: rel-L2 {rel_card} against the run's {rel}")
+        prob = hv.build(hv.poisson2d_quality(), device=dev)
+        params = params_from_record(prob, load_record(rec + ".npz"))
+        t0 = time.perf_counter()
+        model = serving.load_model(art)
+        load_s = time.perf_counter() - t0
+        X = prob.test_points
+        with torch.no_grad():
+            y_card = model.exported.module()(torch.as_tensor(X[:1], dtype=torch.float32, device=dev))
+            live = prob.apply(params, torch.as_tensor(X, dtype=torch.float32, device=dev)).cpu().numpy()
+        t0 = time.perf_counter()
+        y_served = model.predict(X)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.predict(X)
+        warm_s = time.perf_counter() - t0
+        err = float(np.abs(y_served - live).max())
+        if y_card.device.type != "cuda" or err > CLI_SERVE_ATOL:
+            fail(f"phase 22 (b): the artifact's output on {y_card.device} differs from the live ansatz by {err:.3e}")
+        # the CPU's serve: its float32 predictions against the card's, and its
+        # rel-L2 within what that difference allows (the triangle inequality)
+        y_host = serving.load_model(art, device="cpu").predict(X)
+        dev_gap = float(np.abs(y_host - y_served).max())
+        norm_gap = float(np.linalg.norm(y_host - y_served) / np.linalg.norm(prob.test_values))
+        if dev_gap > CLI_DEVICE_ATOL or abs(rel_cpu - rel_card) > norm_gap + 1e-9:
+            fail(f"phase 22 (b) serve on the CPU: predictions {dev_gap:.3e} (max abs) from the card's, rel-L2 "
+                 f"{rel_cpu} against the card's {rel_card} (allowed {norm_gap:.3e})")
+        t0 = time.perf_counter()
+        serving.save_model(os.path.join(tmp, "again"), prob, params)
+        export_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+        out_c, mem_c, _ = served["cuda"]
+        print(f"phase 22 (b) serve --check: rel_l2 card {rel_card!r} cpu {rel_cpu!r} (run {rel!r}; relative "
+              f"{abs(rel_card - rel) / rel:.3e} and {abs(rel_cpu - rel) / rel:.3e}); the CPU's float32 predictions "
+              f"against the card's: max abs {dev_gap:.3e}, norm {norm_gap:.3e} of the solution's; wall_s on the {out_c['n_points']}-point test grid: card {out_c['wall_s']} cpu "
+              f"{served['cpu'][0]['wall_s']} (in this process on the card: a loaded artifact's first predict "
+              f"{first_s * 1e3:.2f} ms, the next {warm_s * 1e3:.2f} ms); the artifact's predict (its program's output on {y_card.device}) against "
+              f"the live ansatz of params_from_record: max abs {err:.3e} (atol {CLI_SERVE_ATOL}); export {export_s:.2f} s, artifact "
+              f"{size} bytes, load onto the card {load_s:.2f} s; CUDA memory of serve on the card {mem_c / 2**20:.1f} "
+              f"MiB, on the CPU {served['cpu'][1] / 2**20:.1f} MiB", flush=True)
+
+        # (c) the record and a warm start from it
+        npz, mat = load_record(rec + ".npz"), load_record(rec + ".mat")
+        u_rec = np.asarray(npz["u_pred"])
+        if not np.array_equal(np.asarray(mat["u_pred"]).reshape(u_rec.shape), u_rec):
+            fail("phase 22 (c): the .mat record's u_pred differs from the .npz's")
+        rerr = float(np.abs(hv.predict(prob, params) - u_rec).max())
+        if rerr > CLI_RECORD_ATOL:
+            fail(f"phase 22 (c): params_from_record predicts the record's u_pred to {rerr:.3e}")
+        (warm,), wmem, wwall = cli_in_process(["run", "poisson2d", "--preset", "quality", "--iterations", "0",
+                                               "--lbfgs-iterations", "0", "--quiet", "--init-record", rec + ".npz"],
+                                              "(c) --init-record")
+        if abs(warm["rel_l2"] - rel) > CLI_SERVE_RTOL * rel:
+            fail(f"phase 22 (c): --init-record with zero iterations reports {warm['rel_l2']}, the run {rel}")
+        print(f"phase 22 (c) record: .npz and .mat u_pred equal, params_from_record on the card predicts it to "
+              f"{rerr:.3e}; run --init-record R.npz --iterations 0 --lbfgs-iterations 0: rel_l2 {warm['rel_l2']:.6e}, "
+              f"{wwall:.1f} s, CUDA memory {wmem / 2**20:.1f} MiB", flush=True)
+
+        # (d) the other subcommands, at cut budgets
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "hpvpinns_tpu_torch", "presets"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0 or proc.stdout.count("== ") != 28:
+            fail(f"phase 22 (d) python -m hpvpinns_tpu_torch presets: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+        print(f"phase 22 (d) python -m hpvpinns_tpu_torch presets: exit 0, 28 presets, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for label, args in CLI_COMMANDS:
+            if args[0] in ("adapt", "sweep", "march"):
+                args = [*args, "--outdir", os.path.join(tmp, args[0])]
+            lines, cmem, cwall = cli_in_process(args, f"(d) {label}")
+            if cmem <= 0:
+                fail(f"phase 22 (d) {label}: allocated no CUDA memory")
+            print(f"phase 22 (d) {label}: exit 0, {cwall:.1f} s, CUDA memory {cmem} bytes; "
+                  + json.dumps(lines[0])[:300], flush=True)
+        try:
+            cli_in_process(["run", "poisson2d", "--mesh", "--quiet", *CLI_SMALL], "(d) --mesh")
+        except NotImplementedError as e:
+            if "queue A item 24" not in str(e):
+                raise
+            print(f"phase 22 (d) run poisson2d --mesh: NotImplementedError: {e}", flush=True)
+        else:
+            fail("phase 22 (d): run --mesh did not raise")
+    counts = read_counts()
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s; kernel launches {counts} (no CLI preset selects "
+          f"deriv_mode='pallas', as in the JAX package)", flush=True)
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4008,6 +4243,11 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--inverse-only"]:  # for work on the inverse suite: phases 1, 2 and 21, no summary
         phase21(dev, full=True)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--cli-only"]:  # for work on the user surface: phases 1, 2 and 22, no summary
+        phase22(dev)
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -4209,6 +4449,10 @@ def main() -> int:
     # training, the network-free routes and their intervals in float64, the
     # field route's torch work on the card
     paths.update(phase21(dev))
+
+    # 22. the user surface: python -m hpvpinns_tpu_torch run / serve / the
+    # other subcommands, records and the serving artifact (no kernel)
+    phase22(dev)
 
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]

@@ -15,7 +15,9 @@ trainer, checkpoints (training/checkpoint.py) and the float64 polish
 time marching (training/timemarch.py), and the coefficient-identification
 suite: the two-phase field fits, ALS and the network-free reduced routes
 (inverse.py) with their error bars (uncertainty.py), whose torch work runs
-on the problem's device.  Their derivative fields come from the
+on the problem's device; and the user surface: results records
+(utils/records.py), torch.export serving artifacts (serving.py), the plot
+set (viz.py) and the command line, `python -m hpvpinns_tpu_torch` (cli.py).  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
@@ -63,6 +65,7 @@ from hpvpinns_tpu_torch.convert import params_from_jax, params_to_numpy
 from hpvpinns_tpu_torch.evaluate import evaluate as evaluate_problem
 from hpvpinns_tpu_torch.evaluate import per_element_rel_l2, predict, rel_l2, strong_residual
 from hpvpinns_tpu_torch.problems import build
+from hpvpinns_tpu_torch.serving import ServedModel, export_model, load_model, save_model
 from hpvpinns_tpu_torch.training import (
     EnsembleResult,
     GNResult,
@@ -87,6 +90,7 @@ __all__ = [
     "Poisson2DConfig",
     "Poisson3DConfig",
     "GNResult",
+    "ServedModel",
     "TaylorGreenConfig",
     "TimeMarchResult",
     "TrainConfig",
@@ -100,11 +104,13 @@ __all__ = [
     "burgers_precision",
     "burgers_quality",
     "evaluate_problem",
+    "export_model",
     "gauss_newton",
     "helmholtz2d_precision",
     "helmholtz2d_quality",
     "kovasznay_precision",
     "kovasznay_quality",
+    "load_model",
     "params_from_jax",
     "per_element_rel_l2",
     "params_to_numpy",
@@ -119,6 +125,7 @@ __all__ = [
     "poisson3d_quality",
     "predict",
     "rel_l2",
+    "save_model",
     "strong_residual",
     "taylorgreen_precision",
     "taylorgreen_quality",

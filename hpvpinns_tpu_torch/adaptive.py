@@ -574,6 +574,8 @@ def adaptive_galerkin_advdiff(
     p: int = 16,
     enrich: int = 4,
     n_eval_t: int = 11,
+    *,
+    device=None,
 ):
     """Space-axis adaptive refinement for the space-time advdiff family with
     the DIRECT solver (galerkin.solve_advdiff) in the loop and the
@@ -583,12 +585,14 @@ def adaptive_galerkin_advdiff(
     same Galerkin-optimality reason as the Poisson loops; resolves the
     outflow layer the benchmark develops at the right wall.
 
-    Returns per-round records {grid_x, n_elem, eta, rel_l2}.
+    Returns per-round records {grid_x, n_elem, eta, rel_l2}.  `device`:
+    where the problem (its exact solution and data) is built, default the
+    card.
     """
     if not isinstance(cfg, AdvDiffConfig):
         raise TypeError("adaptive_galerkin_advdiff supports AdvDiffConfig")
     cfg = dataclasses.replace(cfg, inverse=False)
-    problem = build(cfg)
+    problem = build(cfg) if device is None else build(cfg, device=device)  # `build`: the module's hook
     exact = problem.exact
     eps = problem.extras.get("epsilon_fn") or problem.extras["eps_true"]
     vfn = problem.extras.get("velocity_fn")

@@ -1,11 +1,11 @@
 """h/p-refinement sweeps: the hp-convergence studies of the method.
 
-Counterpart of hpvpinns_tpu/sweep.py, with the same names and signatures.
-h-refinement (the element count) and p-refinement (the per-element test
-orders) run as programmatic sweeps; each point retrains from the same seed
-through `train` (on the card: problems are built with `build`'s default
-device) and reports rel-L2 against the analytic solution, throughput and
-the per-element error, as one record.  `plot_sweep` renders the log-error
+Counterpart of hpvpinns_tpu/sweep.py, with the same names and signatures
+(and a keyword `device`).  h-refinement (the element count) and
+p-refinement (the per-element test orders) run as programmatic sweeps; each
+point retrains from the same seed through `train` (on the card unless
+`device` names another) and reports rel-L2 against the analytic solution,
+throughput and the per-element error, as one record.  `plot_sweep` renders the log-error
 convergence curve (matplotlib, imported only there).
 """
 
@@ -26,8 +26,10 @@ def _with(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
-def _run_point(cfg, train_cfg, mesh=None, verbose=False) -> dict:
-    prob = build(cfg)
+def _run_point(cfg, train_cfg, mesh=None, verbose=False, device=None) -> dict:
+    # the module-level `build` is the sweep's hook (it may take the config
+    # alone); `device` goes to it only when one is named
+    prob = build(cfg) if device is None else build(cfg, device=device)
     res = train(prob, train_cfg, mesh=mesh, verbose=verbose)
     metrics = evaluate_problem(prob, res.eval_params)
     return {
@@ -58,10 +60,13 @@ def h_sweep(
     train_cfg: Optional[TrainConfig] = None,
     mesh=None,
     verbose: bool = False,
+    *,
+    device=None,
 ):
     """Refine in h (element count, uniform over every mesh axis), holding
     the per-element order fixed.  Explicit `grid*` tuples and per-element
-    test orders are cleared: they pin the mesh the sweep is varying."""
+    test orders are cleared: they pin the mesh the sweep is varying.
+    `device`: where each point's problem is built (default the card)."""
     elem_fields = _family_fields(base_cfg, "n_elements")
     if not elem_fields:
         raise TypeError(f"h_sweep: {type(base_cfg).__name__} has no n_elements fields")
@@ -73,7 +78,7 @@ def h_sweep(
     records = []
     for ne in n_elements:
         cfg = _with(base_cfg, **{name: ne for name in elem_fields}, **reset)
-        rec = {"axis": "h", "n_elements": ne, **_run_point(cfg, train_cfg, mesh, verbose)}
+        rec = {"axis": "h", "n_elements": ne, **_run_point(cfg, train_cfg, mesh, verbose, device)}
         records.append(rec)
     return records
 
@@ -84,9 +89,11 @@ def p_sweep(
     train_cfg: Optional[TrainConfig] = None,
     mesh=None,
     verbose: bool = False,
+    *,
+    device=None,
 ):
     """Refine in p (test-function order, uniform over every tensor axis),
-    holding the element grid fixed."""
+    holding the element grid fixed.  `device` as in h_sweep."""
     test_fields = _family_fields(base_cfg, "n_test")
     if not test_fields:
         raise TypeError(f"p_sweep: {type(base_cfg).__name__} has no n_test fields")
@@ -97,7 +104,7 @@ def p_sweep(
     records = []
     for nt in n_tests:
         cfg = _with(base_cfg, **{name: nt for name in test_fields}, **reset)
-        rec = {"axis": "p", "n_test": nt, **_run_point(cfg, train_cfg, mesh, verbose)}
+        rec = {"axis": "p", "n_test": nt, **_run_point(cfg, train_cfg, mesh, verbose, device)}
         records.append(rec)
     return records
 

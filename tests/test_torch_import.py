@@ -1,6 +1,6 @@
 """The PyTorch port imports neither JAX, optax, orbax nor the JAX package (nor
-matplotlib, which sweep.plot_sweep imports when it is called): the
-machine with the GPU has none of them.  Checked in a fresh interpreter, since this
+matplotlib, which sweep.plot_sweep and viz.py import when a plot is drawn):
+the machine with the GPU has none of them.  Checked in a fresh interpreter, since this
 test process has JAX loaded already (tests/conftest.py)."""
 
 import subprocess
@@ -36,11 +36,12 @@ def test_port_imports_no_jax():
         "new = ('problems.advdiff', 'ops.fields', 'problems.poisson3d', 'problems.advdiff2d', 'training.lbfgs',\n"
         "       'problems.helmholtz', 'problems.burgers', 'training.gauss_newton', 'training.hybrid',\n"
         "       'training.checkpoint', 'problems.kovasznay', 'problems.taylorgreen', 'adaptive', 'sweep', 'galerkin',\n"
-        "       'training.ensemble', 'training.timemarch', 'inverse', 'uncertainty')\n"
+        "       'training.ensemble', 'training.timemarch', 'inverse', 'uncertainty', 'utils.records', 'serving',\n"
+        "       'viz', 'cli', '__main__')\n"
         "assert all(hasattr(hpvpinns_tpu_torch, n) for n in ('KovasznayConfig', 'TaylorGreenConfig', 'kovasznay_quality',\n"
         "           'kovasznay_precision', 'taylorgreen_quality', 'taylorgreen_precision', 'per_element_rel_l2',\n"
         "           'train_ensemble', 'EnsembleResult', 'time_march', 'TimeMarchResult', '__version__',\n"
-        "           'inverse', 'uncertainty'))\n"
+        "           'inverse', 'uncertainty', 'save_model', 'load_model'))\n"
         "from hpvpinns_tpu_torch import inverse, uncertainty\n"
         "assert all(callable(getattr(inverse, n)) for n in INVERSE) and all(callable(getattr(uncertainty, n)) for n in UQ)\n"
         "assert all('hpvpinns_tpu_torch.' + n in names for n in new), names\n"
