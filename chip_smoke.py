@@ -8,7 +8,8 @@
                            | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
                            | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
-                           | --ensemble-only | --march-only | --march | --inverse-only | --cli-only]
+                           | --ensemble-only | --march-only | --march | --inverse-only | --cli-only
+                           | --mesh-only | --mesh-cards]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -269,9 +270,24 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      zero-iteration --init-record run reporting (a)'s rel-L2; (d) `python -m
      hpvpinns_tpu_torch presets` and the other subcommands at cut budgets
      (CLI_COMMANDS, through cli.main, each with the CUDA memory it
-     allocated), and --mesh's NotImplementedError; (f) --plots where
+     allocated), and --mesh at one rank; (f) --plots where
      matplotlib is installed.  It launches no kernel (no CLI preset selects
-     deriv_mode="pallas") and says so.
+     deriv_mode="pallas") and says so;
+ 23. trains on a mesh (parallel/*): (a) one rank, NCCL, in this process:
+     poisson2d_scaled under "pallas" at var_form 0 and 1 through `train` on
+     element_mesh() against the unsharded `train`, MESH_STEPS steps each,
+     the losses equal bit for bit, the captured steps' nodes by kind
+     (one rank's in-place NCCL sum may launch no kernel), graph steps/s of both in turns
+     u m m u, the kernels' launches; (b) two ranks sharing the card through
+     gloo (run_multiprocess_check) at var_form 0: each rank's B1/B2/block-sum
+     launches on its 32 elements, the loss and gradients against the
+     unsharded process (rtol 1e-5), MESH_ADAM_STEPS eager Adam steps (rtol
+     1e-4) and the eager chunk mode; (c) Gauss-Newton "cg" at two ranks
+     (rtol 1e-4); (d) dryrun_multichip(2) through gloo on the card; (e)
+     on a host of several cards only, an NCCL world of one rank a card
+     (children `chip_smoke.py --mesh-child`): each rank's captured steps
+     against unsharded (rtol 1e-4), NCCL's kernel among its nodes, its
+     graph steps/s.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -287,6 +303,8 @@ JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
 With --cli-only it runs phases 1, 2 and 22 and prints no summary.
+With --mesh-only it runs phases 1, 2 and 23 and prints no summary; with
+--mesh-cards, on a host of several cards, phases 1, 2 and 23 (e) alone.
 With --inverse-only it runs phases 1, 2 and 21, (b)'s routes at the
 README's sizes (the whole run cuts them: INV_ROUTES), and prints no
 summary.
@@ -3968,7 +3986,7 @@ def phase22(dev) -> None:
     --check` on the card and on the CPU, and the artifact against the live
     ansatz rebuilt from the record; (c) the record's .npz and .mat, and a
     zero-iteration --init-record run; (d) the other subcommands at cut
-    budgets and --mesh's refusal; (e) the CUDA memory each run allocated;
+    budgets and --mesh at one rank; (e) the CUDA memory each run allocated;
     (f) --plots where matplotlib is installed."""
     import importlib.util
     import os
@@ -4092,17 +4110,254 @@ def phase22(dev) -> None:
                 fail(f"phase 22 (d) {label}: allocated no CUDA memory")
             print(f"phase 22 (d) {label}: exit 0, {cwall:.1f} s, CUDA memory {cmem} bytes; "
                   + json.dumps(lines[0])[:300], flush=True)
-        try:
-            cli_in_process(["run", "poisson2d", "--mesh", "--quiet", *CLI_SMALL], "(d) --mesh")
-        except NotImplementedError as e:
-            if "queue A item 24" not in str(e):
-                raise
-            print(f"phase 22 (d) run poisson2d --mesh: NotImplementedError: {e}", flush=True)
-        else:
-            fail("phase 22 (d): run --mesh did not raise")
+        lines, cmem, cwall = cli_in_process(["run", "poisson2d", "--mesh", "--quiet", *CLI_SMALL], "(d) --mesh")
+        print(f"phase 22 (d) run poisson2d --mesh (a one-rank NCCL mesh): exit 0, {cwall:.1f} s; "
+              + json.dumps(lines[0])[:300], flush=True)
     counts = read_counts()
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s; kernel launches {counts} (no CLI preset selects "
           f"deriv_mode='pallas', as in the JAX package)", flush=True)
+
+
+MESH_STEPS = 200  # (a)'s train runs and its rate turns, a turn each
+MESH_ADAM_STEPS = 50  # (b)'s eager Adam steps on two ranks, (e)'s graph steps a rank
+
+
+def mesh_config(var_form: int, steps: int):
+    """poisson2d_scaled under "pallas" at `var_form`, `steps` Adam steps in
+    chunks of 10, no L-BFGS."""
+    import hpvpinns_tpu_torch as hv
+
+    c = dataclasses.replace(hv.poisson2d_scaled(), var_form=var_form, deriv_mode="pallas")
+    return dataclasses.replace(c, train=dataclasses.replace(
+        c.train, iterations=steps, check_every=10, lbfgs_iterations=0, threshold=None))
+
+
+def node_kinds(labels) -> dict:
+    """The captured nodes by kind (KERNEL, MEMCPY, MEMSET, EVENT_RECORD, ...:
+    the first upper-case word of each DOT label), and the NCCL kernels."""
+    import re
+    from collections import Counter
+
+    kinds = Counter(m.group(0) if m else "?" for m in (re.search(r"[A-Z][A-Z_]{3,}", n) for n in labels))
+    return {**dict(sorted(kinds.items())), "nccl_kernels": sum("nccl" in n.lower() for n in labels)}
+
+
+def step_graph_nodes(ch, name: str) -> tuple:
+    """(the captured step's node labels, their kinds)."""
+    labels = dot_nodes(ch.graphs[0], name)
+    return labels, node_kinds(labels)
+
+
+def mesh_rates(prob, cfg, mesh, steps: int = MESH_STEPS, chunk: int = 10):
+    """Graph steps/s of the unsharded chunk and of the one-rank mesh's
+    chunk (its all-reduce inside the captured step), `steps` steps a turn
+    in chunks of `chunk`, turns u m m u from the same initial params:
+    ({"unsharded": [..], "mesh": [..]}, {kind: the captured step's
+    nodes})."""
+    from hpvpinns_tpu_torch.parallel.sharding import allreduce_grads, shard_problem
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk
+    from hpvpinns_tpu_torch.utils.profiling import time_fn
+
+    data = {"unsharded": prob.data, "mesh": shard_problem(prob.data, mesh)}
+    rates, nodes = {"unsharded": [], "mesh": []}, {}
+    for kind in ("unsharded", "mesh", "mesh", "unsharded"):
+        prm, opt = fresh_state(prob, cfg)
+        allreduce_grads.captured = 0
+        ch = _build_chunk(prob.loss_fn, opt, prm, data[kind], debug=True, mesh=mesh if kind == "mesh" else None)
+        captured = allreduce_grads.captured
+        rates[kind].append(chunk * time_fn(ch, chunk, iters=steps // chunk, warmup=1)["iters_per_sec"])
+        name = f"phase23a_f{cfg.var_form}_{kind}"
+        labels, kinds = step_graph_nodes(ch, name)
+        nodes[kind] = {"nodes": len(labels), "kinds": kinds, "kernels": graph_nodes(ch.graphs[0], name),
+                       "captured_allreduces": captured}
+        del ch
+    return rates, nodes
+
+
+def phase23(dev) -> dict:
+    """Multi-device training (parallel/*) on the card: (a) one rank, NCCL,
+    in this process: poisson2d_scaled under "pallas" at var_form 0 (B1
+    second, resident B2, the block sum) and 1 (B1 firsts), `train` on
+    element_mesh() against the unsharded `train`, MESH_STEPS steps each: the
+    loss histories equal bit for bit (a one-rank sum is a copy), both as
+    captured graphs, the step's flat all-reduce issued once inside its
+    capture (sharding.allreduce_grads.captured: NCCL took it under capture;
+    none in the unsharded capture), the mesh's step with more nodes (its
+    nodes by kind printed, NCCL's kernels counted: one rank's in-place sum
+    may launch none), the graph steps/s of both in turns u m m u, and the
+    kernels' host launches; (b) two ranks sharing the card through gloo
+    with CUDA tensors (multihost_check.run_multiprocess_check) at
+    poisson2d_scaled var_form 0 "pallas": 32 of the 64 elements a rank, each
+    rank's B1/B2/block-sum launches in its Adam steps' train, the loss and the gradients against the
+    unsharded single process (rtol 1e-5), MESH_ADAM_STEPS eager Adam steps'
+    losses (rtol 1e-4, the gap printed) and the chunk mode (eager); (c)
+    Gauss-Newton "cg" to 2 accepted steps at two ranks ("taylor", the tiny
+    float32 problem of the JAX package's check) against unsharded (rtol
+    1e-4); (d) dryrun_multichip(2) on the card through gloo.  (c) and (d)
+    run at once.  (e) on a host of several cards (mesh_cards).  Returns
+    each path's launches."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.parallel.dryrun import dryrun_multichip
+    from hpvpinns_tpu_torch.parallel.multihost_check import assert_multiprocess_matches, run_multiprocess_check
+    from hpvpinns_tpu_torch.parallel.sharding import allreduce_grads, element_mesh
+
+    t_phase = time.perf_counter()
+    paths = {}
+    mesh = element_mesh(device=dev)
+    if mesh.backend != "nccl" or not mesh.captures:
+        fail(f"phase 23 (a): the one-rank mesh on the card is {mesh}, not NCCL")
+    for vf, need in ((0, SECOND_PATH), (1, ("fused_fields",))):
+        c = mesh_config(vf, MESH_STEPS)
+        prob = hv.build(c, device=dev)
+        zero_counts()
+        r0 = hv.train(prob, verbose=False)
+        zero_counts()
+        allreduce_grads.captured = 0
+        r1 = hv.train(prob, mesh=mesh, verbose=False)
+        counts = paths[f"mesh poisson2d_scaled var_form {vf}"] = read_counts()
+        if allreduce_grads.captured != 1:  # the Adam step's, captured once (no L-BFGS phase)
+            fail(f"phase 23 (a) var_form {vf}: {allreduce_grads.captured} all-reduces issued inside the "
+                 f"mesh train's capture, not 1")
+        if min(counts[k] for k in need) < 1:
+            fail(f"phase 23 (a) var_form {vf}: kernel launches {counts}")
+        if not np.array_equal(r0.history["loss"], r1.history["loss"]):
+            fail(f"phase 23 (a) var_form {vf}: the mesh's losses differ from unsharded: "
+                 f"{r1.history['loss'][-3:].tolist()} vs {r0.history['loss'][-3:].tolist()}")
+        if (r0.chunk_mode, r1.chunk_mode) != ("graph", "graph"):
+            fail(f"phase 23 (a) var_form {vf}: chunk modes {r0.chunk_mode}, {r1.chunk_mode}")
+        rates, nodes = mesh_rates(prob, c, mesh)
+        if (min(nodes["mesh"]["kernels"][k] for k in need) < 1 or nodes["mesh"]["nodes"] <= nodes["unsharded"]["nodes"]
+                or (nodes["mesh"]["captured_allreduces"], nodes["unsharded"]["captured_allreduces"]) != (1, 0)):
+            fail(f"phase 23 (a) var_form {vf}: the mesh's captured step {nodes['mesh']} against {nodes['unsharded']}")
+        u, m = rates["unsharded"], rates["mesh"]
+        print(f"phase 23 (a) poisson2d_scaled var_form {vf} pallas, one rank NCCL: {MESH_STEPS} steps, losses equal "
+              f"unsharded bit for bit (last {r1.history['loss'][-1]!r}), chunks {r1.chunk_mode}; the flat "
+              f"all-reduce issued inside the step's capture {nodes['mesh']['captured_allreduces']} time(s) (NCCL "
+              f"accepted it under capture); captured step "
+              f"nodes unsharded {nodes['unsharded']['nodes']} {nodes['unsharded']['kinds']} mesh "
+              f"{nodes['mesh']['nodes']} {nodes['mesh']['kinds']} ("
+              f"B1 {nodes['mesh']['kernels']['fused_fields']}, B2 "
+              f"{nodes['mesh']['kernels']['fused_fields_bwd']}, block sum {nodes['mesh']['kernels']['block_sum']}); "
+              f"graph steps/s unsharded {u[0]!r} {u[1]!r} mesh {m[0]!r} {m[1]!r} ({MESH_STEPS} steps a turn, "
+              f"turns u m m u; mesh / unsharded {(m[0] + m[1]) / (u[0] + u[1]):.3f}x); host launches {counts}",
+              flush=True)
+
+    spec = {"preset": "poisson2d_scaled", "overrides": {"deriv_mode": "pallas", "var_form": 0}, "gn": False,
+            "adam_steps": MESH_ADAM_STEPS}
+    t0 = time.perf_counter()
+    res = run_multiprocess_check(timeout_s=300, device="cuda", backend="gloo", spec=spec)
+    try:
+        assert_multiprocess_matches(res, rtol=1e-5, grad_rtol=1e-5, adam_rtol=1e-4)
+    except AssertionError as e:
+        fail(f"phase 23 (b): two ranks against unsharded: {e}")
+    ref = np.asarray(res["reference"]["adam_loss"])
+    for child in res["children"]:
+        launches = child["adam_launches"]  # counted from 0 just before the rank's train
+        paths[f"mesh 2 ranks gloo, rank {child['process_index']}"] = launches
+        if min(launches[k] for k in SECOND_PATH) < 1 or child["chunk_mode"] != "eager" or child["device"] != "cuda:0":
+            fail(f"phase 23 (b) rank {child['process_index']}: launches {launches}, chunks {child['chunk_mode']}, "
+                 f"device {child['device']}")
+    gaps = [float(np.max(np.abs(np.asarray(c["adam_loss"]) - ref) / np.abs(ref))) for c in res["children"]]
+    rel = [abs(c["loss"] - res["reference"]["loss"]) / abs(res["reference"]["loss"]) for c in res["children"]]
+    print(f"phase 23 (b) two ranks on one card, gloo, poisson2d_scaled var_form 0 pallas, 32 of 64 elements a rank: "
+          f"loss rel gap {rel}, gradients within rtol 1e-5; {MESH_ADAM_STEPS} eager Adam steps, largest rel gap "
+          f"of the losses {gaps} (bound 1e-4); eager steps/s a rank "
+          f"{[c['adam_steps_per_sec'] for c in res['children']]} (unsharded graph reference "
+          f"{res['reference']['adam_steps_per_sec']!r}); launches in the {MESH_ADAM_STEPS} steps' train "
+          f"{[c['adam_launches'] for c in res['children']]}, in the one-step check before it "
+          f"{[c['check_launches'] for c in res['children']]}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        gn_job = pool.submit(run_multiprocess_check, timeout_s=300, device="cuda", backend="gloo")
+        dry_job = pool.submit(dryrun_multichip, 2, device="cuda", backend="gloo", timeout_s=300)
+        gn = gn_job.result()
+        dry = dry_job.result()
+    try:
+        assert_multiprocess_matches(gn)
+    except AssertionError as e:
+        fail(f"phase 23 (c): Gauss-Newton cg at two ranks against unsharded: {e}")
+    print(f"phase 23 (c) Gauss-Newton cg, two ranks on one card (gloo, taylor, the tiny float32 Poisson-2D): "
+          f"{gn['children'][0]['gn_accepted']} accepted steps, loss {gn['children'][0]['gn_loss']!r} vs unsharded "
+          f"{gn['reference']['gn_loss']!r}; (d) dryrun_multichip(2, cuda, gloo): GN loss {dry['gn_loss']!r} vs "
+          f"{dry['gn_loss_ref']!r}; {time.perf_counter() - t0:.1f} s (run at once)", flush=True)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print("phase 23 (e) skipped: one card (NCCL takes one rank a card; run on a host with more cards)",
+              flush=True)
+    else:
+        paths.update(mesh_cards(dev, n_cards))
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
+def mesh_cards(dev, n: int) -> dict:
+    """Phase 23 (e), on a host of n >= 2 cards: an NCCL world of n ranks,
+    one a card (children `chip_smoke.py --mesh-child`), each training
+    poisson2d_scaled var_form 0 "pallas" on its n-th of the elements for
+    MESH_ADAM_STEPS captured steps: every rank's losses against the
+    unsharded run on this card (rtol 1e-4), its chunks "graph", NCCL's
+    kernel a node of its captured step, its kernels' launches, and its
+    graph steps/s beside the unsharded chunk's."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.parallel.multihost_check import spawn
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk
+    from hpvpinns_tpu_torch.utils.profiling import time_fn
+
+    t0 = time.perf_counter()
+    c = mesh_config(0, MESH_ADAM_STEPS)
+    prob = hv.build(c, device=dev)
+    ref = hv.train(prob, verbose=False).history["loss"]
+    prm, opt = fresh_state(prob, c)
+    ch = _build_chunk(prob.loss_fn, opt, prm, prob.data)
+    ref_rate = 10 * time_fn(ch, 10, iters=MESH_STEPS // 10, warmup=1)["iters_per_sec"]
+    del ch
+    ranks = spawn([sys.executable, __file__, "--mesh-child"], n, 600, "cuda", "nccl")
+    paths = {}
+    for r in ranks:
+        paths[f"mesh {n} ranks nccl, rank {r['rank']}"] = r["launches"]
+        gap = float(np.max(np.abs(np.asarray(r["loss"]) - ref) / np.abs(ref)))
+        if (gap > 1e-4 or r["chunk_mode"] != "graph" or r["kinds"]["nccl_kernels"] < 1
+                or min(r["launches"][k] for k in SECOND_PATH) < 1):
+            fail(f"phase 23 (e) rank {r['rank']} of {n}: loss gap {gap}, {r}")
+        r["gap"] = gap
+    print(f"phase 23 (e) {n} ranks, NCCL, one card each, poisson2d_scaled var_form 0 pallas, "
+          f"{64 // n} elements a rank: {MESH_ADAM_STEPS} captured steps, largest rel gap of the losses against "
+          f"unsharded {[r['gap'] for r in ranks]} (bound 1e-4); captured step nodes {[r['kinds'] for r in ranks]}; "
+          f"graph steps/s a rank {[r['rate'] for r in ranks]} (unsharded on one card {ref_rate!r}); devices "
+          f"{[r['device'] for r in ranks]}; launches {[r['launches'] for r in ranks]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def mesh_child(argv) -> int:
+    """A rank of phase 23 (e)'s NCCL world: PORT RANK N OUT (as
+    multihost_check.spawn passes them)."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.parallel import distributed
+    from hpvpinns_tpu_torch.parallel.sharding import element_mesh, shard_problem
+    from hpvpinns_tpu_torch.training.trainer import _build_chunk
+    from hpvpinns_tpu_torch.utils.profiling import time_fn
+
+    port, rank, n, out = argv[:4]
+    distributed.initialize(f"localhost:{port}", int(n), int(rank), backend="nccl", device="cuda")
+    mesh = element_mesh(device="cuda", backend="nccl")
+    c = mesh_config(0, MESH_ADAM_STEPS)
+    prob = hv.build(c, device=mesh.device)
+    zero_counts()
+    res = hv.train(prob, mesh=mesh, verbose=False)
+    counts = read_counts()
+    prm, opt = fresh_state(prob, c)
+    ch = _build_chunk(prob.loss_fn, opt, prm, shard_problem(prob.data, mesh), debug=True, mesh=mesh)
+    rate = 10 * time_fn(ch, 10, iters=MESH_STEPS // 10, warmup=1)["iters_per_sec"]
+    labels, kinds = step_graph_nodes(ch, f"phase23e_rank{rank}")
+    with open(out, "w") as f:
+        json.dump({"rank": int(rank), "loss": res.history["loss"].tolist(), "chunk_mode": res.chunk_mode,
+                   "launches": counts, "rate": rate, "nodes": len(labels), "kinds": kinds,
+                   "device": str(mesh.device)}, f)
+    del ch
+    distributed.shutdown()
+    return 0
 
 
 def main() -> int:
@@ -4110,6 +4365,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU only", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-child"]:  # a rank of phase 23 (e)'s world, started by phase 23
+        return mesh_child(sys.argv[2:])
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
     from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_bwd_kernel, fused_fields_kernel
@@ -4243,6 +4500,18 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--inverse-only"]:  # for work on the inverse suite: phases 1, 2 and 21, no summary
         phase21(dev, full=True)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--mesh-only"]:  # for work on parallel/*: phases 1, 2 and 23, no summary
+        phase23(dev)
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--mesh-cards"]:  # on a host of several cards: phases 1, 2 and 23 (e), no summary
+        if torch.cuda.device_count() < 2:
+            fail("--mesh-cards needs a host of two cards or more")
+        mesh_cards(dev, torch.cuda.device_count())
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -4454,6 +4723,11 @@ def main() -> int:
     # other subcommands, records and the serving artifact (no kernel)
     phase22(dev)
 
+    # 23. multi-device training: the one-rank NCCL mesh in the captured
+    # graph, two ranks sharing the card through gloo, Gauss-Newton on two
+    # ranks and the dry run
+    mesh_paths = phase23(dev)
+
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
     wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
@@ -4533,6 +4807,9 @@ def main() -> int:
         k["march_launches"] = {path: c.get(k["name"], 0) for path, c in ens_paths.items()
                                if path.startswith("march") and c.get(k["name"], 0)}
         k["graph_nodes_by_path"] = {path: n.get(k["name"], 0) for path, n in nodes.items()}
+        # phase 23: the one-rank mesh's train runs and each rank of the two-rank world (one launch
+        # a step a rank, on the rank's shard), counted apart from `launches`
+        k["mesh_launches"] = {path: c.get(k["name"], 0) for path, c in mesh_paths.items() if c.get(k["name"], 0)}
         if k["name"] in adv:
             k["advdiff_of_record"] = adv[k["name"]]
             k["poisson3d_quality"] = {  # P 8,000, (3,48,48,48,1) tanh, n_dirs 3

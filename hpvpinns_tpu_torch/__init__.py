@@ -17,13 +17,15 @@ suite: the two-phase field fits, ALS and the network-free reduced routes
 (inverse.py) with their error bars (uncertainty.py), whose torch work runs
 on the problem's device; and the user surface: results records
 (utils/records.py), torch.export serving artifacts (serving.py), the plot
-set (viz.py) and the command line, `python -m hpvpinns_tpu_torch` (cli.py).  Their derivative fields come from the
+set (viz.py) and the command line, `python -m hpvpinns_tpu_torch` (cli.py),
+and multi-device training over a mesh of ranks (parallel/: one process a
+device, torch.distributed).  Their derivative fields come from the
 plain Taylor propagation ("taylor"), the JVP engine ("jvp", ops/fields.py)
 or the hand-written CUDA kernels csrc/fused_fields.cu (forward, B1) and
 csrc/fused_fields_bwd.cu (second-derivative backward, B2) under
 deriv_mode="pallas" (ops/fused_fields.py).  Problems are built on the card
-unless the caller passes device="cpu".  ROADMAP.md lists what is still to
-port.
+unless the caller passes device="cpu".  ROADMAP.md lists what is left to
+measure and to speed up.
 """
 
 from hpvpinns_tpu_torch.config import (

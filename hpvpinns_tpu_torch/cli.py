@@ -15,8 +15,12 @@ shipped presets, overridable per flag:
 
 Every command that builds a problem or loads an artifact runs on the GPU
 unless --device names another device (e.g. --device cpu); with no CUDA
-device and no --device it raises.  --mesh (multi-device training) is not
-ported yet and raises.
+device and no --device it raises.  --mesh on `run` and `march` shards the
+elements over a mesh of ranks (parallel/sharding.py): alone, a one-rank
+mesh; under torchrun, the world, one rank a card (NCCL), or on the CPU
+with --device cpu (gloo); only rank 0 prints and writes:
+
+    torchrun --nproc_per_node 2 -m hpvpinns_tpu_torch run poisson2d --mesh --device cpu
 """
 
 from __future__ import annotations
@@ -121,8 +125,7 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    "trained ansatz (torch.export: model.pt2 + meta.json, "
                    "cpu+cuda platforms, symbolic batch; load with "
                    "`python -m hpvpinns_tpu_torch serve DIR`)")
-    p.add_argument("--mesh", action="store_true",
-                   help="shard elements over all devices (not ported yet: raises)")
+    p.add_argument("--mesh", action="store_true", help="shard elements over all devices")
     p.add_argument("--seeds", type=int, default=None,
                    help="train N seeds as one vmapped ensemble (Adam phase; "
                    "reports per-seed metrics + best member)")
@@ -505,8 +508,7 @@ def build_parser() -> argparse.ArgumentParser:
     mr.add_argument("--gn-solve", dest="gn_solve",
                     choices=("normal", "host", "qr", "cg", "lsqr"))
     mr.add_argument("--mesh", action="store_true",
-                    help="shard each slab's elements over all devices (not "
-                    "ported yet: raises)")
+                    help="shard each slab's elements over all devices")
     mr.add_argument("--plots", action="store_true",
                     help="write the stitched solution/error space-time panel")
     mr.add_argument("--outdir", default="results/march")
@@ -1156,14 +1158,24 @@ def _maybe_polish_f64(args, cfg, prob, params, summary):
     return pr.params
 
 
+def _mesh_from_args(args):
+    """--mesh: the element mesh over the world (one rank alone, every rank
+    under torchrun) on --device (default this rank's card), made before the
+    problem is built, so that the problem lands on the rank's card; None
+    without --mesh."""
+    if not args.mesh:
+        return None
+    from hpvpinns_tpu_torch.parallel.sharding import element_mesh
+
+    return element_mesh(device=getattr(args, "device", None))
+
+
 def cmd_run(args) -> int:
     import hpvpinns_tpu_torch as hv
 
     cfg = _config_from_args(args)
+    mesh = _mesh_from_args(args)
     prob = _advdiff_problem_from_args(cfg, args)
-    # --mesh: multi-device training is not ported yet; train and
-    # train_ensemble raise their NotImplementedError (queue A item 24)
-    mesh = args.mesh or None
     init_params = None
     if getattr(args, "init_record", None):
         if getattr(args, "seeds", None) and args.seeds > 1:
@@ -1202,6 +1214,7 @@ def cmd_run(args) -> int:
             "best_seed": int(_np.argmin(rel)),
             "per_seed": per_seed,
         }
+        res_p = None
         if cfg.train.lbfgs_iterations > 0 or cfg.train.gn_iterations > 0:
             # Phase-2 polish of the BEST member only: the ensemble settles
             # the seed lottery under Adam; L-BFGS/Gauss-Newton then refine
@@ -1210,6 +1223,9 @@ def cmd_run(args) -> int:
             polish_cfg = dataclasses.replace(cfg.train, iterations=0)
             res_p = hv.train(prob, polish_cfg, params=best, mesh=mesh,
                              verbose=not args.quiet)
+        if mesh is not None and not mesh.is_root:  # the collective work is done; rank 0 reports
+            return 0
+        if res_p is not None:
             mp = hv.evaluate_problem(prob, res_p.eval_params)
             summary["polished"] = {
                 "seed": int(_np.argmin(rel)),
@@ -1227,6 +1243,8 @@ def cmd_run(args) -> int:
         _maybe_export(args, prob, final_params)
         return 0
     res = hv.train(prob, mesh=mesh, params=init_params, verbose=not args.quiet)
+    if mesh is not None and not mesh.is_root:  # the collective work is done; rank 0 reports
+        return 0
     metrics = hv.evaluate_problem(prob, res.eval_params)
     summary = {
         "problem": prob.name,
@@ -1513,11 +1531,11 @@ def cmd_march(args) -> int:
     if args.problem == "advdiff":
         args.forward = True
     cfg = _config_from_args(args)
-    # --mesh: not ported yet; time_march raises (queue A item 24)
-    mesh = args.mesh or None
+    mesh = _mesh_from_args(args)
+    root = mesh is None or mesh.is_root
 
     def progress(k, m):
-        if not args.quiet:
+        if not args.quiet and root:
             print(
                 f"[march] slab {k + 1}/{args.slabs} "
                 f"[{m['t0']:.3f}, {m['t1']:.3f}]: rel_l2={m['rel_l2']:.3e} "
@@ -1537,6 +1555,8 @@ def cmd_march(args) -> int:
         progress=progress,
         device=args.device,
     )
+    if not root:  # the collective work is done; rank 0 reports
+        return 0
     summary = {
         "problem": args.problem,
         "command": "march",

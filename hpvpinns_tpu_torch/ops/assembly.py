@@ -19,15 +19,18 @@ from hpvpinns_tpu_torch.ops.contract import contract_1d, contract_2d, contract_3
 from hpvpinns_tpu_torch.ops.fields import (
     scalar_fields_1d, scalar_fields_2d, scalar_fields_3d, vector_fields_2d, vector_fields_3d,
 )
+from hpvpinns_tpu_torch.parallel.sharding import once, points_of, tag_points
 
 
 class _Tensors:
-    """`.to(device)` for a frozen dataclass whose fields are all tensors."""
+    """`.to(device)` for a frozen dataclass whose fields are all tensors; a
+    point-sharded basis tensor keeps its point Axis (parallel/sharding.py)."""
 
     def to(self, device):
-        return dataclasses.replace(
-            self, **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
-        )
+        def moved(t):
+            return tag_points(t.to(device), points_of(t))
+
+        return dataclasses.replace(self, **{f.name: moved(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
 
 @dataclass(frozen=True)
@@ -103,6 +106,14 @@ class Elements3D(_Tensors):
     n_test: torch.Tensor
 
 
+def _once_over_points(t: torch.Tensor, fast: Basis1D) -> torch.Tensor:
+    """A value evaluated once per element (an edge flux), which every rank
+    of a point group holds whole: counted once over the point axis, so that
+    summing the ranks' gradient shares counts it once."""
+    points = points_of(fast.wphi)
+    return t if points is None else once(t, points)
+
+
 def poisson1d_residual(u_fn, elems: Elements1D, basis: Basis1D, var_form: int, fields_fn=None):
     """Res[e, n] for -u'' = f with test functions phi_n.
 
@@ -125,7 +136,7 @@ def poisson1d_residual(u_fn, elems: Elements1D, basis: Basis1D, var_form: int, f
         U = -inv_jac * contract_1d(basis.wd2phi, u)
         u_b = u_fn(elems.bounds.reshape(-1, 1)).reshape(elems.bounds.shape)
         flux = u_b[:, 1:2] * basis.dphi_b[None, :, 1] - u_b[:, 0:1] * basis.dphi_b[None, :, 0]
-        U = U + inv_jac * flux
+        U = U + inv_jac * _once_over_points(flux, basis)
     else:
         raise ValueError(f"Poisson-1D var_form must be 1, 2 or 3; got {var_form}")
     return U - elems.f_proj
@@ -151,9 +162,10 @@ def _edge_values_2d(u_fn, elems: Elements2D):
 def _flux_2d(u_lo, u_hi, wphi_tan, dphi_b):
     """Boundary flux [u dphi]_lo^hi integrated along the tangential axis:
     [E, K, R] = sum_q wphi_tan[k, q] (u_hi[e, q] dphi_b[r, 1]
-                                      - u_lo[e, q] dphi_b[r, 0])."""
-    t_hi = torch.einsum("kq,eq->ek", wphi_tan, u_hi)
-    t_lo = torch.einsum("kq,eq->ek", wphi_tan, u_lo)
+                                      - u_lo[e, q] dphi_b[r, 0]);
+    along a point-sharded fast axis the sums over q are all-reduced."""
+    t_hi = contract_1d(wphi_tan, u_hi)
+    t_lo = contract_1d(wphi_tan, u_lo)
     return t_hi[:, :, None] * dphi_b[None, None, :, 1] - t_lo[:, :, None] * dphi_b[None, None, :, 0]
 
 
@@ -190,7 +202,7 @@ def poisson2d_residual(u_fn, elems: Elements2D, bx: Basis1D, by: Basis1D, var_fo
         U = jac * (contract_2d(bx.wd2phi, by.wphi, flds["u"]) + contract_2d(bx.wphi, by.wd2phi, flds["u"]))
     elif var_form == "2c":
         u_l, u_r, u_b, u_t = _edge_values_2d(u_fn, elems)
-        flux_x = _flux_2d(u_l, u_r, by.wphi, bx.dphi_b)
+        flux_x = _once_over_points(_flux_2d(u_l, u_r, by.wphi, bx.dphi_b), bx)
         flux_y = _flux_2d(u_b, u_t, bx.wphi, by.dphi_b).transpose(1, 2)
         U = (elems.jac_y / elems.jac_x)[:, None, None] * (
             contract_2d(bx.wd2phi, by.wphi, flds["u"]) - flux_x
@@ -263,7 +275,7 @@ def advdiff_residual(u_fn, elems: Elements2D, bx: Basis1D, bt: Basis1D, var_form
         if not (isinstance(epsilon_x, (int, float)) and epsilon_x == 0.0):
             raise ValueError("AdvDiff var_form=2 supports scalar epsilon only")
         u_l, u_r, _, _ = _edge_values_2d(u_fn, elems)
-        flux_x = _flux_2d(u_l, u_r, bt.wphi, bx.dphi_b)
+        flux_x = _once_over_points(_flux_2d(u_l, u_r, bt.wphi, bx.dphi_b), bx)
         U = jac * contract_2d(bx.wphi, bt.wphi, ut + velocity * ux)
         U = U - epsilon * (elems.jac_y / elems.jac_x)[:, None, None] * (
             contract_2d(bx.wd2phi, bt.wphi, flds["u"]) - flux_x

@@ -31,6 +31,7 @@ from hpvpinns_tpu_torch.ops.assembly import advdiff_residual, variational_loss
 from hpvpinns_tpu_torch.ops.derivatives import dir_deriv
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+from hpvpinns_tpu_torch.parallel.sharding import once, points_of, psum
 from hpvpinns_tpu_torch.problems.base import (
     DTYPES,
     Problem,
@@ -488,20 +489,52 @@ def build(
         return residual_at(params, elems_en, bx_en, bt_en) * new[None]
 
     regularized = inverse and cfg.epsilon_reg > 0 and eps_model in ("quadratic", "mlp")
+    n_reg = elems.x.numel()  # the Tikhonov mean's count: every point of the unsharded elements
+    n_quad_x = elems.x.shape[-1]  # the fast axis's unpadded points
 
-    def loss_fn(params, data):
+    def _real(el):
+        """1 on the elements of a shard, 0 on the padding (mask 0 throughout),
+        broadcast over their points."""
+        real = (el.mask.reshape(el.mask.shape[0], -1) != 0).any(dim=1).to(el.x.dtype)
+        return real.reshape(-1, *([1] * (el.x.dim() - 1)))
+
+    def reg_sum(params, data):
+        """sum(eps_x^2) over this rank's real points of its real elements
+        (over the point group too).  On a point axis the fast axis is
+        padded to a multiple of its size (parallel/sharding.py::pad_points)
+        with edge-copied coordinates, so its columns past the unpadded Q are
+        masked out."""
+        el = data["elements"]
+        ex = eps_x_of(params, el.x) * torch.ones_like(el.x)
+        real = _real(el)
+        points = points_of(data["basis_x"].wphi)
+        if points is not None:
+            q = el.x.shape[-1]
+            real = real * (torch.arange(points.index * q, (points.index + 1) * q, device=el.x.device) < n_quad_x)
+        total = torch.sum(ex * ex * real)
+        return total if points is None else psum(total, points)
+
+    def loss_fn(params, data, axis_name=None):
         """lossb_weight lossb + lossv (AdvDiff.py:180-184), plus the
         Tikhonov term epsilon_reg mean(eps_x^2) on a field eps.  The aux
         keys: loss, lossb, lossv and, when inverse, epsilon (its domain
         mean), eps_c1/eps_c2 (quadratic), velocity and vel_c1/vel_c2
-        (trainable velocity): 0-d tensors of the problem's dtype."""
+        (trainable velocity): 0-d tensors of the problem's dtype.  Under
+        `axis_name` (an element Axis, parallel/sharding.py) lossv and the
+        Tikhonov term, a mean over the elements' points, are summed over
+        the ranks, and lossb counted once."""
         el = data["elements"]
         res = residual_at(params, el, data["basis_x"], data["basis_t"])
         lossv = variational_loss(res, el.mask, el.n_test)
         lossb = torch.mean((data["ub"] - make_u_fn(params)(data["xb"])) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb * lossb + lossv
         if regularized:
-            loss = loss + cfg.epsilon_reg * torch.mean(eps_x_of(params, el.x) ** 2)
+            if axis_name is None:
+                loss = loss + cfg.epsilon_reg * torch.mean(eps_x_of(params, el.x) ** 2)
+            else:
+                loss = loss + cfg.epsilon_reg * psum(reg_sum(params, data), axis_name) / n_reg
         aux = {"loss": loss, "lossb": lossb, "lossv": lossv}
         if inverse:
             aux["epsilon"] = eps_domain_mean(params)
@@ -517,12 +550,18 @@ def build(
         return loss, aux
 
     if regularized:
-        def reg_resvec_fn(params, data):
+        def reg_resvec_fn(params, data, axis_name=None):
             """The Tikhonov term as least-squares residuals: sum(r^2) equals
-            loss_fn's regularization term (for the Gauss-Newton phase)."""
+            loss_fn's regularization term (for the Gauss-Newton phase).
+            Under `axis_name` the rows of this rank's elements, the padded
+            ones zero."""
             el = data["elements"]
             ex = eps_x_of(params, el.x) * torch.ones_like(el.x)
-            return np.sqrt(cfg.epsilon_reg / ex.numel()) * ex.reshape(-1)
+            if axis_name is not None:
+                ex = ex * _real(el)
+            return np.sqrt(cfg.epsilon_reg / n_reg) * ex.reshape(-1)
+
+        reg_resvec_fn.element_rows = True  # its rows follow the elements (training/gauss_newton.py)
     else:
         reg_resvec_fn = None
 

@@ -28,6 +28,7 @@ from hpvpinns_tpu_torch.ops.assembly import advdiff2d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.derivatives import dir_deriv
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_3d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_3d
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_3d, build_enriched_3d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
@@ -212,13 +213,16 @@ def build(
         bx_en, by_en, bt_en, elems_en, new = enriched(enrich)
         return residual_at(params, elems_en, bx_en, by_en, bt_en) * new[None]
 
-    def loss_fn(params, data):
+    def loss_fn(params, data, axis_name=None):
         """lossb_weight lossb + lossv; aux {loss, lossb, lossv} and, when
         inverse, epsilon and (velocity_trainable) vx, vy and velocity = |V|:
-        0-d tensors of the problem's dtype."""
+        0-d tensors of the problem's dtype.  Under `axis_name` lossv is
+        summed over the ranks and lossb counted once."""
         el = data["elements"]
         lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
         lossb = torch.mean((data["ub"] - u_of(params)(data["xb"])) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb * lossb + lossv
         aux = {"loss": loss, "lossb": lossb, "lossv": lossv}
         if inverse:

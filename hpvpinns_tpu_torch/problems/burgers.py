@@ -29,6 +29,7 @@ from hpvpinns_tpu_torch.ops.assembly import burgers_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import (
     DTYPES,
     Problem,
@@ -295,17 +296,22 @@ def build(
 
     ws = cfg.strong_weight
 
-    def loss_fn(params, data):
+    def loss_fn(params, data, axis_name=None):
         """lossb_weight lossb + lossv (+ strong_weight lossr with n_strong);
         aux {loss, lossb, lossv(, lossr)}: 0-d tensors of the problem's
-        dtype."""
+        dtype.  Under `axis_name` lossv is summed over the ranks, lossb
+        (the initial and boundary data) and lossr counted once."""
         el = data["elements"]
         lossv = variational_loss(weak_residual(params, el, data["basis_x"], data["basis_t"]), el.mask, el.n_test)
         lossb = torch.mean((data["ub"] - make_u_fn(params)(data["xb"])) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb * lossb + lossv
         aux = {"lossb": lossb, "lossv": lossv}
         if n_strong > 0:
             lossr = torch.mean(strong_res(params, data["xr"]) ** 2)
+            if axis_name is not None:
+                lossr = once(lossr, axis_name)
             loss = loss + ws * lossr
             aux["lossr"] = lossr
         aux["loss"] = loss

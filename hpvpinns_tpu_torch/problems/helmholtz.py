@@ -28,6 +28,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import helmholtz2d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.problems.poisson2d import boundary_points  # the same layout: n_bound LHS points per edge
@@ -189,18 +190,23 @@ def build(
         bx_en, by_en, elems_en, new = enriched(enrich)
         return helmholtz2d_residual(make_u_fn(params), elems_en, bx_en, by_en, k_sq_of(params), var_form) * new[None]
 
-    def loss_fn(params, data):
+    def loss_fn(params, data, axis_name=None):
         """lossb_weight (lossb + losss) + lossv, losss the sensor misfit of
         an inverse run; aux {loss, lossb, lossv} and, when inverse, losss
-        and k_sq: 0-d tensors of the problem's dtype."""
+        and k_sq: 0-d tensors of the problem's dtype.  Under `axis_name`
+        lossv is summed over the ranks, lossb and losss counted once."""
         u_of = make_u_fn(params)
         el = data["elements"]
         lossb = torch.mean((data["ub"] - u_of(data["xb"])) ** 2)
         lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb * lossb + lossv
         aux = {"lossb": lossb, "lossv": lossv}
         if cfg.inverse:
             losss = torch.mean((data["us"] - u_of(data["xs"])) ** 2)
+            if axis_name is not None:
+                losss = once(losss, axis_name)
             loss = loss + wb * losss
             aux.update(losss=losss, k_sq=params["pde"]["k_sq"])
         aux["loss"] = loss

@@ -31,6 +31,7 @@ from hpvpinns_tpu_torch.config import KovasznayConfig
 from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh2D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import ns_residual, variational_loss
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
@@ -234,11 +235,12 @@ def build(cfg: KovasznayConfig, rng: np.random.Generator | None = None, *, devic
         res = ns_residual(make_w_fn(params), elems_en, bx_en, by_en, var_form, nu_of(params))
         return weighted(res) * new[None, None]
 
-    def loss_fn(params, data):
+    def loss_fn(params, data, axis_name=None):
         """lossb_weight lossb + lossv (+ p_anchor_weight lossa without
         boundary p, + lossb_weight losss when inverse); aux {loss, lossb,
         lossv} and lossa, losss and nu where they apply: 0-d tensors of the
-        problem's dtype."""
+        problem's dtype.  Under `axis_name` lossv is summed over the ranks,
+        the terms of replicated points counted once."""
         w_fn = make_w_fn(params)
         el = data["elements"]
         lossv = variational_loss(weighted(weak_residual(params, data)), el.mask[:, None], el.n_test)
@@ -246,14 +248,20 @@ def build(cfg: KovasznayConfig, rng: np.random.Generator | None = None, *, devic
         if not cfg.bc_pressure:
             wb_pred = wb_pred[:, :2]
         lossb = torch.mean((data["ub"] - wb_pred) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb_weight * lossb + lossv
         aux = {"lossb": lossb, "lossv": lossv}
         if not cfg.bc_pressure:
             lossa = torch.sum((w_fn(data["x_anchor"])[:, 2:3] - data["p_anchor"]) ** 2)
+            if axis_name is not None:
+                lossa = once(lossa, axis_name)
             loss = loss + wa * lossa
             aux["lossa"] = lossa
         if cfg.inverse:
             losss = torch.mean((data["us"] - w_fn(data["xs"])[:, :2]) ** 2)
+            if axis_name is not None:
+                losss = once(losss, axis_name)
             loss = loss + wb_weight * losss
             aux.update(losss=losss, nu=params["pde"]["nu"])
         aux["loss"] = loss

@@ -20,6 +20,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson1d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_1d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_1d
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_1d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
@@ -132,11 +133,15 @@ def build(cfg: Poisson1DConfig, u_fn=None, f_fn=None, hard_bc: bool | None = Non
         fields_fn = None if fields is None else (lambda x: fields(spec, params["net"], x))
         return poisson1d_residual(make_u_fn(params), el, data["basis"], cfg.var_form, fields_fn) * el.mask
 
-    def loss_fn(params, data):
-        """lossb_weight lossb + lossv (Poisson-1D.py:98-100)."""
+    def loss_fn(params, data, axis_name=None):
+        """lossb_weight lossb + lossv (Poisson-1D.py:98-100).  Under
+        `axis_name` (an element Axis, parallel/sharding.py) lossv is summed
+        over the ranks and lossb counted once."""
         el = data["elements"]
         lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
         lossb = torch.mean((data["ub"] - make_u_fn(params)(data["xb"])) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = cfg.lossb_weight * lossb + lossv
         return loss, {"loss": loss, "lossb": lossb, "lossv": lossv}
 

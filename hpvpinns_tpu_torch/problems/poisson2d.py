@@ -23,6 +23,7 @@ from hpvpinns_tpu_torch.ops.assembly import poisson2d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fields import scalar_fields_2d
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_2d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_2d
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_2d, build_enriched_2d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
@@ -197,21 +198,29 @@ def build(
         res = poisson2d_residual(make_u_fn(params), el, data["basis_x"], data["basis_y"], cfg.var_form, fields_fn)
         return res * el.mask
 
-    def loss_fn(params, data):
+    def loss_fn(params, data, axis_name=None):
         """10 lossb + lossv (Poisson-2D.py:126-129), or under the PINN scheme
         10 lossb + lossp, lossp the mean squared strong residual at the
-        collocation points (Poisson-2D.py:124,128-129)."""
+        collocation points (Poisson-2D.py:124,128-129).  Under `axis_name`
+        (an element Axis, parallel/sharding.py) lossv is summed over the
+        ranks, and lossb and lossp (replicated points) are counted once."""
         u_fn = make_u_fn(params)
         lossb = torch.mean((data["ub"] - u_fn(data["xb"])) ** 2)
+        if axis_name is not None:
+            lossb = once(lossb, axis_name)
         aux = {"lossb": lossb}
         if cfg.scheme == "VPINNs":
             el = data["elements"]
             lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
+            if axis_name is not None:
+                lossv = psum(lossv, axis_name)
             loss = wb * lossb + lossv
             aux["lossv"] = lossv
         else:
             flds = scalar_fields_2d(u_fn, data["xf"][:, 0:1], data["xf"][:, 1:2], second_y=True)
             lossp = torch.mean((flds["uxx"] + flds["uyy"] - data["ff"]) ** 2)
+            if axis_name is not None:
+                lossp = once(lossp, axis_name)
             loss = wb * lossb + lossp
             aux["lossp"] = lossp
         aux["loss"] = loss

@@ -20,6 +20,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import poisson3d_residual, variational_loss
 from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_3d
 from hpvpinns_tpu_torch.ops.taylor import taylor_fields_3d
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_3d, make_weighted_basis
 from hpvpinns_tpu_torch.spectral.quadrature import gauss_lobatto_jacobi
@@ -146,11 +147,14 @@ def build(
                                  cfg.var_form, fields_fn)
         return res * el.mask
 
-    def loss_fn(params, data):
-        """10 lossb + lossv; aux {loss, lossb, lossv}."""
+    def loss_fn(params, data, axis_name=None):
+        """10 lossb + lossv; aux {loss, lossb, lossv}.  Under `axis_name`
+        lossv is summed over the ranks and lossb counted once."""
         el = data["elements"]
         lossv = variational_loss(residual_fn(params, data), el.mask, el.n_test)
         lossb = torch.mean((data["ub"] - make_u_fn(params)(data["xb"])) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb * lossb + lossv
         return loss, {"loss": loss, "lossb": lossb, "lossv": lossv}
 

@@ -33,6 +33,7 @@ from hpvpinns_tpu_torch.config import TaylorGreenConfig
 from hpvpinns_tpu_torch.geometry.mesh import Interval1D, TensorMesh3D
 from hpvpinns_tpu_torch.models.mlp import MLP, mlp_apply
 from hpvpinns_tpu_torch.ops.assembly import ns_unsteady_residual, variational_loss
+from hpvpinns_tpu_torch.parallel.sharding import once, psum
 from hpvpinns_tpu_torch.problems.base import DTYPES, Problem, make_composite_apply, make_net_init, resolve_device
 from hpvpinns_tpu_torch.problems.build import build_elements_3d, build_enriched_3d, make_weighted_basis
 from hpvpinns_tpu_torch.problems.kovasznay import coons_lift
@@ -330,11 +331,13 @@ def build(
         res = ns_unsteady_residual(make_w_fn(params), elems_en, bx_en, by_en, bt_en, var_form, nu_of(params))
         return weighted(res) * new[None, None]
 
-    def loss_fn(params, data):
+    def loss_fn(params, data, axis_name=None):
         """lossb_weight lossb + lossv (+ p_anchor_weight lossa without wall
         p, + lossz with the zero-mean gauge, + lossb_weight losss when
         inverse); aux {loss, lossb, lossv} and lossa, lossz, losss and nu
-        where they apply: 0-d tensors of the problem's dtype."""
+        where they apply: 0-d tensors of the problem's dtype.  Under
+        `axis_name` lossv is summed over the ranks, the terms of replicated
+        points counted once."""
         w_fn = make_w_fn(params)
         el = data["elements"]
         lossv = variational_loss(weighted(weak_residual(params, data)), el.mask[:, None], el.n_test)
@@ -342,19 +345,27 @@ def build(
         if not cfg.bc_pressure:
             wb_pred = wb_pred[:, :2]
         lossb = torch.mean((data["ub"] - wb_pred) ** 2)
+        if axis_name is not None:
+            lossv, lossb = psum(lossv, axis_name), once(lossb, axis_name)
         loss = wb_weight * lossb + lossv
         aux = {"lossb": lossb, "lossv": lossv}
         if not cfg.bc_pressure:
             lossa = torch.mean((w_fn(data["x_anchor"])[:, 2:3] - data["p_anchor"]) ** 2)
+            if axis_name is not None:
+                lossa = once(lossa, axis_name)
             loss = loss + wa * lossa
             aux["lossa"] = lossa
         if w_zm > 0.0:
             rz = zeromean_resvec(params, data)
             lossz = torch.sum(rz * rz)
+            if axis_name is not None:
+                lossz = once(lossz, axis_name)
             loss = loss + lossz
             aux["lossz"] = lossz
         if cfg.inverse:
             losss = torch.mean((data["us"] - w_fn(data["xs"])[:, :2]) ** 2)
+            if axis_name is not None:
+                losss = once(losss, axis_name)
             loss = loss + wb_weight * losss
             aux.update(losss=losss, nu=params["pde"]["nu"])
         aux["loss"] = loss

@@ -16,6 +16,14 @@ vmap once for each member (ops/fused_fields.py: _FieldsFlat's and
 _FieldsFlatVjp's vmap rules), S launches of B1 a step (and of B2 and its
 block sum with second derivatives), all inside the one captured step.
 A capture failure raises.
+
+On a mesh (parallel/sharding.py) every member trains on this rank's shard
+of the elements: the vmapped step computes every member's share of the
+loss and the gradients (the element Axis `.as_share()`), and one all-reduce
+of the stacked gradients, outside the vmap, sums them over the ranks (JAX:
+ensemble.py:116-140).  The metrics are the global ones (the loss's `psum`
+under the vmap).  Under NCCL the step is a captured graph as above; under
+gloo the chunks run eagerly.
 """
 
 from __future__ import annotations
@@ -30,11 +38,13 @@ from torch import nn
 
 from hpvpinns_tpu_torch.config import TrainConfig
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
+from hpvpinns_tpu_torch.parallel.sharding import AXIS, allreduce_grads, replicate, shard_problem
 from hpvpinns_tpu_torch.problems.base import Problem, map_params, parameters
 from hpvpinns_tpu_torch.training.trainer import (
+    _captures,
     _Chunk,
     _graph_chunk,
-    _on_card,
+    _mesh_losses,
     _repeat,
     make_optimizer,
 )
@@ -87,10 +97,11 @@ def _detached(params_stack):
     return map_params(lambda t: t.detach(), params_stack)
 
 
-def _ensemble_step(loss_fn: Callable, opt, params_stack, data):
+def _ensemble_step(loss_fn: Callable, opt, params_stack, data, axis=None):
     """() -> None: one Adam step of every member.  The gradients of the
     vmapped loss become the stacked parameters' .grad, which the optimizer
-    reads."""
+    reads; on a mesh (`axis`) they are this rank's shares, summed over the
+    ranks in one all-reduce after the vmap."""
     leaves = parameters(params_stack)
     grad_fn = torch.func.vmap(torch.func.grad_and_value(lambda p: loss_fn(p, data), has_aux=True))
     view = _detached(params_stack)
@@ -99,6 +110,8 @@ def _ensemble_step(loss_fn: Callable, opt, params_stack, data):
         grads, _ = grad_fn(view)
         for t, g in zip(leaves, parameters(grads)):
             t.grad = g
+        if axis is not None:
+            allreduce_grads(leaves, axis)
         opt.step()
 
     return step
@@ -117,13 +130,15 @@ def _ensemble_metrics(loss_fn: Callable, params_stack, data):
     return aux
 
 
-def _build_ens_chunk(loss_fn: Callable, opt, params_stack, data, debug: bool = False) -> _Chunk:
+def _build_ens_chunk(loss_fn: Callable, opt, params_stack, data, debug: bool = False, mesh=None) -> _Chunk:
     """The ensemble chunk: n vmapped Adam steps, then the metrics of every
     member.  On the card as CUDA graphs (training/trainer.py::_graph_chunk),
-    on the CPU step by step."""
-    step = _ensemble_step(loss_fn, opt, params_stack, data)
-    metrics = _ensemble_metrics(loss_fn, params_stack, data)
-    if not _on_card(params_stack):
+    on the CPU and on a mesh under gloo step by step."""
+    axis = None if mesh is None else mesh.axis(AXIS)
+    step_loss, metric_loss = _mesh_losses(loss_fn, axis)
+    step = _ensemble_step(step_loss, opt, params_stack, data, axis)
+    metrics = _ensemble_metrics(metric_loss, params_stack, data)
+    if not _captures(params_stack, mesh):
         return _Chunk(_repeat(step), metrics)
     return _graph_chunk(step, metrics, opt, parameters(params_stack), debug)
 
@@ -139,17 +154,21 @@ def train_ensemble(
     Adam phase only (as in the JAX package: polish the selected member
     afterwards with `train`'s L-BFGS/Gauss-Newton if wanted).  The records
     come one a chunk of cfg.check_every steps; cfg.threshold stops the run
-    when the largest member loss is below it.  `mesh` is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_ensemble: mesh (multi-device training) is not ported yet (ROADMAP.md, queue A item 24)")
+    when the largest member loss is below it.  `mesh` (parallel/sharding.py)
+    trains every member on this rank's shard of the elements, the stack
+    broadcast from rank 0 (module docstring); only its rank 0 prints."""
     cfg = cfg or problem.config.train
     use_ieee_fp32_matmuls()
     seeds = [int(s) for s in seeds]
     params_stack = init_ensemble(problem, seeds)
+    data = problem.data
+    if mesh is not None:
+        data = shard_problem(data, mesh)
+        params_stack = map_params(nn.Parameter, replicate(params_stack, mesh))
+        verbose = verbose and mesh.is_root
     opt = make_optimizer(cfg, params_stack)
     check = max(1, cfg.check_every)
-    chunk = _build_ens_chunk(problem.loss_fn, opt, params_stack, problem.data)
+    chunk = _build_ens_chunk(problem.loss_fn, opt, params_stack, data, mesh=mesh)
 
     records = []
     t0 = time.perf_counter()

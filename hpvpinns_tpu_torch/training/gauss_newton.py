@@ -32,6 +32,20 @@ loop in Python with one host read of the stopping test an iteration, and
 stop at the iteration JAX's `lax.while_loop` stops at.  `cg_precond` draws
 its Rademacher probes from a torch.Generator seeded 17, not from
 `jax.random.key(17)`: a difference by design (ROADMAP.md, queue C).
+
+On a mesh (parallel/sharding.py; JAX: gauss_newton.py:427-474) the rows
+of r and J stay sharded: each rank holds the rows of its elements, and the
+rows of the replicated terms (boundary data, sensors, collocation points)
+on rank 0 only, zero elsewhere, so that every rank holds as many rows and
+sum(r^2) over the ranks is the loss.  "normal" and "host" all-reduce J^T J
+and J^T r and solve the primal system on every rank; "qr" all-gathers J and
+r in rank order and factors the same matrix on every rank; "cg" and
+"lsqr" all-reduce each matvec's parameter-space result and each norm of a
+residual-space vector, so their stopping tests read global values.  The
+loss the LM control reads is the global one, so every rank takes the same
+branch.  `cg_precond`'s probes of a rank's rows come from a generator
+seeded 17 + rank.  An element x point mesh is not supported (the
+Jacobian's rows would be split over the point group).
 """
 
 from __future__ import annotations
@@ -42,8 +56,10 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
+from hpvpinns_tpu_torch.parallel.sharding import AXIS, POINT_AXIS, once, replicate, shard_problem
 from hpvpinns_tpu_torch.problems.base import map_params, parameters
 
 SOLVES = ("normal", "host", "qr", "cg", "lsqr")
@@ -56,7 +72,11 @@ def make_residual_vector(problem) -> Callable:
     element axis first) and takes `extras["reg_resvec_fn"]` for quadratic
     terms beyond it (AdvDiff's Tikhonov term, Helmholtz's sensor misfit,
     Burgers' strong collocation); a loss with terms outside both is caught
-    by gauss_newton's identity check."""
+    by gauss_newton's identity check.  With `axis_name` (an element Axis
+    taken `.as_share()`) the vector is this rank's rows (module
+    docstring): the rows of a `reg_resvec_fn` marked `element_rows`
+    (AdvDiff's Tikhonov term, over the elements' points) follow the
+    elements, the others are replicated."""
     residual_fn = problem.extras.get("residual_fn")
     if residual_fn is None:
         raise ValueError(
@@ -65,9 +85,10 @@ def make_residual_vector(problem) -> Callable:
     if getattr(problem.config, "scheme", "VPINNs") != "VPINNs":
         raise ValueError("Gauss-Newton supports the variational scheme only")
     reg_fn = problem.extras.get("reg_resvec_fn")
+    reg_sharded = getattr(reg_fn, "element_rows", False)
     wb = getattr(problem.config, "lossb_weight", 1.0)
 
-    def resvec(params, data):
+    def resvec(params, data, axis_name=None):
         el = data["elements"]
         res = residual_fn(params, data)  # masked, [E, ...]
         n_elem = res.shape[0]
@@ -77,9 +98,16 @@ def make_residual_vector(problem) -> Callable:
             # partial-state Dirichlet data: `ub` holds the leading components
             ub_pred = ub_pred[:, : data["ub"].shape[-1]]
         rb = np.sqrt(wb / data["ub"].numel()) * (ub_pred - data["ub"]).reshape(-1)
+        if axis_name is not None:
+            rb = once(rb, axis_name)
         parts = [rv, rb]
         if reg_fn is not None:
-            parts.append(reg_fn(params, data).reshape(-1))
+            if axis_name is None:
+                parts.append(reg_fn(params, data).reshape(-1))
+            elif reg_sharded:
+                parts.append(reg_fn(params, data, axis_name=axis_name).reshape(-1))
+            else:
+                parts.append(once(reg_fn(params, data).reshape(-1), axis_name))
         return torch.cat(parts)
 
     return resvec
@@ -117,17 +145,46 @@ def _aux_floats(aux) -> Dict[str, float]:
     return dict(zip(keys, torch.stack([aux[k].detach() for k in keys]).tolist()))  # one device sync
 
 
-def _model_terms(r, J, delta):
+def _model_terms(r, J, delta, total=None):
     """The predicted squared-residual decrease of the undamped model and
-    |J^T r|_inf."""
+    |J^T r|_inf; on a mesh `total` sums a rank's parts over the ranks."""
     pred = r + J @ delta
-    return torch.sum(r * r) - torch.sum(pred * pred), torch.max(torch.abs(J.T @ r))
+    dec, g = torch.sum(r * r) - torch.sum(pred * pred), J.T @ r
+    if total is not None:
+        dec, g = total(dec), total(g)
+    return dec, torch.max(torch.abs(g))
 
 
-def _normal_delta(r, J, lam, dual: bool):
+def _summer(axis):
+    """t -> the sum of t over the ranks of `axis` (a new tensor); None off a
+    mesh."""
+    if axis is None:
+        return None
+
+    def total(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t.view(-1), group=axis.group)
+        return t
+
+    return total
+
+
+def _gathered(t, axis):
+    """The ranks' `t` stacked along axis 0 in rank order."""
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    return torch.cat(parts)
+
+
+def _normal_delta(r, J, lam, dual: bool, total=None):
     """-argmin ||r + J d||^2 + lam ||d||^2 by a Cholesky factorization of the
     damped normal (primal) or dual system: (delta, info), info != 0 where it
-    failed."""
+    failed.  On a mesh (`total`) the primal system, J^T J and J^T r summed
+    over the ranks."""
+    if total is not None:
+        A = total(J.T @ J) + lam * torch.eye(J.shape[1], dtype=J.dtype, device=J.device)
+        L, info = torch.linalg.cholesky_ex(A)
+        return -torch.cholesky_solve(total(J.T @ r)[:, None], L)[:, 0], info
     if dual:
         A = J @ J.T + lam * torch.eye(J.shape[0], dtype=J.dtype, device=J.device)
         L, info = torch.linalg.cholesky_ex(A)
@@ -138,16 +195,23 @@ def _normal_delta(r, J, lam, dual: bool):
 
 
 def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: Optional[int] = None,
-                   cg_maxiter: Optional[int] = None, cg_tol: float = 1e-3, cg_precond: int = 0):
+                   cg_maxiter: Optional[int] = None, cg_tol: float = 1e-3, cg_precond: int = 0, axis=None):
     """(r_and_J, loss_of, {solve name: step}) over the flat parameter vector.
 
     `jac_chunk` bounds the Jacobian build's memory: the min(M, P) vmapped
     JVP/VJP passes run in blocks of that many (torch.func.vmap's
     chunk_size).  None: all at once when min(M, P) <= 2048, else blocks of
-    256, as in the JAX package."""
+    256, as in the JAX package.  On a mesh (`axis`, the element Axis) r and
+    J are this rank's rows and the solves sum over the ranks (module
+    docstring)."""
+    total = _summer(axis)
+    share = None if axis is None else axis.as_share()
 
     def r_of(theta):
-        return resvec(unravel(theta), data)
+        return resvec(unravel(theta), data, share)
+
+    def summed(t):
+        return t if total is None else total(t)
 
     fwd = n_params <= n_res
     n_pass = n_params if fwd else n_res
@@ -166,21 +230,24 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
     def loss_of(theta):
         with torch.no_grad():
             r = r_of(theta)
-            return torch.sum(r * r)
+            return summed(torch.sum(r * r))
 
     dual = n_res < n_params  # underdetermined: the min-norm step through J J^T
 
     def lm_step(r, J, lam):
         """The damped normal equations by Cholesky; a failed factorization
         gives a NaN step (rejected), as JAX's cho_factor does."""
-        delta, info = _normal_delta(r, J, lam, dual)
+        delta, info = _normal_delta(r, J, lam, dual, total)
         delta = torch.where(info == 0, delta, torch.full_like(delta, float("nan")))
-        return (delta, *_model_terms(r, J, delta))
+        return (delta, *_model_terms(r, J, delta, total))
 
     def lm_step_qr(r, J, lam):
         """The damped step from the reduced QR of the augmented [J; sqrt(lam) I],
         backward-stable at cond(J) rather than cond(J)^2; no primal/dual
-        branch (the damping block gives full column rank)."""
+        branch (the damping block gives full column rank).  On a mesh J and
+        r are gathered first, in rank order."""
+        if axis is not None:
+            r, J = _gathered(r, axis), _gathered(J, axis)
         p = J.shape[1]
         A = torch.cat([J, torch.sqrt(lam) * torch.eye(p, dtype=J.dtype, device=J.device)])
         b = torch.cat([r, torch.zeros(p, dtype=r.dtype, device=r.device)])
@@ -193,12 +260,13 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         on r's device).  A system that is not finite or a factorization that
         fails returns delta None, which the loop rejects."""
         r64, J64 = r.double(), J.double()
-        if not bool(torch.isfinite(J64).all() & torch.isfinite(r64).all()):
+        finite = (torch.isfinite(J64).all() & torch.isfinite(r64).all()).double()
+        if not bool(summed(finite) == (1 if axis is None else axis.size)):  # the same answer on every rank
             return None, 0.0, float("inf")
-        delta, info = _normal_delta(r64, J64, lam.double(), dual)
+        delta, info = _normal_delta(r64, J64, lam.double(), dual, total)
         if int(info) != 0:
             return None, 0.0, float("inf")
-        pred_dec, grad_inf = _model_terms(r64, J64, delta)
+        pred_dec, grad_inf = _model_terms(r64, J64, delta, total)
         return delta.to(r.dtype), float(pred_dec), float(grad_inf)
 
     # The iteration cap: n_params (the exact-arithmetic Krylov bound), at most 2000.
@@ -211,7 +279,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         def jvp_lin(v):
             return torch.func.jvp(r_of, (theta,), (v,))[1].detach()
 
-        return r.detach(), jvp_lin, (lambda u: vjp(u)[0].detach())
+        return r.detach(), jvp_lin, (lambda u: summed(vjp(u)[0].detach()))
 
     def lm_step_cg(theta, lam):
         """Matrix-free: CG on (J^T J + lam I) delta = -J^T r, J through JVPs
@@ -227,7 +295,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
 
         minv = None
         if cg_precond > 0:
-            gen = torch.Generator().manual_seed(17)
+            gen = torch.Generator().manual_seed(17 + (0 if axis is None else dist.get_rank()))
             zs = (2 * torch.randint(0, 2, (cg_precond, n_res), generator=gen) - 1).to(dtype=r.dtype, device=r.device)
             diag_est = torch.stack([vjp(z) ** 2 for z in zs]).mean(dim=0)
             minv = 1.0 / (diag_est + lam)
@@ -250,7 +318,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
             rz_new = torch.dot(rk, zk)
             p, rz, rs, k = zk + (rz_new / rz) * p, rz_new, torch.dot(rk, rk), k + 1
         pred = r + jvp_lin(x)
-        return x, torch.sum(r * r) - torch.sum(pred * pred), torch.max(torch.abs(g)), k
+        return x, summed(torch.sum(r * r) - torch.sum(pred * pred)), torch.max(torch.abs(g)), k
 
     def lm_step_lsqr(theta, lam):
         """Matrix-free: damped LSQR (Paige and Saunders 1982), Golub-Kahan
@@ -264,7 +332,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         tiny = torch.as_tensor(1e-30, dtype=r.dtype, device=r.device)
 
         b = -r
-        beta1 = torch.linalg.norm(b)
+        beta1 = torch.sqrt(summed(torch.sum(b * b)))
         u = b / torch.maximum(beta1, tiny)
         v_raw = vjp(u)
         alpha = torch.linalg.norm(v_raw)
@@ -275,7 +343,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         x, w, phibar, rhobar, ntest, k = torch.zeros_like(g), v, beta1, alpha, gnorm + tol, 0
         while k < max_cg and bool(ntest > tol):
             u_new = jvp_lin(v) - alpha * u
-            beta = torch.linalg.norm(u_new)
+            beta = torch.sqrt(summed(torch.sum(u_new * u_new)))
             u_new = u_new / torch.maximum(beta, tiny)
             v_new = vjp(u_new) - beta * v
             alpha_new = torch.linalg.norm(v_new)
@@ -296,7 +364,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
             ntest = torch.abs(phibar_new * alpha_new * c)
             u, v, alpha, phibar, rhobar, k = u_new, v_new, alpha_new, phibar_new, -c * alpha_new, k + 1
         pred = r + jvp_lin(x)
-        return x, torch.sum(r * r) - torch.sum(pred * pred), torch.max(torch.abs(g)), k
+        return x, summed(torch.sum(r * r) - torch.sum(pred * pred)), torch.max(torch.abs(g)), k
 
     return r_and_J, loss_of, {
         "normal": lm_step, "host": lm_step_host, "qr": lm_step_qr, "cg": lm_step_cg, "lsqr": lm_step_lsqr,
@@ -332,23 +400,40 @@ def gauss_newton(
     loss decrease of an accepted step), a damping above damping_max, or the
     iteration budget.  `solve` picks the damped step (module docstring);
     None: "host" for parameters below float64, "normal" for float64, or
-    `host_solve`'s choice when that is given.  `mesh` is not ported."""
+    `host_solve`'s choice when that is given.  `mesh` (an element mesh,
+    parallel/sharding.py) keeps the rows sharded (module docstring):
+    `data` is then this rank's shard, by default the problem's data
+    sharded, and `params` are broadcast from rank 0."""
     if solve is None:
         if host_solve is not None:
             solve = "host" if host_solve else "normal"
     elif solve not in SOLVES:
         raise ValueError(f"solve must be 'normal', 'host', 'qr', 'cg' or 'lsqr', got {solve!r}")
+    axis = None
     if mesh is not None:
-        raise NotImplementedError("gauss_newton: mesh (multi-device) is not ported yet (ROADMAP.md, queue A item 24)")
+        if POINT_AXIS in mesh.axis_names:
+            raise NotImplementedError(
+                "gauss_newton on an element x point mesh: a Jacobian row's sum over the point group is not "
+                "implemented; use element_mesh (ROADMAP.md)")
+        axis = mesh.axis(AXIS)
+        data = shard_problem(problem.data, mesh) if data is None else data
+        params = replicate(params, mesh)
+        verbose = verbose and mesh.is_root
     use_ieee_fp32_matmuls()
     data = problem.data if data is None else data
     resvec = make_residual_vector(problem)
     theta, unravel = ravel_params(params)
+    total = _summer(axis)
+    share = None if axis is None else axis.as_share()
+
+    def loss_fn(params, data):
+        return problem.loss_fn(params, data) if axis is None else problem.loss_fn(params, data, axis_name=axis)
 
     with torch.no_grad():
-        probe = resvec(unravel(theta), data)
-        loss_probe = float(problem.loss_fn(unravel(theta), data)[0])
-        sq = float(torch.sum(probe * probe))
+        probe = resvec(unravel(theta), data, share)
+        loss_probe = float(loss_fn(unravel(theta), data)[0])
+        sq_t = torch.sum(probe * probe)
+        sq = float(sq_t if total is None else total(sq_t))
     # The LM objective must be the training loss: a loss term the residual
     # vector misses (an unregistered regularizer) fails here.
     if not np.isclose(sq, loss_probe, rtol=1e-4, atol=1e-12):
@@ -363,16 +448,16 @@ def gauss_newton(
     if matrix_free or n_params <= n_res:
         # forward mode: one JVP first, so that a function without a JVP rule
         # (deriv_mode "pallas") raises its own error before any work
-        torch.func.jvp(lambda th: resvec(unravel(th), data), (theta,), (torch.zeros_like(theta),))
+        torch.func.jvp(lambda th: resvec(unravel(th), data, share), (theta,), (torch.zeros_like(theta),))
     r_and_J, loss_of, lm_steps = _build_kernels(
         resvec, unravel, data, n_params, n_res, jac_chunk=jac_chunk,
-        cg_maxiter=cg_maxiter, cg_tol=cg_tol, cg_precond=cg_precond,
+        cg_maxiter=cg_maxiter, cg_tol=cg_tol, cg_precond=cg_precond, axis=axis,
     )
     lm_step = lm_steps[solve]
 
     def aux_of(th):
         with torch.no_grad():
-            return _aux_floats(problem.loss_fn(unravel(th), data)[1])
+            return _aux_floats(loss_fn(unravel(th), data)[1])
 
     lam, nu = float(damping_init), 2.0
     records = []
@@ -385,7 +470,7 @@ def gauss_newton(
         loss = float(loss_of(theta))
     else:
         r, J = r_and_J(theta)
-        loss = float(torch.sum(r * r))
+        loss = float(torch.sum(r * r) if total is None else total(torch.sum(r * r)))
     cg_iters = None
     it = 0
     while accepted < iterations:

@@ -163,15 +163,18 @@ def time_march(
         budget (Adam, L-BFGS and Gauss-Newton iterations), normalized to
         mean 1 so the march's total budget is unchanged.
     device: where the slabs' problems are built (default the card; "cpu"
-        for the CPU).  `mesh` is not ported.
+        for the CPU; on a mesh, the mesh's device).
+    mesh: an element mesh (parallel/sharding.py) handed to every slab's
+        `train`: each rank trains its shard of the slab's elements.  A
+        slab's initial data evaluates the previous slabs' networks, which
+        are replicated, so every rank builds the same slab problem.
     """
     if n_slabs < 1:
         raise ValueError("n_slabs must be >= 1")
     if ic not in ("net", "exact"):
         raise ValueError(f"ic must be 'net' or 'exact', got {ic!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "time_march: mesh (multi-device training) is not ported yet (ROADMAP.md, queue A item 24)")
+    if mesh is not None and device is None:
+        device = mesh.device
     build = _slab_builder(cfg)
     t0 = float(getattr(cfg, "t_start", 0.0))
     edges = np.linspace(t0, cfg.t_final, n_slabs + 1) if edges is None else np.asarray(edges, dtype=np.float64)
@@ -215,7 +218,7 @@ def time_march(
                 lbfgs_iterations=int(round(base.lbfgs_iterations * w)),
                 gn_iterations=int(round(base.gn_iterations * w)),
             )
-        res = train(prob, tc_k, params=init, verbose=verbose)
+        res = train(prob, tc_k, mesh=mesh, params=init, verbose=verbose)
         m = evaluate(prob, res.eval_params)
         loss = res.final_aux.get("loss")
         m = {"slab": k, "t0": float(edges[k]), "t1": float(edges[k + 1]), "iterations": res.iterations_run,

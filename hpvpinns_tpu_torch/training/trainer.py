@@ -19,6 +19,19 @@ writes its result into the same parameter tensors.  With `checkpoint_dir`
 the params and the optimizer state are saved every `checkpoint_every`
 iterations, at chunk boundaries, and once at the end
 (training/checkpoint.py).
+
+On a mesh (parallel/sharding.py) each rank trains on its shard of the
+elements with the parameters replicated.  A step computes this rank's
+share of the loss and of the gradients (the element Axis `.as_share()`)
+and sums the loss and the gradients over the ranks in ONE all-reduce of a
+flat buffer, where JAX's GSPMD inserts its own (trainer.py:191-206).  The
+metrics, the L-BFGS closure and the best snapshot see the global loss, so
+every rank takes the same branch.  Under NCCL the chunk stays a captured
+CUDA graph with the all-reduce inside it (its communicator made before the
+capture, parallel/sharding.py::_warm_up); under gloo (the CPU, or ranks
+that share one card) the chunks run eagerly, step by step.  The mode is
+`TrainResult.chunk_mode`.  Only the mesh's rank 0 prints and writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from torch import nn
 
 from hpvpinns_tpu_torch.config import TrainConfig
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
+from hpvpinns_tpu_torch.parallel.sharding import AXIS, allreduce_grads, replicate, shard_problem
 from hpvpinns_tpu_torch.problems.base import Problem, map_params, parameters
 from hpvpinns_tpu_torch.training.checkpoint import Checkpointer
 from hpvpinns_tpu_torch.training.gauss_newton import gauss_newton
@@ -56,6 +70,10 @@ class TrainResult:
     # for Gauss-Newton the accepted steps, the others ("rejected"), why it
     # stopped and the damping after its last accepted step
     phases: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+    # how the Adam and L-BFGS chunks ran: "graph" (captured CUDA graphs, the
+    # card; on a mesh under NCCL only) or "eager" (step by step: the CPU, or
+    # a mesh under gloo)
+    chunk_mode: str = "eager"
 
     @property
     def eval_params(self):
@@ -127,6 +145,16 @@ def _capture(fn: Callable, debug: bool = False):
     return graph, out
 
 
+def _mesh_losses(loss_fn: Callable, axis):
+    """(step loss, metrics loss): off a mesh both `loss_fn`; on a mesh the
+    step's loss is this rank's share (axis.as_share(), parallel/sharding.py)
+    and the metrics' the global one."""
+    if axis is None:
+        return loss_fn, loss_fn
+    share = axis.as_share()
+    return (lambda p, d: loss_fn(p, d, axis_name=share)), (lambda p, d: loss_fn(p, d, axis_name=axis))
+
+
 def _eager_metrics(loss_fn: Callable, params, data):
     """() -> the metrics (aux) at the current params, without gradients."""
 
@@ -161,11 +189,23 @@ class _Chunk:
         return self._metrics()
 
 
-def _adam_step(loss_fn: Callable, opt, params, data):
+def _backward(loss_fn: Callable, params, data, axis) -> torch.Tensor:
+    """The loss at the current params and its gradients in .grad; on a mesh
+    (`axis`) this rank's shares, then the loss and every gradient summed over
+    the ranks in one all-reduce: the global values on every rank."""
+    loss, _ = loss_fn(params, data)
+    loss.backward()
+    loss = loss.detach()
+    if axis is not None:
+        loss = loss.clone()
+        allreduce_grads(parameters(params), axis, extra=[loss])
+    return loss
+
+
+def _adam_step(loss_fn: Callable, opt, params, data, axis=None):
     def step():
         opt.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(params, data)
-        loss.backward()
+        _backward(loss_fn, params, data, axis)
         opt.step()
 
     return step
@@ -179,11 +219,12 @@ def _repeat(step: Callable[[], None]) -> Callable[[int], None]:
     return iterate
 
 
-def _build_stepwise_chunk(loss_fn: Callable, opt, params, data) -> _Chunk:
+def _build_stepwise_chunk(loss_fn: Callable, opt, params, data, axis=None) -> _Chunk:
     """The eager Adam chunk: n steps of zero-grad, forward, backward and
-    update, each with its own launches, then the metrics.  The CPU path, and
-    what the card's graph chunk is held against."""
-    return _Chunk(_repeat(_adam_step(loss_fn, opt, params, data)), _eager_metrics(loss_fn, params, data))
+    update, each with its own launches, then the metrics.  The CPU path, a
+    mesh's under gloo, and what the card's graph chunk is held against."""
+    step_loss, metric_loss = _mesh_losses(loss_fn, axis)
+    return _Chunk(_repeat(_adam_step(step_loss, opt, params, data, axis)), _eager_metrics(metric_loss, params, data))
 
 
 def _graph_chunk(step: Callable[[], None], aux: Callable, opt, leaves, debug: bool = False) -> _Chunk:
@@ -212,19 +253,28 @@ def _graph_chunk(step: Callable[[], None], aux: Callable, opt, leaves, debug: bo
     return _Chunk(_repeat(step_graph.replay), metrics, (step_graph, metrics_graph))
 
 
-def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False) -> _Chunk:
-    """The Adam chunk.  On the CPU the stepwise chunk.  On the card one step
-    captured once as a CUDA graph (`opt` must be capturable), plus a graph
-    of the metrics (_graph_chunk).  The gradients are None when the capture
-    starts, so the captured backward writes them afresh, into buffers of the
-    graph's pool, on every replay."""
-    if not _on_card(params):
-        return _build_stepwise_chunk(loss_fn, opt, params, data)
-    return _graph_chunk(_adam_step(loss_fn, opt, params, data), _eager_metrics(loss_fn, params, data), opt,
-                        parameters(params), debug)
+def _captures(params, mesh) -> bool:
+    """Whether the chunks run as captured CUDA graphs: on the card, and on
+    a mesh only under NCCL (parallel/sharding.py::Mesh.captures)."""
+    return _on_card(params) and (mesh is None or mesh.captures)
 
 
-def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
+def _build_chunk(loss_fn: Callable, opt, params, data, debug: bool = False, mesh=None) -> _Chunk:
+    """The Adam chunk.  On the CPU, or on a mesh under gloo, the stepwise
+    chunk.  On the card one step captured once as a CUDA graph (`opt` must
+    be capturable), plus a graph of the metrics (_graph_chunk); on a mesh
+    under NCCL the step's all-reduce is inside the graph.  The gradients are
+    None when the capture starts, so the captured backward writes them
+    afresh, into buffers of the graph's pool, on every replay."""
+    axis = None if mesh is None else mesh.axis(AXIS)
+    if not _captures(params, mesh):
+        return _build_stepwise_chunk(loss_fn, opt, params, data, axis)
+    step_loss, metric_loss = _mesh_losses(loss_fn, axis)
+    return _graph_chunk(_adam_step(step_loss, opt, params, data, axis), _eager_metrics(metric_loss, params, data),
+                        opt, parameters(params), debug)
+
+
+def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data, mesh=None) -> _Chunk:
     """The L-BFGS chunk: n calls of `opt.step(closure)`, one iteration each,
     then the metrics.  The closure sets the gradients of the loss at the
     current params and returns the loss; on the card it replays a CUDA graph
@@ -234,17 +284,19 @@ def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
     The optimizer is the JAX package's optax.lbfgs() (training/lbfgs.py), so
     this phase follows the JAX trajectory: in float64 on the CPU its records
     equal the JAX package's to rounding (tests/test_torch_trainer.py).  Each
-    line-search trial reads its value and slope on the host in one sync."""
+    line-search trial reads its value and slope on the host in one sync.
+    On a mesh the closure returns the global loss and gradients, so every
+    rank runs the same iterations."""
+    axis = None if mesh is None else mesh.axis(AXIS)
+    step_loss, metric_loss = _mesh_losses(loss_fn, axis)
 
     def evaluate():
         opt.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(params, data)
-        loss.backward()
-        return loss.detach()
+        return _backward(step_loss, params, data, axis)
 
     graph = metrics_graph = None
-    closure, metrics = evaluate, _eager_metrics(loss_fn, params, data)
-    if _on_card(params):
+    closure, metrics = evaluate, _eager_metrics(metric_loss, params, data)
+    if _captures(params, mesh):
         graph, loss = _capture(evaluate)
 
         def closure():
@@ -260,11 +312,6 @@ def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data) -> _Chunk:
     return _Chunk(iterate, metrics, (graph, metrics_graph))
 
 
-def _check_supported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("train: mesh (multi-device training) is not ported yet (ROADMAP.md, queue A item 24)")
-
-
 def train(
     problem: Problem,
     cfg: Optional[TrainConfig] = None,
@@ -276,18 +323,26 @@ def train(
     Gauss-Newton/LM for cfg.gn_iterations accepted steps, on problem.loss_fn;
     the arguments in the JAX package's order.  `params` (default:
     problem.init_params from a CPU torch.Generator seeded with cfg.seed) are
-    copied, never updated in place.  `mesh` is not ported."""
+    copied, never updated in place.  `mesh` (parallel/sharding.py) trains
+    this rank's shard of the elements with the parameters broadcast from
+    rank 0 (module docstring); the problem is built on the mesh's device."""
     cfg = cfg or problem.config.train
-    _check_supported(mesh)
     use_ieee_fp32_matmuls()
     loss_fn, data = problem.loss_fn, problem.data
     if params is None:
         params = problem.init_params(torch.Generator().manual_seed(cfg.seed))
+    if mesh is not None:
+        data = shard_problem(data, mesh)
+        params = replicate(params, mesh)
+        verbose = verbose and mesh.is_root
     params = _copy_params(params, as_parameters=True)
+    chunk_mode = "graph" if _captures(params, mesh) else "eager"
+    if verbose and mesh is not None:
+        print(f"mesh {mesh.shape} ({mesh.backend}): {chunk_mode} chunks")
 
     check = max(1, cfg.check_every)
     checkpointer = None
-    if cfg.checkpoint_dir is not None:
+    if cfg.checkpoint_dir is not None and (mesh is None or mesh.is_root):
         checkpointer = Checkpointer(cfg.checkpoint_dir, keep_last=cfg.checkpoint_keep_last,
                                     use_async=cfg.checkpoint_async)
     adam = make_optimizer(cfg, params)
@@ -310,7 +365,7 @@ def train(
     def run_phase(name, build_chunk, opt, n_iters):
         nonlocal stopped, best_params, min_loss
         t_phase, it_start = time.perf_counter(), state["it"]
-        chunk = build_chunk(loss_fn, opt, params, data)
+        chunk = build_chunk(loss_fn, opt, params, data, mesh=mesh)
         end = state["it"] + n_iters
         while state["it"] < end:
             n = min(check, end - state["it"])
@@ -366,7 +421,7 @@ def train(
         gn = gauss_newton(
             problem, params, data=data, iterations=cfg.gn_iterations, damping_init=cfg.gn_damping_init,
             solve=cfg.gn_solve, cg_tol=cfg.gn_cg_tol, cg_maxiter=cfg.gn_cg_maxiter, jac_chunk=cfg.gn_jac_chunk,
-            verbose=verbose, log_every=max(1, cfg.log_every // 10),
+            verbose=verbose, log_every=max(1, cfg.log_every // 10), mesh=mesh,
         )
         with torch.no_grad():
             for t, new in zip(parameters(params), parameters(gn.params)):
@@ -412,4 +467,5 @@ def train(
         best_params=best_params,
         final_aux=state["aux"],
         phases=phases,
+        chunk_mode=chunk_mode,
     )

@@ -212,10 +212,19 @@ def test_python_m_presets_in_a_subprocess(capsys):
 
 
 def test_mesh_raises_until_multi_device(capsys):
-    with pytest.raises(NotImplementedError, match="queue A item 24"):
-        tcli.main(P1D + ["--mesh"] + CPU)
-    with pytest.raises(NotImplementedError, match="queue A item 24"):
-        tcli.main("march burgers --slabs 2 --iterations 1 --mesh --quiet".split() + CPU)
+    """--mesh on `run` and `march` alone: a one-rank element mesh (gloo on
+    the CPU), whose summary equals the run without it (one rank's
+    all-reduce is a copy)."""
+    march = "march burgers --slabs 2 --iterations 1 --quiet".split()
+    with one_torch_thread():
+        for argv in (P1D, march):
+            assert tcli.main(argv + ["--mesh"] + CPU) == 0
+            meshed = json.loads(capsys.readouterr().out.splitlines()[0])
+            assert tcli.main(argv + CPU) == 0
+            plain = json.loads(capsys.readouterr().out.splitlines()[0])
+            meshed.pop("wall_time_s"), plain.pop("wall_time_s")
+            meshed.pop("steps_per_sec", None), plain.pop("steps_per_sec", None)
+            assert meshed == plain
 
 
 def test_run_needs_the_card_or_device_cpu(monkeypatch):

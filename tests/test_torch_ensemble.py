@@ -23,6 +23,7 @@ import hpvpinns_tpu as jv  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
 from hpvpinns_tpu.training.ensemble import init_ensemble as jinit_ensemble  # noqa: E402
 from hpvpinns_tpu_torch.ops import fused_fields as ff  # noqa: E402
+from hpvpinns_tpu_torch.parallel.sharding import element_mesh  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
 from hpvpinns_tpu_torch.training import ensemble  # noqa: E402
 from test_torch_parity import FAMILIES, named_leaves, one_torch_thread, tnp  # noqa: E402
@@ -173,7 +174,8 @@ def test_one_member_step_equals_its_serial_train():
     """After one step every member equals its serial `train` twin at the
     same seed (the JAX package's test_ensemble_single_step_matches_serial),
     and a threshold above the largest loss stops the run at its first
-    record; `mesh` raises."""
+    record; on a one-rank element mesh the members' losses equal the
+    unsharded ensemble's bit for bit."""
     prob = tv.build(configs(1, iterations=1, check_every=1)[1], device="cpu")
     with one_torch_thread():
         res = tv.train_ensemble(prob, seeds=SEEDS, verbose=False)
@@ -185,8 +187,9 @@ def test_one_member_step_equals_its_serial_train():
         stopped = tv.train_ensemble(prob, tv.TrainConfig(iterations=5, check_every=1, threshold=1e9),
                                     seeds=SEEDS, verbose=False)
     assert stopped.iterations_run == 1 and stopped.history["loss"].shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="queue A item 24"):
-        tv.train_ensemble(prob, seeds=SEEDS, verbose=False, mesh=object())
+    with one_torch_thread():
+        meshed = tv.train_ensemble(prob, seeds=SEEDS, verbose=False, mesh=element_mesh(device="cpu"))
+    np.testing.assert_array_equal(meshed.final_aux["loss"], res.final_aux["loss"])
 
 
 @pytest.mark.parametrize("family", ["kovasznay", "taylorgreen"])

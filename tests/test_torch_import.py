@@ -37,7 +37,8 @@ def test_port_imports_no_jax():
         "       'problems.helmholtz', 'problems.burgers', 'training.gauss_newton', 'training.hybrid',\n"
         "       'training.checkpoint', 'problems.kovasznay', 'problems.taylorgreen', 'adaptive', 'sweep', 'galerkin',\n"
         "       'training.ensemble', 'training.timemarch', 'inverse', 'uncertainty', 'utils.records', 'serving',\n"
-        "       'viz', 'cli', '__main__')\n"
+        "       'viz', 'cli', '__main__', 'parallel', 'parallel.sharding', 'parallel.distributed',\n"
+        "       'parallel.multihost_check', 'parallel.dryrun')\n"
         "assert all(hasattr(hpvpinns_tpu_torch, n) for n in ('KovasznayConfig', 'TaylorGreenConfig', 'kovasznay_quality',\n"
         "           'kovasznay_precision', 'taylorgreen_quality', 'taylorgreen_precision', 'per_element_rel_l2',\n"
         "           'train_ensemble', 'EnsembleResult', 'time_march', 'TimeMarchResult', '__version__',\n"
@@ -51,6 +52,32 @@ def test_port_imports_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", ["sharding", "distributed", "multihost_check"])
+def test_parallel_modules_keep_jax_names(module):
+    """hpvpinns_tpu_torch.parallel exports the JAX package's four names, and
+    every public function of a JAX parallel module has its counterpart of
+    the same name whose leading parameters are JAX's, in JAX's order."""
+    import importlib
+    import inspect
+
+    import hpvpinns_tpu.parallel as jpar
+    import hpvpinns_tpu_torch.parallel as tpar
+
+    names = sorted(n for n in vars(jpar) if not n.startswith("_") and callable(getattr(jpar, n)))
+    assert names == ["element_mesh", "pad_elements", "replicate", "shard_problem"]
+    assert all(callable(getattr(tpar, n)) for n in names)
+    jmod = importlib.import_module(f"hpvpinns_tpu.parallel.{module}")
+    tmod = importlib.import_module(f"hpvpinns_tpu_torch.parallel.{module}")
+    public = [n for n, f in vars(jmod).items() if inspect.isfunction(f) and f.__module__ == jmod.__name__
+              and not n.startswith("_")]
+    assert public
+    for n in public:
+        jp = list(inspect.signature(getattr(jmod, n)).parameters)
+        assert list(inspect.signature(getattr(tmod, n)).parameters)[:len(jp)] == jp, n
+    for n in ("AXIS", "POINT_AXIS"):
+        assert getattr(tmod, n, None) == getattr(jmod, n, None), n
 
 
 @pytest.mark.parametrize("module,names", [("inverse", INVERSE), ("uncertainty", UQ)])

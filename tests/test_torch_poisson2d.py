@@ -33,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import hpvpinns_tpu as jv  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
+from hpvpinns_tpu_torch.parallel.sharding import element_mesh  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
 from test_torch_parity import one_torch_thread, option_matches_default  # noqa: E402
 
@@ -201,8 +202,17 @@ def test_presets_match_jax_fields():
 
 
 def test_multi_device_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tv.train(tv.build(configs()[1], device="cpu"), verbose=False, mesh=object())
+    """`mesh` no longer raises: on a one-rank element mesh (gloo on the
+    CPU) the eager chunks' records and parameters equal the unsharded
+    run's bit for bit (one rank's all-reduce is a copy)."""
+    prob = tv.build(configs()[1], device="cpu")
+    with one_torch_thread():
+        plain = tv.train(prob, verbose=False)
+        meshed = tv.train(prob, verbose=False, mesh=element_mesh(device="cpu"))
+    assert meshed.chunk_mode == plain.chunk_mode == "eager"
+    np.testing.assert_array_equal(meshed.history["loss"], plain.history["loss"])
+    for a, b in zip(parameters(meshed.params), parameters(plain.params), strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("preset", ["poisson1d_of_record", "poisson2d_scaled", "poisson3d_quality", "AdvDiff2DConfig"])

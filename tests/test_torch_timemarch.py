@@ -27,6 +27,7 @@ import hpvpinns_tpu.problems.burgers as jburgers  # noqa: E402
 import hpvpinns_tpu.problems.taylorgreen as jtaylorgreen  # noqa: E402
 import hpvpinns_tpu_torch as tv  # noqa: E402
 from hpvpinns_tpu.training.timemarch import _hard_bc_slab_kwargs as j_slab_kwargs  # noqa: E402
+from hpvpinns_tpu_torch.parallel.sharding import element_mesh  # noqa: E402
 from hpvpinns_tpu_torch.problems import advdiff, burgers, taylorgreen  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import map_params, parameters  # noqa: E402
 from hpvpinns_tpu_torch.training import timemarch  # noqa: E402
@@ -206,7 +207,8 @@ def _message(fn):
 ])
 def test_validation_messages_match_jax(case):
     """Every refusal of time_march (timemarch.py:80-110, 226-247) raises the
-    JAX package's exception type and message, before any training."""
+    JAX package's exception type and message, before any training, with a
+    (one-rank) element mesh too: the mesh itself is no refusal."""
     def args(pkg):
         return {
             "n_slabs": (tiny("burgers", pkg), dict(n_slabs=0)),
@@ -223,6 +225,18 @@ def test_validation_messages_match_jax(case):
 
     jcfg, kw = args(jv)
     tcfg, _ = args(tv)
-    assert _message(lambda: tv.time_march(tcfg, device="cpu", **kw)) == _message(lambda: jv.time_march(jcfg, **kw))
-    with pytest.raises(NotImplementedError, match="queue A item 24"):
-        tv.time_march(tiny("burgers", tv), 2, mesh=object(), device="cpu")
+    want = _message(lambda: jv.time_march(jcfg, **kw))
+    assert _message(lambda: tv.time_march(tcfg, device="cpu", **kw)) == want
+    assert _message(lambda: tv.time_march(tcfg, mesh=element_mesh(device="cpu"), **kw)) == want
+
+
+def test_march_on_a_mesh_equals_unsharded():
+    """Each slab's `train` on a one-rank element mesh (its one all-reduce a
+    step a copy): the march's records equal the unsharded march's bit for
+    bit; the mesh's device builds the slabs."""
+    cfg = tiny("burgers", tv)
+    with one_torch_thread():
+        plain = tv.time_march(cfg, 2, verbose=False, device="cpu")
+        meshed = tv.time_march(cfg, 2, verbose=False, mesh=element_mesh(device="cpu"))
+    assert [m["final_loss"] for m in meshed.per_slab] == [m["final_loss"] for m in plain.per_slab]
+    assert meshed.metrics == plain.metrics
