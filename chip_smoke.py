@@ -9,7 +9,7 @@
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
                            | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
                            | --ensemble-only | --march-only | --march | --inverse-only | --cli-only
-                           | --mesh-only | --mesh-cards]
+                           | --mesh-only | --mesh-cards | --draws-only]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -287,7 +287,14 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      on a host of several cards only, an NCCL world of one rank a card
      (children `chip_smoke.py --mesh-child`): each rank's captured steps
      against unsharded (rtol 1e-4), NCCL's kernel among its nodes, its
-     graph steps/s.
+     graph steps/s;
+ 24. trains from the JAX package's own initial draws (tools/draws/, made by
+     tools/jax_draws.py on a CPU): (a) advdiff_quality in float64 from the
+     seed-1234 draw, DRAWS_ADVDIFF_STEPS Adam steps against the JAX CPU
+     run's first record (tools/draws/jax_cpu.json), loss and eps to rtol
+     DRAWS_ADVDIFF_RTOL; (b) poisson2d_quality under "pallas" in float32
+     from its seed-1234 draw, Adam up to JAX's first record, the loss
+     within DRAWS_P2D_FIRST_BOUND relative of JAX's, B1 launched.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -303,6 +310,7 @@ JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 (gn_iterations=0; rel-L2 beside the JAX row 1.23e-3, which has the tail),
 once for each seed given (default: the presets').
 With --cli-only it runs phases 1, 2 and 22 and prints no summary.
+With --draws-only it runs phases 1, 2 and 24 and prints no summary.
 With --mesh-only it runs phases 1, 2 and 23 and prints no summary; with
 --mesh-cards, on a host of several cards, phases 1, 2 and 23 (e) alone.
 With --inverse-only it runs phases 1, 2 and 21, (b)'s routes at the
@@ -4330,6 +4338,61 @@ def mesh_cards(dev, n: int) -> dict:
     return paths
 
 
+# Phase 24's bounds.  (a) float64 from the same draw: the port's Adam
+# records equal JAX's to ~5e-16 on the CPU (tests/test_torch_jax_draws.py).
+# (b) 10x the relative gap in the loss at JAX's first record (1,000 Adam
+# steps, seed 1234) between the port on the CPU in float32 under "pallas"
+# (its plain version there) and JAX on the CPU in float32, both from JAX's
+# draw: 0.1486 (`python tools/draw_parity.py --gap C9 --seeds 1234 --modes
+# pallas --first-record --device cpu --draws jax`).  It is loose because
+# float32 Adam is chaotic there: JAX from its draw perturbed by one ulp
+# (6e-8) ends 0.639 apart from itself at step 1,000 (`python
+# tools/jax_draws.py --gap C9 --seeds 1234 --bisect 1000 --perturb 6e-8`).
+DRAWS_ADVDIFF_STEPS, DRAWS_ADVDIFF_RTOL = 500, 1e-6
+DRAWS_P2D_FIRST_BOUND = 10 * 0.1486
+
+
+def phase24(dev) -> dict:
+    """Phase 24: the port from the JAX package's own initial draws, against
+    the JAX package's CPU runs from them (tools/draws/).  Returns the host
+    launches by path."""
+    import hpvpinns_tpu_torch as hv
+    from hpvpinns_tpu_torch.convert import load_draw
+    from tools.draw_gaps import JAX_RESULTS, config, draw_path
+
+    t0 = time.perf_counter()
+    with open(JAX_RESULTS) as f:
+        jax_runs = [r for r in json.load(f) if r["seed"] == 1234 and not r.get("perturbed")]
+    paths = {}
+    for label, gap, mode, steps, kernels in (
+        ("(a) advdiff_quality taylor (f64)", "C7", "taylor", DRAWS_ADVDIFF_STEPS, ()),
+        ("(b) poisson2d_quality pallas (f32)", "C9", "pallas", None, ("fused_fields",)),
+    ):
+        want = next(r for r in jax_runs if r["gap"] == gap)["history"]
+        steps = steps or int(want["iteration"][0])
+        if int(want["iteration"][0]) != steps:
+            fail(f"phase 24 {label}: JAX's first record is at {want['iteration'][0]}, not {steps}")
+        c = config(gap, hv, 1234, deriv_mode=mode)
+        c = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=steps, lbfgs_iterations=0,
+                                                             gn_iterations=0, best_snapshot_fraction=None))
+        prob = hv.build(c, device=dev)
+        p0 = load_draw(draw_path(gap, 1234), device=dev, dtype=getattr(torch, c.dtype))
+        res, counts, ev = train_checked(prob, c, f"phase 24 {label}", kernels, params=p0)
+        paths[f"draws {label[4:]}"] = counts
+        got = {k: float(res.history[k][0]) for k in ("loss", "epsilon") if k in res.history}
+        gaps = {k: abs(v - want[k][0]) / abs(want[k][0]) for k, v in got.items()}
+        bound = DRAWS_ADVDIFF_RTOL if c.dtype == "float64" else DRAWS_P2D_FIRST_BOUND
+        if max(gaps.values()) > bound or res.history["iteration"].tolist() != [steps]:
+            fail(f"phase 24 {label}: at step {steps} {got} against JAX's "
+                 f"{ {k: want[k][0] for k in got} }, relative gaps {gaps} (bound {bound})")
+        print(f"phase 24 {label} from the JAX draw, seed 1234: {steps} Adam steps, "
+              + ", ".join(f"{k} {v!r} (JAX CPU {want[k][0]!r}, relative gap {gaps[k]:.3e})" for k, v in got.items())
+              + f" (bound {bound:g}); rel_l2 {ev['rel_l2']:.4e}; {res.steps_per_sec:.1f} steps/s; host launches "
+              f"{counts}", flush=True)
+    print(f"phase 24 draws: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def mesh_child(argv) -> int:
     """A rank of phase 23 (e)'s NCCL world: PORT RANK N OUT (as
     multihost_check.spawn passes them)."""
@@ -4512,6 +4575,11 @@ def main() -> int:
         if torch.cuda.device_count() < 2:
             fail("--mesh-cards needs a host of two cards or more")
         mesh_cards(dev, torch.cuda.device_count())
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
+    if sys.argv[1:2] == ["--draws-only"]:  # from the JAX package's draws: phases 1, 2 and 24, no summary
+        phase24(dev)
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -4728,6 +4796,10 @@ def main() -> int:
     # ranks and the dry run
     mesh_paths = phase23(dev)
 
+    # 24. from the JAX package's own initial draws: advdiff_quality in
+    # float64 and poisson2d_quality under "pallas" against the JAX CPU runs
+    draw_paths = phase24(dev)
+
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]
     wide_bound = bound_ms(*fwd_work((2, 256, 256, 256, 1), 16384, 2, False))
@@ -4810,6 +4882,8 @@ def main() -> int:
         # phase 23: the one-rank mesh's train runs and each rank of the two-rank world (one launch
         # a step a rank, on the rank's shard), counted apart from `launches`
         k["mesh_launches"] = {path: c.get(k["name"], 0) for path, c in mesh_paths.items() if c.get(k["name"], 0)}
+        # phase 24: the runs from the JAX package's draws (each counted from 0 just before its train)
+        k["draws_launches"] = {path: c.get(k["name"], 0) for path, c in draw_paths.items()}
         if k["name"] in adv:
             k["advdiff_of_record"] = adv[k["name"]]
             k["poisson3d_quality"] = {  # P 8,000, (3,48,48,48,1) tanh, n_dirs 3

@@ -88,9 +88,22 @@ def _on_card(params) -> bool:
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Adam:
     """Adam with the optax/TF1 defaults (betas 0.9/0.999, eps 1e-8) and the
     configured learning rate, over every leaf of `params`; `capturable` on the
-    card, so that its step can be captured in a CUDA graph."""
-    return torch.optim.Adam(parameters(params), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                            capturable=_on_card(params))
+    card, so that its step can be captured in a CUDA graph.
+
+    Capturable Adam forms its bias corrections 1 - beta^t on the device from
+    its step counter, which torch makes float32: a float64 run's corrections
+    were rounded to float32, and its records on the card parted from the
+    JAX package's (optax corrects in the parameters' dtype) by ~4e-6 after
+    300 steps.  So each float64 leaf's state starts here, with a float64
+    counter; other leaves keep torch's own."""
+    leaves = parameters(params)
+    capturable = _on_card(params)
+    opt = torch.optim.Adam(leaves, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
+    for p in leaves:
+        if p.dtype == torch.float64:
+            opt.state[p] = {"step": torch.zeros((), dtype=torch.float64, device=p.device if capturable else None),
+                            "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+    return opt
 
 
 def make_lbfgs(params) -> LBFGS:

@@ -27,7 +27,7 @@ UQ = ("lstsq_covariance", "legendre_field_band", "reduced_scalar_ci", "reduced_s
 def test_port_imports_no_jax():
     code = (
         f"INVERSE, UQ = {INVERSE!r}, {UQ!r}\n"
-        "import importlib, pkgutil, sys, hpvpinns_tpu_torch, chip_smoke\n"
+        "import importlib, pkgutil, sys, hpvpinns_tpu_torch, chip_smoke, tools.draw_parity\n"
         "import hpvpinns_tpu_torch.ops.fused_fields, hpvpinns_tpu_torch.training.trainer, hpvpinns_tpu_torch.utils.profiling\n"
         "import hpvpinns_tpu_torch.ops.derivatives, hpvpinns_tpu_torch.ops.fields, hpvpinns_tpu_torch.problems.advdiff\n"
         "import hpvpinns_tpu_torch.problems.poisson3d, hpvpinns_tpu_torch.problems.advdiff2d, hpvpinns_tpu_torch.training.lbfgs\n"
@@ -52,6 +52,21 @@ def test_port_imports_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_draw_parity_runs_without_jax():
+    """tools/draw_parity.py, the card's half of the draw parity, run as a
+    script (its verdict over the committed results) loads no JAX."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['tools/draw_parity.py', '--verdict']\n"
+        "runpy.run_path('tools/draw_parity.py', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax', 'hpvpinns_tpu'))\n"
+        "print('VERDICT DONE', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "VERDICT DONE []" in proc.stdout, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("module", ["sharding", "distributed", "multihost_check"])
