@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
                            | --adaptive-only | --adaptive [studies] [burgers] [sweep]
                            | --advdiff-only | --advdiff-quality SEED... | --volumetric-only
-                           | --poisson3d-quality [SEED...] | --wide-only | --families-quality [SEED...]
+                           | --poisson3d-quality [SEED...] | --wide-only [CHECKOUT_CSRC]
+                           | --families-quality [SEED...]
                            | --gn-only | --precision [PRESET...] [SEED...] | --ns-only
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
                            | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
@@ -13,9 +14,9 @@
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
-(B1) and the backward kernels csrc/fused_fields_bwd.cu (B2's resident and
-wide forms, the block sum) and csrc/fused_fields_bwd_layered.cu (B2's
-layered form) with nvcc for sm_90a, and then, one line per phase:
+(B1) and the backward kernels csrc/fused_fields_bwd.cu (B2's resident
+form, the block sum) and csrc/fused_fields_bwd_layered.cu (B2's layered
+form) with nvcc for sm_90a, and then, one line per phase:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions
      and both TF32 flags;
@@ -112,8 +113,8 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      (fields rtol 2e-5, gradients through B2 at phase 7's tolerance), each
      kernel's device us beside its bound and the plain version's, B2 at
      (3,52,52,52,1) (the resident form) and at (3,56,56,56,1) and
-     (3,64,64,64,1) (the wide form: the resident form's shared memory is
-     above the card's limit) against its plain version; (b) one chunk
+     (3,64,64,64,1) (the layered form: the resident form's shared memory
+     is above the card's limit) against its plain version; (b) one chunk
      as graphs against the eager chunk bit for bit at form 0 "pallas" (B1,
      B2, block sum in the captured step), form 1 "pallas" and hard BC
      ("jvp"); (c) poisson3d_quality under "pallas" at its full schedule
@@ -127,32 +128,34 @@ layered form) with nvcc for sm_90a, and then, one line per phase:
      and (vx, vy), Adam 5k + L-BFGS 5k) under "pallas": eps's and |V|'s
      relative errors beside 0.13% / 0.17%, rel-L2 beside 2.9e-2; (d)
      AdvDiff2DConfig() as it stands and under "pallas", 3,000 Adam steps.
- 15. B2's wide and layered forms (phase15): (a) the wide form, forced,
-     against its plain version (WIDE_GRAD_TOL) at (2,128,128,128,1) and
+ 15. B2's layered form, every network above the resident form's limits
+     (phase15): (e) its replay alone at (2,128,128,128,1) and
      (2,256,256,256,1) at P 16,384, n_dirs 2, the JAX test's (2,256,1) and
      (1,200,40,1), and (3,56,56,56,1) and (3,64,64,64,1) at
-     poisson3d_quality's P 8,000, n_dirs 3; two runs bit-identical;
-     bwd_plan's scratch against the kernel's own count; its device us
-     beside its bound, the plain version's and the block sum's; (b) forced
-     at (2,20,20,20,1) and (3,48,48,48,1), bit for bit against the resident
-     form, both timed in turns; (e) the layered form's replay alone at (a)'s
-     shapes: the last hidden layer's stash through the last layer against
-     the plain fields (WIDE_FIELD_TOL), timed beside its share of the bound;
-     (f) the layered form whole at (a)'s and (b)'s shapes against its plain
-     version (WIDE_GRAD_TOL), and at (2,256,256,256,1), P 131,072 (its
-     scratch 4x the wide form's there), two runs bit-identical, its plan
-     against the kernel's scratch count, timed in turns with the wide form
-     beside its bound, the block sum on its partials, the plain version and
-     the "taylor" VJP (cuBLAS; a yardstick); (g) bwd_plan picks the layered
-     form at (a)'s shapes and P 131,072, each faster than the wide form in
-     (f); (h) the path that takes the wide form by default: fields_flat's
-     VJP through autograd at (4,128,128,1), n_dirs 3, P 8,000 (four inputs,
-     which the layered form does not take), counts zeroed just before, B1,
-     the wide B2 and the block sum launched, against the plain version; (d)
-     poisson2d_scaled var_form 0 with the (2,256,256,256,1) network: 50
-     steps through `train` under "pallas" (the loss must fall; B1, the
-     layered B2's kernels and the block sum nodes of the captured step, no
-     resident or wide B2), graph steps/s of "pallas" and "taylor" in turns.
+     poisson3d_quality's P 8,000, n_dirs 3: the last hidden layer's stash
+     through the last layer against the plain fields (WIDE_FIELD_TOL), timed
+     beside its share of the bound; (f) the form whole against its plain
+     version (WIDE_GRAD_TOL) at those six, at (2,256,256,256,1), P 131,072
+     (eight chunks of 16,384 points), forced at (2,20,20,20,1) and
+     (3,48,48,48,1), at the four-input (4,128,128,1) and (4,256,256,256,1)
+     (two chunks) and at (16,256,1), all n_dirs 3, and at (256,1) (no hidden
+     layer), two runs bit-identical, its plan against the kernel's scratch
+     count and within the cap, timed beside its bound, the block sum on its
+     partials, the plain version and the "taylor" VJP (cuBLAS; a
+     yardstick); (g) B2's forms are resident and layered, and bwd_plan
+     gives the layered form at every shape above the resident limits; (h)
+     fields_flat's VJP through autograd at (4,128,128,1), n_dirs 3, P 8,000,
+     counts zeroed just before: B1, the layered B2 and the block sum
+     launched, no other B2, against the plain version; (i) the cap at
+     (2,256,256,256,1), P 131,072: the chunked call and one chunk forced,
+     each one wrapper call's peak device memory, both against the plain
+     version, timed in turns; (j) with --wide-only CHECKOUT_CSRC (another
+     checkout's csrc/, from before the chunks) the layered form at one chunk
+     bit for bit against that checkout's at every shape of at most three
+     inputs; (d) poisson2d_scaled var_form 0 with the (2,256,256,256,1)
+     network: 50 steps through `train` under "pallas" (the loss must fall;
+     B1, the layered B2's kernels and the block sum nodes of the captured
+     step, no resident B2), graph steps/s of "pallas" and "taylor" in turns.
  16. Helmholtz-2D and Burgers (phase16): (a) loss and gradients, k^2's
      included, under "taylor", "pallas" and "jvp" at forms 0/1 of
      Helmholtz2DConfig(), its inverse and BurgersConfig(); (b) one chunk as
@@ -302,8 +305,8 @@ and prints no summary; with --poisson3d-quality [SEED...] phases 1 and 2,
 then phase 13 (c)'s poisson3d_quality under "pallas" and with hard BC
 ("jvp") at their full schedules, once for each seed given (default: the
 preset's).
-With --wide-only it runs phases 1, 2 and 15 (B2's wide and layered forms)
-and prints no summary; with
+With --wide-only [CHECKOUT_CSRC] it runs phases 1, 2 and 15 (B2's layered
+form; (j) with CHECKOUT_CSRC) and prints no summary; with
 --families-quality [SEED...] phases 1 and 2, then burgers_quality (hard BC
 on "jvp", Adam 10k + L-BFGS 20k; rel-L2 against its 1.3e-2 target and the
 JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
@@ -463,6 +466,27 @@ def device_us(fn) -> float | None:
     return total / TIMED_CALLS if total > 0 else None
 
 
+def kernel_us(fn) -> dict:
+    """Mean device µs per call of each kernel `fn` launches, by a short name
+    (the function's name and template arguments), from a torch.profiler
+    trace of TIMED_CALLS calls; empty when the profiler records none."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+)(<[^()]*>)?\(", e.key)
+            name = (m.group(1) + (m.group(2) or "")).replace(" ", "") if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / TIMED_CALLS
+    return out
+
+
 def graph_us(prepare) -> float:
     """µs per launch of TIMED_CALLS launches captured into one CUDA graph and
     replayed: the device's own rate, also where a launch from the host takes
@@ -545,12 +569,11 @@ def bound_ms(n_bytes: float, flops: float):
 KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nodes
     "fused_fields": ("fused_fields_kernel", "fused_fields_staged_kernel"),
     "fused_fields_bwd": ("fused_fields_bwd_kernel",),
-    "fused_fields_bwd_wide": ("fused_fields_bwd_wide_kernel",),
     "fused_fields_bwd_layered": ("bwd_layered_",),  # its seven kernels, one launch of the wrapper
     "block_sum": ("block_sum_kernel",),
 }
 SECOND_PATH = ("fused_fields", "fused_fields_bwd", "block_sum")  # second derivatives, B2's resident form
-B2_WRAPPER = {"resident": "fused_fields_bwd", "wide": "fused_fields_bwd_wide", "layered": "fused_fields_bwd_layered"}
+B2_WRAPPER = {"resident": "fused_fields_bwd", "layered": "fused_fields_bwd_layered"}
 LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered", "block_sum")  # second derivatives, B2's layered form
 GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
 
@@ -586,7 +609,6 @@ def wrappers() -> dict:
     from hpvpinns_tpu_torch.ops import fused_fields as ff
 
     return {"fused_fields": ff.fused_fields_kernel, "fused_fields_bwd": ff.fused_fields_bwd_kernel,
-            "fused_fields_bwd_wide": ff.fused_fields_bwd_wide_kernel,
             "fused_fields_bwd_layered": ff.fused_fields_bwd_layered_kernel, "block_sum": ff.block_sum_kernel}
 
 
@@ -1029,7 +1051,7 @@ def graph_against_eager(label: str, prob, c, need) -> dict:
     print(f"{label} {c.deriv_mode}: one chunk of {n} Adam steps as CUDA graphs against the eager chunk: params and "
           f"metrics " + ("bit-identical" if same else f"max rel diff {rel:.3e}") + f"; captured step "
           f"{step_nodes['nodes']} nodes, {step_nodes['kernels']} kernels (B1 {step_nodes['fused_fields']}, B2 "
-          f"{step_nodes['fused_fields_bwd']}, wide B2 {step_nodes['fused_fields_bwd_wide']}, layered B2 "
+          f"{step_nodes['fused_fields_bwd']}, layered B2 "
           f"{step_nodes['fused_fields_bwd_layered']}, block sum "
           f"{step_nodes['block_sum']}); metrics graph "
           f"{metric_nodes['nodes']} nodes (B1 {metric_nodes['fused_fields']})", flush=True)
@@ -1421,7 +1443,7 @@ JAX_P3D_QUALITY_REL_L2 = 1.34e-2
 JAX_P3D_QUALITY_HARDBC_REL_L2 = 8.6e-3
 JAX_ADVDIFF2D_JOINT = {"eps_rel": 1.3e-3, "velocity_rel": 1.7e-3, "rel_l2": 2.9e-2}
 # B2 at n_dirs 3 from width 56 (241,504 B of shared memory in the resident
-# form, above the opt-in limit): bwd_plan gives the wide form.
+# form, above the opt-in limit): bwd_plan gives the layered form.
 P3D_WIDE_B2 = ((3, 56, 56, 56, 1), (3, 64, 64, 64, 1))
 
 
@@ -1450,7 +1472,7 @@ def volumetric_kernels(dev):
     B2 + block sum for second derivatives) at phase 7's tolerance for the
     width; each kernel's device us per call against its bound and the plain
     version's; B2 at width 52 (the resident form) and at P3D_WIDE_B2 (the
-    wide form) against its plain version.  Returns {kernel: timings} for the
+    layered form) against its plain version.  Returns {kernel: timings} for the
     kernels line."""
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.models.mlp import MLP
@@ -1690,7 +1712,7 @@ def phase14(dev):
     return paths, nodes
 
 
-WIDE_B2_CASES = [  # phase 15: (name, layers, activation, P, n_dirs), each on B2's wide form
+WIDE_B2_CASES = [  # phase 15: (name, layers, activation, P, n_dirs) above the resident form's limits
     ("p2d_scaled 3 x 128", (2, 128, 128, 128, 1), "tanh", 16384, 2),
     ("p2d_scaled 3 x 256", (2, 256, 256, 256, 1), "tanh", 16384, 2),
     ("jax_one_layer", (2, 256, 1), "tanh", 1000, 2),  # tests/test_pallas_fields.py:131-151's shapes
@@ -1698,16 +1720,22 @@ WIDE_B2_CASES = [  # phase 15: (name, layers, activation, P, n_dirs), each on B2
     ("p3d_quality 3 x 56", (3, 56, 56, 56, 1), "tanh", 8000, 3),  # poisson3d_quality's points
     ("p3d_quality 3 x 64", (3, 64, 64, 64, 1), "tanh", 8000, 3),
 ]
-WIDE_FORCED_CASES = [  # phase 15: the wide form forced where the resident form runs
+LAYERED_FORCED_CASES = [  # phase 15: the layered form forced where the resident form runs
     ("p2d_scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2),
     ("p3d_quality", (3, 48, 48, 48, 1), "tanh", 8000, 3),
 ]
-# phase 15 (f), (g): the layered form at 8x p2d_scaled's points, where its
-# scratch (every point's stash) is 4x the wide form's
+# phase 15 (f), (i): the layered form at 8x p2d_scaled's points, in eight
+# chunks of 16,384 points (one chunk's stash would be 2.01 GB)
 LAYERED_LARGE_P_CASE = ("p2d_scaled 3 x 256 P 131072", (2, 256, 256, 256, 1), "tanh", 131072, 2)
-# phase 15 (h): a network bwd_plan gives the wide form by default: four inputs
-# (x, y, z, t), which the layered form does not take, wider than the resident form
-WIDE_PATH_CASE = ("fields_flat VJP (4, 128, 128, 1)", (4, 128, 128, 1), "tanh", 8000, 3)
+# phase 15 (f), (h), (j): networks of more than three inputs (x, y, z, t),
+# above the resident form's limits; the last in two chunks of 8,192 points
+MANY_INPUT_CASES = [
+    ("fields_flat VJP (4, 128, 128, 1)", (4, 128, 128, 1), "tanh", 8000, 3),
+    ("(16, 256, 1)", (16, 256, 1), "tanh", 8000, 3),
+    ("x y z t 3 x 256", (4, 256, 256, 256, 1), "tanh", 16384, 3),
+]
+# phase 15 (f): a network without a hidden layer, wider than the resident form
+NO_HIDDEN_CASE = ("(256, 1)", (256, 1), "tanh", 8000, 3)
 
 
 def b2_inputs(layers, act, P, nd, rng, dev):
@@ -1729,91 +1757,6 @@ def forced_b2(kernel, spec, net, X, g, nd):
 
     partials, gX = kernel(spec, net, X, g, nd)
     return unpack_params(spec, block_sum_kernel(partials)), gX
-
-
-def wide_b2_kernels(dev) -> dict:
-    """Phase 15 (a)-(c): B2's wide form against its plain version at
-    WIDE_B2_CASES (WIDE_GRAD_TOL; two runs bit-identical; bwd_plan's form and
-    scratch against the kernel's own count), then forced at
-    WIDE_FORCED_CASES against the resident form (it adds in the same order:
-    bit for bit), and its times: the C function alone by CUDA events over 50
-    launches, device us by torch.profiler, the block sum on its partials, the
-    plain version, and the bound.  Returns {case: numbers}."""
-    from hpvpinns_tpu_torch.ops.fused_fields import (
-        block_sum_kernel,
-        bwd_plan,
-        fields_flat_bwd_reference,
-        fused_fields_bwd_kernel,
-        fused_fields_bwd_wide_kernel,
-    )
-
-    rng = np.random.default_rng(15)
-    out = {}
-    for name, layers, act, P, nd in WIDE_B2_CASES:
-        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
-        plan = bwd_plan(layers, nd, P, form="wide")
-        c_scratch = fused_fields_bwd_wide_kernel.load().lib.hp_fused_fields_bwd_wide_scratch_bytes(
-            max(layers[:-1]), len(layers) - 1, nd, plan.n_blocks)
-        if plan.form != "wide" or c_scratch != plan.scratch_bytes:
-            fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
-        zero_counts()
-        got, got_x = forced_b2(fused_fields_bwd_wide_kernel, spec, net, X, g, nd)
-        again, again_x = forced_b2(fused_fields_bwd_wide_kernel, spec, net, X, g, nd)
-        counts = read_counts()
-        if counts["fused_fields_bwd_wide"] != 2 or counts["fused_fields_bwd"] != 0 or counts["block_sum"] != 2:
-            fail(f"{name}: host launches {counts}")
-        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
-        torch.cuda.synchronize()
-        err = check_close(f"{name} gX", got_x, want_x, **WIDE_GRAD_TOL)
-        same = torch.equal(got_x, again_x)
-        for l, (a, b, c) in enumerate(zip(got, want, again)):
-            for k in ("W", "b"):
-                err = max(err, check_close(f"{name} g{k}_{l}", a[k], b[k], **WIDE_GRAD_TOL))
-                same = same and torch.equal(a[k], c[k])
-        if not same:
-            fail(f"{name}: two runs of the wide B2 + block sum differ")
-        (args, *keep), partials, _ = fused_fields_bwd_wide_kernel.prepare(spec, net, X, g, nd)
-        c_fn = lambda: fused_fields_bwd_wide_kernel.launch(*args)  # noqa: E731
-        c_fn()
-        plain = lambda: fields_flat_bwd_reference(spec, net, X, g, nd)  # noqa: E731
-        sum_fn = lambda: block_sum_kernel(partials)  # noqa: E731
-        ev = [1e3 * cuda_ms(f) for f in (c_fn, c_fn)]
-        p_ms = cuda_ms(plain)
-        b2_dev, sum_dev, p_dev = device_us(c_fn), device_us(sum_fn), device_us(plain)
-        sum_us = 1e3 * cuda_ms(sum_fn)
-        bound, by = bound_ms(*bwd_work(layers, P, nd))
-        rows, cols = partials.shape
-        s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
-        out[name] = {"us": (ev[0] + ev[1]) / 2, "device_us": b2_dev, "plain_ms": p_ms, "plain_device_us": p_dev,
-                     "forced_launches": counts["fused_fields_bwd_wide"],
-                     "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us, "sum_device_us": sum_dev,
-                     "sum_bound_ms": s_bound, "partials": [rows, cols], "scratch_bytes": plan.scratch_bytes}
-        print(f"phase 15 (a) wide B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {plan.n_blocks} blocks x "
-              f"{plan.tiles_per_block} tiles, scratch {plan.scratch_bytes} B, partials [{rows}, {cols}]; max_abs_err "
-              f"{err:.3e} (rtol {WIDE_GRAD_TOL['rtol']} atol {WIDE_GRAD_TOL['atol']}), two runs bit-identical; C function "
-              f"us/launch (CUDA events, 50 launches) {ev[0]:.2f} {ev[1]:.2f}, device us (torch.profiler) "
-              + (f"{b2_dev:.2f}" if b2_dev else "not measured") + f"; bound {1e3 * bound:.3f} us ({by}); plain ms/call "
-              f"{p_ms:.4f}, device us " + (f"{p_dev:.2f}" if p_dev else "not measured") + f"; block sum us/call "
-              f"{sum_us:.2f}, device us " + (f"{sum_dev:.2f}" if sum_dev else "not measured")
-              + f", bound {1e3 * s_bound:.3f} us ({s_by})", flush=True)
-    for name, layers, act, P, nd in WIDE_FORCED_CASES:
-        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
-        res_p, res_x = fused_fields_bwd_kernel(spec, net, X, g, nd)
-        wide_p, wide_x = fused_fields_bwd_wide_kernel(spec, net, X, g, nd)
-        torch.cuda.synchronize()
-        if not (torch.equal(res_p, wide_p) and torch.equal(res_x, wide_x)):
-            d = max((res_p - wide_p).abs().max().item(), (res_x - wide_x).abs().max().item())
-            fail(f"{name}: the wide form forced at {layers} differs from the resident form (max abs diff {d:.3e})")
-        (ra, *rk), _, _ = fused_fields_bwd_kernel.prepare(spec, net, X, g, nd)
-        (wa, *wk), _, _ = fused_fields_bwd_wide_kernel.prepare(spec, net, X, g, nd)
-        res_fn = lambda: fused_fields_bwd_kernel.launch(*ra)  # noqa: E731
-        wide_fn = lambda: fused_fields_bwd_wide_kernel.launch(*wa)  # noqa: E731
-        ev = [1e3 * cuda_ms(f) for f in (res_fn, wide_fn, wide_fn, res_fn)]
-        out[f"forced {name}"] = {"resident_us": (ev[0] + ev[3]) / 2, "wide_us": (ev[1] + ev[2]) / 2}
-        print(f"phase 15 (b) the wide form forced at {name} {layers} P={P} n_dirs={nd}: partials and gX bit-identical "
-              f"to the resident form; C function us/launch in turns resident, wide, wide, resident {ev[0]:.2f} "
-              f"{ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f}", flush=True)
-    return out
 
 
 def stash_outputs(st: torch.Tensor, act: str, nd: int) -> torch.Tensor:
@@ -1848,7 +1791,7 @@ def layered_replay(dev) -> dict:
     over 50 launches beside its share of the bound.  Returns {case: numbers}."""
     from hpvpinns_tpu_torch.ops.fused_fields import (
         _ACTIVATION_CODE,
-        bwd_plan,
+        bwd_layered_scratch_bytes,
         fields_flat_reference,
         fused_fields_bwd_layered_kernel,
         pack_params,
@@ -1859,9 +1802,9 @@ def layered_replay(dev) -> dict:
     out = {}
     for name, layers, act, P, nd in WIDE_B2_CASES:
         spec, net, X, _ = b2_inputs(layers, act, P, nd, rng, dev)
-        plan = bwd_plan(layers, nd, P, form="layered")
         S, L, pitch = 1 + 2 * nd, len(layers) - 1, -(-max(layers[1:-1]) // 4) * 4
-        scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=dev)
+        # the replay alone is one chunk of all P points
+        scratch = torch.empty(bwd_layered_scratch_bytes(layers, nd, P) // 4, dtype=torch.float32, device=dev)
         packed, widths = pack_params(spec, net)
         args = (X.data_ptr(), packed.data_ptr(), widths.ctypes.data, L, P, nd, _ACTIVATION_CODE[act],
                 scratch.data_ptr(), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
@@ -1904,30 +1847,35 @@ def taylor_vjp_us(spec, net, X, g, nd) -> float:
 
 
 def layered_b2(dev) -> dict:
-    """Phase 15 (f): the layered form whole (its launches, then the block sum
-    on its partials) against the plain version at WIDE_GRAD_TOL at
-    WIDE_B2_CASES and, forced, at WIDE_FORCED_CASES; two runs bit-identical;
-    bwd_plan's scratch and partial rows against the kernel's; then the C
-    functions alone by CUDA events over 50 launches in turns v3, layered,
-    layered, v3, beside the bound, the block sum on its partials, the plain
-    version and the "taylor" VJP (taylor_vjp_us).  Returns {case: numbers}."""
+    """Phase 15 (f): the layered form whole (its launches over every chunk of
+    points, then the block sum on its partials) against the plain version at
+    WIDE_GRAD_TOL at WIDE_B2_CASES, LAYERED_LARGE_P_CASE, MANY_INPUT_CASES,
+    NO_HIDDEN_CASE and, forced, at LAYERED_FORCED_CASES; two runs
+    bit-identical; bwd_plan's scratch (within LAYERED_SCRATCH_CAP) and
+    partial rows against the kernel's; then the C function alone by CUDA
+    events over 50 launches, twice, beside the bound, the block sum on its
+    partials, the plain version and the "taylor" VJP (taylor_vjp_us).
+    Returns {case: numbers}."""
     from hpvpinns_tpu_torch.ops.fused_fields import (
+        LAYERED_SCRATCH_CAP,
         block_sum_kernel,
         bwd_plan,
         fields_flat_bwd_reference,
         fused_fields_bwd_layered_kernel,
-        fused_fields_bwd_wide_kernel,
     )
 
     lib = fused_fields_bwd_layered_kernel.load().lib
     rng = np.random.default_rng(152)
     out = {}
-    cases = WIDE_B2_CASES + [LAYERED_LARGE_P_CASE] + [(f"forced {c[0]}", *c[1:]) for c in WIDE_FORCED_CASES]
+    cases = (WIDE_B2_CASES + [LAYERED_LARGE_P_CASE] + [(f"forced {c[0]}", *c[1:]) for c in LAYERED_FORCED_CASES]
+             + MANY_INPUT_CASES + [NO_HIDDEN_CASE])
     for name, layers, act, P, nd in cases:
         spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
         plan = bwd_plan(layers, nd, P, form="layered")
-        c_scratch = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1]), len(layers) - 1, nd, P)
-        if c_scratch != plan.scratch_bytes or plan.n_blocks != -(-P // (16 * plan.tiles_per_block)):
+        c_scratch = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1], default=0), len(layers) - 1, nd,
+                                                                   plan.chunk_points)
+        if (c_scratch != plan.scratch_bytes or plan.scratch_bytes > LAYERED_SCRATCH_CAP
+                or plan.n_blocks != -(-plan.chunk_points // (16 * plan.tiles_per_block))):
             fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
         zero_counts()
         got, got_x = forced_b2(fused_fields_bwd_layered_kernel, spec, net, X, g, nd)
@@ -1946,12 +1894,10 @@ def layered_b2(dev) -> dict:
         if not same:
             fail(f"{name}: two runs of the layered B2 + block sum differ")
         (la, *lk), partials, _ = fused_fields_bwd_layered_kernel.prepare(spec, net, X, g, nd)
-        (wa, *wk), _, _ = fused_fields_bwd_wide_kernel.prepare(spec, net, X, g, nd)
         lay = lambda: fused_fields_bwd_layered_kernel.launch(*la)  # noqa: E731
-        v3 = lambda: fused_fields_bwd_wide_kernel.launch(*wa)  # noqa: E731
-        lay()
-        ev = [1e3 * cuda_ms(f) for f in (v3, lay, lay, v3)]
+        ev = [1e3 * cuda_ms(lay) for _ in range(2)]
         lay_dev = device_us(lay)
+        per_kernel = kernel_us(lay)
         sum_fn = lambda: block_sum_kernel(partials)  # noqa: E731
         sum_us, sum_dev = 1e3 * cuda_ms(sum_fn), device_us(sum_fn)
         p_ms = cuda_ms(lambda: fields_flat_bwd_reference(spec, net, X, g, nd))
@@ -1959,44 +1905,53 @@ def layered_b2(dev) -> dict:
         bound, by = bound_ms(*bwd_work(layers, P, nd))
         rows, cols = partials.shape
         s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
-        us, v3_us = (ev[1] + ev[2]) / 2, (ev[0] + ev[3]) / 2
-        out[name] = {"us": us, "v3_us": v3_us, "turns_us": ev, "device_us": lay_dev, "plain_ms": p_ms,
+        us = (ev[0] + ev[1]) / 2
+        chunks = -(-P // plan.chunk_points)
+        out[name] = {"us": us, "runs_us": ev, "device_us": lay_dev, "plain_ms": p_ms,
                      "taylor_vjp_us": t_us, "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us,
                      "sum_device_us": sum_dev, "sum_bound_ms": s_bound, "partials": [rows, cols],
-                     "scratch_bytes": plan.scratch_bytes, "layers": list(layers), "P": P, "n_dirs": nd}
-        print(f"phase 15 (f) layered B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {rows} slices of "
-              f"{16 * plan.tiles_per_block} points, scratch {plan.scratch_bytes} B, partials [{rows}, {cols}]; "
-              f"max_abs_err {err:.3e} (rtol {WIDE_GRAD_TOL['rtol']} atol {WIDE_GRAD_TOL['atol']}), two runs "
-              f"bit-identical; C functions us/launch (CUDA events, 50 launches) in turns v3, layered, layered, v3 "
-              f"{ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f} (layered / v3 {us / v3_us:.3f}); layered device us "
+                     "scratch_bytes": plan.scratch_bytes, "chunk_points": plan.chunk_points, "chunks": chunks,
+                     "kernels_device_us": per_kernel, "layers": list(layers), "P": P, "n_dirs": nd}
+        print(f"phase 15 (f) layered B2 {name}: layers {layers} {act} P={P} n_dirs={nd}, {chunks} chunk(s) of "
+              f"{plan.chunk_points} points, {rows} slices of {16 * plan.tiles_per_block} points, scratch "
+              f"{plan.scratch_bytes} B, partials [{rows}, {cols}]; max_abs_err {err:.3e} (rtol "
+              f"{WIDE_GRAD_TOL['rtol']} atol {WIDE_GRAD_TOL['atol']}), two runs bit-identical; C function us/launch "
+              f"(CUDA events, 50 launches) {ev[0]:.2f} {ev[1]:.2f}; device us "
               + (f"{lay_dev:.2f}" if lay_dev else "not measured") + f"; bound {1e3 * bound:.3f} us ({by}), "
               f"{1e3 * bound / us:.3f} of it; plain ms/call {p_ms:.4f}; taylor VJP us/call {t_us:.2f}; block sum "
               f"us/call {sum_us:.2f}, device us " + (f"{sum_dev:.2f}" if sum_dev else "not measured")
-              + f", bound {1e3 * s_bound:.3f} us ({s_by})", flush=True)
+              + f", bound {1e3 * s_bound:.3f} us ({s_by}); device us by kernel "
+              + (", ".join(f"{k} {v:.2f}" for k, v in per_kernel.items()) or "not measured"), flush=True)
     return out
 
 
-def plan_rule(lay: dict) -> None:
-    """Phase 15 (g): bwd_plan picks the layered form at every WIDE_B2_CASES
-    shape (the wide form's before) and at LAYERED_LARGE_P_CASE, and (f)
-    showed it faster than the wide form there, in turns within this call."""
-    from hpvpinns_tpu_torch.ops.fused_fields import bwd_plan
+def plan_rule() -> None:
+    """Phase 15 (g): B2 has two forms, resident and layered, and no other
+    wrapper; bwd_plan gives the layered form at every phase-15 shape above
+    the resident form's limits, and the resident form at the forced ones."""
+    from hpvpinns_tpu_torch.ops.fused_fields import _BWD_KERNELS, BWD_FORMS, bwd_plan
 
-    for name, layers, _, P, nd in WIDE_B2_CASES + [LAYERED_LARGE_P_CASE]:
-        form, r = bwd_plan(layers, nd, P).form, lay[name]
-        if form != "layered" or not r["us"] < r["v3_us"]:
-            fail(f"{name}: bwd_plan picks the {form} form; (f) layered {r['us']:.2f} us, wide {r['v3_us']:.2f} us")
-        print(f"phase 15 (g) {name}: bwd_plan picks the layered form; (f) layered {r['us']:.2f} us against the wide "
-              f"form's {r['v3_us']:.2f} ({r['us'] / r['v3_us']:.3f})", flush=True)
+    if BWD_FORMS != ("resident", "layered") or tuple(_BWD_KERNELS) != BWD_FORMS or tuple(B2_WRAPPER) != BWD_FORMS:
+        fail(f"B2's forms: {BWD_FORMS}, wrappers {list(_BWD_KERNELS)}")
+    if sorted(wrappers()) != sorted(["fused_fields", *B2_WRAPPER.values(), "block_sum"]):
+        fail(f"kernel wrappers: {sorted(wrappers())}")
+    above = WIDE_B2_CASES + [LAYERED_LARGE_P_CASE] + MANY_INPUT_CASES + [NO_HIDDEN_CASE]
+    forms = {name: bwd_plan(layers, nd, P).form for name, layers, _, P, nd in above + LAYERED_FORCED_CASES}
+    resident = {c[0] for c in LAYERED_FORCED_CASES}
+    wrong = {name: form for name, form in forms.items() if form != ("resident" if name in resident else "layered")}
+    if wrong:
+        fail(f"bwd_plan gives {wrong}")
+    print(f"phase 15 (g) B2's forms {BWD_FORMS}; bwd_plan's form at each shape: {forms}", flush=True)
 
 
-def wide_path(dev):
-    """Phase 15 (h): the wide form on the path that takes it by default, the
-    VJP of fields_flat (torch.autograd through B1 and B2) at WIDE_PATH_CASE.
-    Counts zeroed just before, read just after: B1, the wide B2 and the block
-    sum launch, no other form of B2.  The fields against the plain ones
-    (WIDE_FIELD_TOL), gX and the gradients against the plain version
-    (WIDE_GRAD_TOL).  Returns (host launches, max_abs_err)."""
+def layered_path(dev):
+    """Phase 15 (h): the layered form on the path that took the retired wide
+    form, the VJP of fields_flat (torch.autograd through B1 and B2) at a
+    four-input network (MANY_INPUT_CASES[0]).  Counts zeroed just before,
+    read just after: B1, the layered B2 and the block sum launch, no other
+    B2.  The fields against the plain ones (WIDE_FIELD_TOL), gX and the
+    gradients against the plain version (WIDE_GRAD_TOL).  Returns (host
+    launches, max_abs_err)."""
     from hpvpinns_tpu_torch.ops.fused_fields import (
         bwd_plan,
         fields_flat,
@@ -2004,10 +1959,10 @@ def wide_path(dev):
         fields_flat_reference,
     )
 
-    name, layers, act, P, nd = WIDE_PATH_CASE
+    name, layers, act, P, nd = MANY_INPUT_CASES[0]
     spec, net, X, g = b2_inputs(layers, act, P, nd, np.random.default_rng(153), dev)
     plan = bwd_plan(layers, nd, P)
-    if plan.form != "wide":
+    if plan.form != "layered":
         fail(f"{name}: bwd_plan gives the {plan.form} form")
     leaves = [t for layer in net for t in (layer["W"], layer["b"])]
     Xg = X.clone().requires_grad_(True)
@@ -2016,8 +1971,7 @@ def wide_path(dev):
     got_x, *got = torch.autograd.grad(fields, [Xg] + leaves, g)
     torch.cuda.synchronize()
     counts = read_counts()
-    if (min(counts[k] for k in ("fused_fields", "fused_fields_bwd_wide", "block_sum")) < 1
-            or counts["fused_fields_bwd"] or counts["fused_fields_bwd_layered"]):
+    if min(counts[k] for k in LAYERED_PATH) < 1 or counts["fused_fields_bwd"]:
         fail(f"{name}: host launches {counts}")
     with torch.no_grad():
         f_err = check_close(f"{name} fields", fields.detach(), fields_flat_reference(spec, net, X, nd, True),
@@ -2026,31 +1980,170 @@ def wide_path(dev):
     err = check_close(f"{name} gX", got_x, want_x, **WIDE_GRAD_TOL)
     for i, t in enumerate(got):
         err = max(err, check_close(f"{name} grad {i}", t, want[i // 2]["Wb"[i % 2]], **WIDE_GRAD_TOL))
-    print(f"phase 15 (h) {name} {act} P={P} n_dirs={nd}: bwd_plan gives the wide form ({plan.n_blocks} blocks, "
+    print(f"phase 15 (h) {name} {act} P={P} n_dirs={nd}: bwd_plan gives the layered form ({plan.n_blocks} slices, "
           f"scratch {plan.scratch_bytes} B); fields max_abs_err {f_err:.3e} (rtol {WIDE_FIELD_TOL['rtol']} atol "
           f"{WIDE_FIELD_TOL['atol']}), gX and gradients {err:.3e} (rtol {WIDE_GRAD_TOL['rtol']} atol "
           f"{WIDE_GRAD_TOL['atol']}); host launches {counts}", flush=True)
     return counts, err
 
 
-def phase15(dev):
-    """B2's wide and layered forms.  wide_b2_kernels ((a), (b)),
-    layered_replay (e), layered_b2 (f), plan_rule (g), wide_path (h); then (d)
-    poisson2d_scaled var_form 0 with the (2, 256, 256, 256, 1) network: 50
-    steps through `train` under "pallas" (the loss must fall; B1, the
-    layered B2 and the block sum launch and are nodes of the captured step,
-    the resident and wide forms are not), and graph steps/s of "pallas" and
-    "taylor" in turns.  Returns (timings, host launches by path, the captured
-    step's nodes by path)."""
+def layered_cap(dev) -> dict:
+    """Phase 15 (i): the layered form's cap on device memory at
+    LAYERED_LARGE_P_CASE: bwd_plan's chunks and scratch (at most
+    LAYERED_SCRATCH_CAP), and the device memory one wrapper call takes at its
+    peak (torch.cuda.max_memory_allocated after reset_peak_memory_stats, less
+    what was allocated before), chunked and with one chunk forced; both
+    against the plain version (WIDE_GRAD_TOL), the chunked call twice bit for
+    bit; the C functions by CUDA events over 50 launches in turns chunked,
+    one chunk, one chunk, chunked.  Returns the numbers."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        LAYERED_SCRATCH_CAP,
+        block_sum_kernel,
+        bwd_plan,
+        fields_flat_bwd_reference,
+        fused_fields_bwd_layered_kernel,
+        unpack_params,
+    )
+
+    name, layers, act, P, nd = LAYERED_LARGE_P_CASE
+    spec, net, X, g = b2_inputs(layers, act, P, nd, np.random.default_rng(154), dev)
+    want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd)
+    out, fns = {}, {}
+    for label, chunk in (("chunked", None), ("one chunk", P)):
+        plan = bwd_plan(layers, nd, P, form="layered", chunk_points=chunk)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        partials, gX = fused_fields_bwd_layered_kernel(spec, net, X, g, nd, chunk_points=chunk)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        got = unpack_params(spec, block_sum_kernel(partials))
+        err = check_close(f"{name} {label} gX", gX, want_x, **WIDE_GRAD_TOL)
+        for l, (a, b) in enumerate(zip(got, want)):
+            for k in ("W", "b"):
+                err = max(err, check_close(f"{name} {label} g{k}_{l}", a[k], b[k], **WIDE_GRAD_TOL))
+        again, again_x = fused_fields_bwd_layered_kernel(spec, net, X, g, nd, chunk_points=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(partials, again) and torch.equal(gX, again_x)):
+            fail(f"{name} {label}: two runs of the layered B2 differ")
+        (args, *keep), _, _ = fused_fields_bwd_layered_kernel.prepare(spec, net, X, g, nd, chunk_points=chunk)
+        fns[label] = (lambda a=args, k=keep: fused_fields_bwd_layered_kernel.launch(*a))
+        out[label] = {"chunk_points": plan.chunk_points, "chunks": -(-P // plan.chunk_points),
+                      "scratch_bytes": plan.scratch_bytes, "partials_bytes": partials.numel() * 4,
+                      "peak_bytes": peak, "max_abs_err": err}
+        del partials, gX, again, again_x
+    if out["chunked"]["scratch_bytes"] > LAYERED_SCRATCH_CAP or out["chunked"]["chunks"] < 2:
+        fail(f"{name}: the chunked plan {out['chunked']}")
+    ev = [1e3 * cuda_ms(fns[k]) for k in ("chunked", "one chunk", "one chunk", "chunked")]
+    out["chunked"]["us"], out["one chunk"]["us"] = (ev[0] + ev[3]) / 2, (ev[1] + ev[2]) / 2
+    out["turns_us"] = ev
+    out["bound_ms"], out["bound_by"] = bound_ms(*bwd_work(layers, P, nd))
+    for label in ("chunked", "one chunk"):
+        r = out[label]
+        print(f"phase 15 (i) {name} {label}: {r['chunks']} chunk(s) of {r['chunk_points']} points, scratch "
+              f"{r['scratch_bytes']} B (cap {LAYERED_SCRATCH_CAP}), partials {r['partials_bytes']} B; peak device "
+              f"memory of one wrapper call {r['peak_bytes']} B; max_abs_err {r['max_abs_err']:.3e}, two runs "
+              f"bit-identical", flush=True)
+    print(f"phase 15 (i) {name}: C function us/launch (CUDA events, 50 launches) in turns chunked, one chunk, one "
+          f"chunk, chunked {ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f} (chunked / one chunk "
+          f"{out['chunked']['us'] / out['one chunk']['us']:.3f}); bound {1e3 * out['bound_ms']:.3f} us "
+          f"({out['bound_by']})", flush=True)
+    return out
+
+
+def load_checkout_bwd(src_dir: str):
+    """Build B2's library from another checkout's csrc/ (`src_dir`: its
+    fused_fields_bwd.cu and fused_fields_bwd_layered.cu, whose layered C
+    function takes no chunk) under another name; return the library with
+    that function's argument types set."""
+    import ctypes
+    from pathlib import Path
+
+    from hpvpinns_tpu_torch.ops.cuda_build import build_library
+
+    lib = build_library("fused_fields_bwd_checkout", [Path(src_dir) / "fused_fields_bwd.cu",
+                                                      Path(src_dir) / "fused_fields_bwd_layered.cu"]).lib
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = lib.hp_fused_fields_bwd_layered_f32
+    fn.argtypes, fn.restype = [vp] * 4 + [i32] * 5 + [vp] * 3 + [i32, vp], i32
+    return lib
+
+
+def against_checkout(dev, src_dir: str) -> dict:
+    """Phase 15 (j), given another checkout's csrc/ (`src_dir`, built by
+    load_checkout_bwd; the one before the points were chunked): at every
+    phase-15 shape of at most three inputs (WIDE_B2_CASES,
+    LAYERED_FORCED_CASES, and LAYERED_LARGE_P_CASE with one chunk forced)
+    this layered form's partials and gX bit for bit against that
+    checkout's, and the two C functions by CUDA events over 50 launches in
+    turns checkout, this, this, checkout, with each one's device µs by
+    kernel.  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        _ACTIVATION_CODE,
+        bwd_layered_scratch_bytes,
+        bwd_plan,
+        fused_fields_bwd_layered_kernel,
+        pack_params,
+    )
+
+    lib = load_checkout_bwd(src_dir)
+    rng = np.random.default_rng(155)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for name, layers, act, P, nd in (WIDE_B2_CASES + [(f"forced {c[0]}", *c[1:]) for c in LAYERED_FORCED_CASES]
+                                     + [LAYERED_LARGE_P_CASE]):
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
+        partials, gX = fused_fields_bwd_layered_kernel(spec, net, X, g, nd, chunk_points=P)
+        plan = bwd_plan(layers, nd, P, form="layered", chunk_points=P)
+        packed, widths = pack_params(spec, net)
+        scratch = torch.empty(bwd_layered_scratch_bytes(layers, nd, P) // 4, dtype=torch.float32, device=dev)
+        other, other_x = torch.full_like(partials, float("nan")), torch.full_like(gX, float("nan"))
+        args = (X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P, nd,
+                _ACTIVATION_CODE[act], plan.tiles_per_block, scratch.data_ptr(), other.data_ptr(),
+                other_x.data_ptr(), dev.index or 0, stream)
+        code = lib.hp_fused_fields_bwd_layered_f32(*args)
+        torch.cuda.synchronize()
+        if code != 0 or not (torch.equal(partials, other) and torch.equal(gX, other_x)):
+            fail(f"{name}: the layered form differs from {src_dir}'s (CUDA error {code})")
+
+        def theirs(a=args):
+            if lib.hp_fused_fields_bwd_layered_f32(*a) != 0:
+                fail(f"{name}: {src_dir}'s layered form did not launch")
+
+        (la, *lk), _, _ = fused_fields_bwd_layered_kernel.prepare(spec, net, X, g, nd, chunk_points=P)
+        ours = lambda a=la: fused_fields_bwd_layered_kernel.launch(*a)  # noqa: E731
+        ev = [1e3 * cuda_ms(f) for f in (theirs, ours, ours, theirs)]
+        by_kernel = {"checkout": kernel_us(theirs), "this": kernel_us(ours)}
+        out[name] = {"turns_us": ev, "checkout_us": (ev[0] + ev[3]) / 2, "this_us": (ev[1] + ev[2]) / 2,
+                     "kernels_device_us": by_kernel}
+        print(f"phase 15 (j) {name}: partials and gX bit for bit against {src_dir}'s at one chunk; C functions "
+              f"us/launch (CUDA events, 50 launches) in turns checkout, this, this, checkout {ev[0]:.2f} {ev[1]:.2f} "
+              f"{ev[2]:.2f} {ev[3]:.2f} (this / checkout {(ev[1] + ev[2]) / (ev[0] + ev[3]):.4f}); device us by "
+              "kernel " + "; ".join(f"{who}: " + (", ".join(f"{k} {v:.2f}" for k, v in d.items()) or "not measured")
+                                    for who, d in by_kernel.items()), flush=True)
+        del scratch, partials, other, lk
+    return out
+
+
+def phase15(dev, checkout_src: str | None = None):
+    """B2's layered form.  layered_replay (e), layered_b2 (f), plan_rule (g),
+    layered_path (h), layered_cap (i), and with checkout_src (another
+    checkout's csrc/) against_checkout (j); then (d) poisson2d_scaled
+    var_form 0 with the (2, 256, 256, 256, 1) network: 50 steps through
+    `train` under "pallas" (the loss must fall; B1, the layered B2 and the
+    block sum launch and are nodes of the captured step, the resident form
+    is not), and graph steps/s of "pallas" and "taylor" in turns.  Returns
+    (timings, host launches by path, the captured step's nodes by path)."""
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.training.trainer import _build_chunk
 
     t0 = time.perf_counter()
-    times = wide_b2_kernels(dev)
-    times["layered replay"] = layered_replay(dev)
-    times["layered"] = layered_b2(dev)
-    plan_rule(times["layered"])
-    wide_counts, times["wide path"] = wide_path(dev)
+    times = {"layered replay": layered_replay(dev), "layered": layered_b2(dev)}
+    plan_rule()
+    path_counts, times["layered path"] = layered_path(dev)
+    times["cap"] = layered_cap(dev)
+    if checkout_src:
+        times["checkout"] = against_checkout(dev, checkout_src)
     label = "poisson2d_scaled var_form 0 3 x 256"
     c = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1), var_form=0)
     c = dataclasses.replace(c, train=dataclasses.replace(c.train, iterations=50, check_every=10, lbfgs_iterations=0,
@@ -2062,26 +2155,26 @@ def phase15(dev):
     hist = res.history["loss"]
     if not np.all(np.isfinite(hist)) or not hist[-1] < hist[0]:
         fail(f"{label}: the loss did not fall: {hist.tolist()}")
-    if min(counts[k] for k in LAYERED_PATH) < 1 or counts["fused_fields_bwd"] or counts["fused_fields_bwd_wide"]:
+    if min(counts[k] for k in LAYERED_PATH) < 1 or counts["fused_fields_bwd"]:
         fail(f"{label}: host launches {counts}")
     prm, opt = fresh_state(probs["pallas"], c)
     ch = _build_chunk(probs["pallas"].loss_fn, opt, prm, probs["pallas"].data, debug=True)
     gn = graph_nodes(ch.graphs[0], "phase15_pallas")
-    if min(gn[k] for k in LAYERED_PATH) < 1 or gn["fused_fields_bwd"] or gn["fused_fields_bwd_wide"]:
+    if min(gn[k] for k in LAYERED_PATH) < 1 or gn["fused_fields_bwd"]:
         fail(f"{label}: the captured step's kernels: {gn}")
     rates, prof = graph_rates(probs, c, steps=100, chunk=10)
     print(f"phase 15 (d) {label} pallas: 50 Adam steps through train, loss {hist[0]:.6e} -> {hist[-1]:.6e}, "
           f"{res.steps_per_sec:.1f} steps/s; host launches {counts}; captured step {gn['nodes']} nodes (B1 "
-          f"{gn['fused_fields']}, layered B2 {gn['fused_fields_bwd_layered']} (its kernels), wide B2 "
-          f"{gn['fused_fields_bwd_wide']}, block sum {gn['block_sum']})", flush=True)
+          f"{gn['fused_fields']}, layered B2 {gn['fused_fields_bwd_layered']} (its kernels), resident B2 "
+          f"{gn['fused_fields_bwd']}, block sum {gn['block_sum']})", flush=True)
     for m, r in rates.items():
         us, busy = prof[m]
         print(f"phase 15 (d) {label} {m}: graph steps/s {r[0]!r} {r[1]!r} (100 Adam steps a turn in chunks of 10, "
               f"turns pallas taylor taylor pallas); device us/step "
               + (f"{us!r}, busy {busy!r} in the profiler's window" if us else "not measured"), flush=True)
     times["train"] = {"steps_per_s": {m: r for m, r in rates.items()}, "device_us_per_step": {m: v[0] for m, v in prof.items()}}
-    print(f"phase 15 wide and layered B2: {time.perf_counter() - t0:.1f} s", flush=True)
-    return times, {label: counts, WIDE_PATH_CASE[0]: wide_counts}, {label: gn}
+    print(f"phase 15 layered B2: {time.perf_counter() - t0:.1f} s", flush=True)
+    return times, {label: counts, MANY_INPUT_CASES[0][0]: path_counts}, {label: gn}
 
 
 # The JAX package's rows for Helmholtz-2D and Burgers (benchmarks/ACCURACY.json;
@@ -3434,8 +3527,9 @@ def ensemble_wide_point(dev) -> dict:
 
 def block_sum_beside_torch(dev) -> dict:
     """Phase 20 (e): the block sum against `partials.sum(0)` at the two
-    large partial shapes of the 3 x 256 network (v3's 512 rows and the
-    layered form's 128 rows of 132,612 columns): device µs (torch.profiler)
+    large partial shapes of the 3 x 256 network (512 rows, as the retired
+    wide form wrote them, and the layered form's 128 rows of 132,612
+    columns): device µs (torch.profiler)
     and ms a call (CUDA events), the results within SUM_TOL of the largest
     column sum.  Returns
     {shape: {kernel: (device µs, ms)}}."""
@@ -4468,8 +4562,8 @@ def main() -> int:
         phase7(dev, sys.argv[2] if len(sys.argv) > 2 else None)
         return 0
 
-    if sys.argv[1:2] == ["--wide-only"]:  # for work on B2's wide form: phases 1, 2 and 15 only, no summary
-        phase15(dev)
+    if sys.argv[1:2] == ["--wide-only"]:  # for work on B2 above the resident form: phases 1, 2 and 15, no summary
+        phase15(dev, sys.argv[2] if len(sys.argv) > 2 else None)
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
@@ -4752,8 +4846,8 @@ def main() -> int:
     paths.update(a2_paths)
     nodes.update(a2_nodes)
 
-    # 15. B2's wide form: against its plain version and the resident form,
-    # then poisson2d_scaled var_form 0 with the 3 x 256 network
+    # 15. B2's layered form: against its plain version, its chunks under the
+    # cap, then poisson2d_scaled var_form 0 with the 3 x 256 network
     wide_times, w_paths, w_nodes = phase15(dev)
     paths.update(w_paths)
     nodes.update(w_nodes)
@@ -4824,19 +4918,6 @@ def main() -> int:
          "max_abs_err": bwd_err, "ms": ms7["b2"], "plain_ms": ms7["plain"], "bound_ms": b2_bound[0],
          "bound_by": b2_bound[1], "library_ms": None, "shape": "poisson2d_scaled second, P 16384",
          "device_us": dev7["b2"], "c_function_us": ev7["b2"]},
-        {"name": "fused_fields_bwd_wide", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
-         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
-         # launches from phase 15 (h)'s path, the one that takes it by default; phase 15 (a)'s
-         # forced checks apart
-         "launches": paths[WIDE_PATH_CASE[0]]["fused_fields_bwd_wide"],
-         "forced_check_launches": sum(wide_times[name]["forced_launches"] for name, *_ in WIDE_B2_CASES),
-         "max_abs_err": max([wide_times["wide path"]] + [wide_times[name]["max_abs_err"] for name, *_ in WIDE_B2_CASES]),
-         "ms": wide_times["p2d_scaled 3 x 256"]["us"] * 1e-3, "plain_ms": wide_times["p2d_scaled 3 x 256"]["plain_ms"],
-         "bound_ms": wide_times["p2d_scaled 3 x 256"]["bound_ms"], "bound_by": wide_times["p2d_scaled 3 x 256"]["bound_by"],
-         "library_ms": None, "shape": "(2, 256, 256, 256, 1) second, P 16384 (C function, CUDA events)",
-         "device_us": wide_times["p2d_scaled 3 x 256"]["device_us"],
-         "by_shape": {k: v for k, v in wide_times.items() if k not in ("train", "layered", "layered replay", "wide path")},
-         "train": wide_times["train"]},
         {"name": "fused_fields_bwd_layered", "route": "cuda",
          "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd_layered.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259",
@@ -4844,10 +4925,11 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in lay.values()), "ms": lay_main["us"] * 1e-3,
          "plain_ms": lay_main["plain_ms"], "bound_ms": lay_main["bound_ms"], "bound_by": lay_main["bound_by"],
          "library_ms": None, "shape": "(2, 256, 256, 256, 1) second, P 16384 (C function, CUDA events)",
-         "device_us": lay_main["device_us"], "v3_ms": lay_main["v3_us"] * 1e-3,
+         "device_us": lay_main["device_us"],
          "taylor_vjp_ms": lay_main["taylor_vjp_us"] * 1e-3, "block_sum_us": lay_main["sum_us"],
          "block_sum_bound_ms": lay_main["sum_bound_ms"], "partials": lay_main["partials"],
-         "replay": wide_times["layered replay"], "by_shape": lay},
+         "replay": wide_times["layered replay"], "by_shape": lay, "cap": wide_times["cap"],
+         "train": wide_times["train"]},
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": paths["poisson1d_quality pallas"]["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],

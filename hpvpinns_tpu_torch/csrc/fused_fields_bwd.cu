@@ -1,4 +1,8 @@
-// Backward of the fused MLP + derivative-field propagation (B2), fp32, sm_90a.
+// Backward of the fused MLP + derivative-field propagation (B2), fp32, sm_90a:
+// its resident form, for networks no wider than 64 whose shared memory fits
+// a block, and the block sum of B2's partial rows.  Every other network takes
+// the layered form, csrc/fused_fields_bwd_layered.cu (built into the same
+// library; ops/fused_fields.py::bwd_plan picks the form from the shapes).
 //
 // Replaces hpvpinns_tpu/ops/pallas_fields.py::_fields_bwd_kernel (launched by
 // _pallas_fields_bwd, the custom VJP of fields_flat for second=True).  Given
@@ -63,33 +67,6 @@
 // in a fixed order.  No float atomics: the same inputs give bit-identical
 // gradients on every run, on any card.
 //
-// The wide form (fused_fields_bwd_wide_kernel), for every network the
-// resident form cannot hold: a layer wider than 64, or shared memory above the
-// card's 227 KB opt-in (n_dirs 3 from width 55 with three hidden layers).  At
-// (2,256,256,256,1) the packed network alone is 532 KB, so nothing of the
-// resident layout fits on chip.
-// - Each block keeps its stash and its three stream buffers in a slot of a
-//   scratch tensor in device memory (allocated by the wrapper,
-//   [n_blocks][(L + 2) buffers][S][max width][16 points], point minor, so the
-//   16 lanes of one neuron read 64 consecutive bytes), and adds its gW/gb sums
-//   straight into its own row of partials, which it zeroes first; each entry
-//   has one owning thread.  Offsets into the scratch and partials are 64-bit.
-// - Replay and gh: a thread takes one point and 8 consecutive neurons (input
-//   rows for gh), a round of 128; W (W^T for gh) and the matching 64 rows of
-//   the input streams come through shared memory in chunks, so each loaded
-//   stream value feeds 8 FMAs and the weights 8 a 16-byte shared load.
-// - gW: bands of 64 x 64 entries; a band's rows of h and gz are copied into
-//   shared memory at the resident form's neuron stride (coalesced copies,
-//   conflict-free reads) and a thread owns a 4 x 4 tile of entries 16 apart.
-// - Order: every value is summed in the resident form's order (replay and gh
-//   from the first input row up, gW over streams then the 16 points of a
-//   tile, tiles in order, the same tiles per block from bwd_plan), and the
-//   per-point rules are the same functions, so the wide form forced at a
-//   width the resident form takes gives the same bits (chip_smoke.py phase
-//   15 holds it so).
-// It is a first, simple form: no wgmma, no TMA, no overlap of copies with
-// compute.
-//
 // Precision: IEEE fp32 throughout; build without --use_fast_math.
 
 #include <cuda_runtime.h>
@@ -99,17 +76,12 @@
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kMaxWidth = 256;         // the wide form (and B1)
+constexpr int kMaxWidth = 256;         // the library's limit (B1's; the layered form's)
 constexpr int kResidentMaxWidth = 64;  // the resident form
 constexpr int kBlockPoints = 16;
 constexpr int kPointStride = 20;
 constexpr int kThreads = 256;
 static_assert(kBlockPoints * 7 <= kThreads, "one thread per value of g in a tile");
-constexpr int kWideRows = 8;  // wide form: neurons (replay) or input rows (gh) per thread
-constexpr int kWideRound = (kThreads / kBlockPoints) * kWideRows;  // neurons (rows) a round: 128
-constexpr int kWideK = 64;                  // rows of W (replay) or columns (gh) per shared-memory chunk
-constexpr int kWidePitch = kWideRound + 4;  // a chunk's row pitch in shared memory (16-byte rows)
-constexpr int kWideBand = 64;               // gW: bands of 64 x 64 entries, a 4 x 4 tile a thread
 constexpr int kSumThreads = 256;    // block_sum_kernel: lanes x row groups
 constexpr int kMaxSumTiles = 4096;  // block_sum_kernel: column tiles with a ticket
 constexpr int kMaxDevices = 64;
@@ -467,362 +439,6 @@ fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G
   for (int i = tid; i < np; i += kThreads) part[i] = acc[i];
 }
 
-// ---------------------------------------------------------------------------
-// The wide form.  A stream buffer in a block's slot of device memory is
-// [S][max_w][kBlockPoints]: neuron j of stream s at wat(s, j, max_w), point p
-// adds p.  A thread of the point-parallel phases takes point tid % 16.
-
-__device__ __forceinline__ int wat(int s, int j, int max_w) { return (s * max_w + j) * kBlockPoints; }
-
-// Input streams of layer 0 (seed_inputs in the wide layout).
-template <int ND>
-__device__ void wide_seed(const float* __restrict__ X, int d, int p0, int P, int max_w, float* h, int tid) {
-  constexpr int S = 1 + 2 * ND;
-  for (int idx = tid; idx < S * d * kBlockPoints; idx += kThreads) {
-    const int p = idx % kBlockPoints;
-    const int i = (idx / kBlockPoints) % d;
-    const int s = idx / (kBlockPoints * d);
-    float v = 0.0f;
-    if (s == 0) {
-      const int gp = p0 + p;
-      v = gp < P ? X[(size_t)gp * d + i] : 0.0f;
-    } else if (s <= ND) {
-      v = (i == s - 1) ? 1.0f : 0.0f;
-    }
-    h[wat(s, i, max_w) + p] = v;
-  }
-}
-
-// Rows k0 .. k0 + kWideK - 1 of every stream of a stream buffer (zero past
-// n) into shared memory, [S][kWideK][kBlockPoints], 16 bytes a thread at a
-// time.
-template <int S>
-__device__ __forceinline__ void stage_rows(const float* buf, int k0, int n, int max_w, float* rows, int tid) {
-  for (int idx = tid; idx < S * kWideK * 4; idx += kThreads) {
-    const int e = 4 * (idx % 4);
-    const int kk = (idx / 4) % kWideK;
-    const int s = idx / (4 * kWideK);
-    *reinterpret_cast<float4*>(rows + (s * kWideK + kk) * kBlockPoints + e) =
-        k0 + kk < n ? *reinterpret_cast<const float4*>(buf + wat(s, k0 + kk, max_w) + e)
-                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-}
-
-// Forward replay of hidden layer (W [din, dout], b): z_s = h_s W (+ b on the
-// value stream), a round of kWideRound neurons at a time, a thread on one
-// point and kWideRows consecutive neurons.  W comes through shared memory in
-// chunks of kWideK rows (ws: [kWideK][kWidePitch]); each sum runs from i = 0
-// up, as replay_layer's.  Stashes (t or z, z_k, z_kk) and writes the output
-// streams.  Every thread takes part in every chunk's copy and barriers.
-template <int ND, int ACT>
-__device__ void wide_replay(const float* hin, const float* __restrict__ W, const float* __restrict__ b, int din,
-                            int dout, int max_w, float* st, float* hout, float* ws, int tid) {
-  constexpr int S = 1 + 2 * ND;
-  constexpr int R = kWideRows;
-  const int p = tid % kBlockPoints;
-  const int q = tid / kBlockPoints;
-  float* hs = ws + kWideK * kWidePitch;  // the chunk's input rows: [S][kWideK][kBlockPoints]
-  for (int jr = 0; jr < dout; jr += kWideRound) {
-    const int j0 = jr + q * R;
-    float acc[S][R];
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int c = 0; c < R; ++c) acc[s][c] = 0.0f;
-    for (int k0 = 0; k0 < din; k0 += kWideK) {
-      __syncthreads();  // the previous chunk's reads are done
-      for (int idx = tid; idx < kWideK * kWideRound; idx += kThreads) {
-        const int kk = idx / kWideRound;
-        const int c = idx % kWideRound;
-        ws[kk * kWidePitch + c] = k0 + kk < din && jr + c < dout ? W[(size_t)(k0 + kk) * dout + jr + c] : 0.0f;
-      }
-      stage_rows<S>(hin, k0, din, max_w, hs, tid);
-      __syncthreads();
-      if (j0 >= dout) continue;
-      const int kn = min(kWideK, din - k0);
-#pragma unroll 2
-      for (int kk = 0; kk < kn; ++kk) {
-        float w[R];
-        load_pts<4>(ws + kk * kWidePitch + q * R, *reinterpret_cast<float(*)[4]>(w));
-        load_pts<4>(ws + kk * kWidePitch + q * R + 4, *reinterpret_cast<float(*)[4]>(w + 4));
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float v = hs[(s * kWideK + kk) * kBlockPoints + p];
-#pragma unroll
-          for (int c = 0; c < R; ++c) acc[s][c] = fmaf(v, w[c], acc[s][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const int j = j0 + c;
-      if (j >= dout) break;
-      float v[S], h[S];
-      v[0] = stash_value<ACT>(acc[0][c] + b[j]);
-#pragma unroll
-      for (int s = 1; s < S; ++s) v[s] = acc[s][c];
-      outputs<ND, ACT>(v, h);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        st[wat(s, j, max_w) + p] = v[s];
-        hout[wat(s, j, max_w) + p] = h[s];
-      }
-    }
-  }
-}
-
-// gh_s = gz_s W^T, a round of kWideRound input rows at a time, a thread on
-// one point and kWideRows consecutive rows; W^T comes through shared memory
-// in chunks of kWideK columns (ws: [kWideK][kWidePitch]); each sum runs from
-// j = 0 up, as gh_layer's.
-template <int ND>
-__device__ void wide_gh(const float* gz, const float* __restrict__ W, int din, int dout, int max_w, float* gh,
-                        float* ws, int tid) {
-  constexpr int S = 1 + 2 * ND;
-  constexpr int R = kWideRows;
-  const int p = tid % kBlockPoints;
-  const int q = tid / kBlockPoints;
-  float* hs = ws + kWideK * kWidePitch;  // the chunk's rows of gz: [S][kWideK][kBlockPoints]
-  for (int ir = 0; ir < din; ir += kWideRound) {
-    const int i0 = ir + q * R;
-    float acc[S][R];
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int c = 0; c < R; ++c) acc[s][c] = 0.0f;
-    for (int k0 = 0; k0 < dout; k0 += kWideK) {
-      __syncthreads();  // the previous chunk's reads are done
-      for (int idx = tid; idx < kWideK * kWideRound; idx += kThreads) {
-        const int c = idx / kWideK;
-        const int kk = idx % kWideK;
-        ws[kk * kWidePitch + c] = ir + c < din && k0 + kk < dout ? W[(size_t)(ir + c) * dout + k0 + kk] : 0.0f;
-      }
-      stage_rows<S>(gz, k0, dout, max_w, hs, tid);
-      __syncthreads();
-      if (i0 >= din) continue;
-      const int kn = min(kWideK, dout - k0);
-#pragma unroll 2
-      for (int kk = 0; kk < kn; ++kk) {
-        float w[R];
-        load_pts<4>(ws + kk * kWidePitch + q * R, *reinterpret_cast<float(*)[4]>(w));
-        load_pts<4>(ws + kk * kWidePitch + q * R + 4, *reinterpret_cast<float(*)[4]>(w + 4));
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float v = hs[(s * kWideK + kk) * kBlockPoints + p];
-#pragma unroll
-          for (int c = 0; c < R; ++c) acc[s][c] = fmaf(v, w[c], acc[s][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      if (i0 + c >= din) break;
-#pragma unroll
-      for (int s = 0; s < S; ++s) gh[wat(s, i0 + c, max_w) + p] = acc[s][c];
-    }
-  }
-}
-
-// gz of hidden layer (output width `width`) from gh and its stash, one
-// (neuron, point) a thread a round.
-template <int ND, int ACT>
-__device__ void wide_gz(const float* st, const float* gh, int width, int max_w, float* gz, int tid) {
-  constexpr int S = 1 + 2 * ND;
-  for (int idx = tid; idx < width * kBlockPoints; idx += kThreads) {
-    const int j = idx / kBlockPoints;
-    const int p = idx % kBlockPoints;
-    float v[S], g[S], out[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      v[s] = st[wat(s, j, max_w) + p];
-      g[s] = gh[wat(s, j, max_w) + p];
-    }
-    gz_point<ND, ACT>(v, g, out);
-#pragma unroll
-    for (int s = 0; s < S; ++s) gz[wat(s, j, max_w) + p] = out[s];
-  }
-}
-
-// A hidden layer's output streams, recomputed from its stash.
-template <int ND, int ACT>
-__device__ void wide_activate(const float* st, int width, int max_w, float* h, int tid) {
-  constexpr int S = 1 + 2 * ND;
-  for (int idx = tid; idx < width * kBlockPoints; idx += kThreads) {
-    const int j = idx / kBlockPoints;
-    const int p = idx % kBlockPoints;
-    float v[S], out[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) v[s] = st[wat(s, j, max_w) + p];
-    outputs<ND, ACT>(v, out);
-#pragma unroll
-    for (int s = 0; s < S; ++s) h[wat(s, j, max_w) + p] = out[s];
-  }
-}
-
-// gW of one layer added to out (row-major [din, dout]): out[i, j] +=
-// sum_{s < s_in} sum_p h_s[i, p] gz_s[j, p], in bands of kWideBand x
-// kWideBand entries.  A band's rows of h and gz (every stream, the 16
-// points) are copied into shared memory at the resident form's neuron stride
-// kPointStride (conflict-free 16-byte reads, rows past the edge zero); thread
-// (tr, tc) owns entries (tr + 16a, tc + 16b), a, b < 4, each summed over s,
-// then p, in order (as gw_tiles sums it) and added to out by that thread
-// alone.
-template <int S>
-__device__ void wide_gw(const float* h, const float* gz, int din, int dout, int s_in, int max_w, float* out,
-                        float* sm, int tid) {
-  constexpr int B = kWideBand;
-  constexpr int T = B / 16;  // a thread's tile: T x T entries, 16 apart
-  float* hs = sm;                                  // [s_in][B][kPointStride]
-  float* gs = sm + S * B * kPointStride;           // [s_in][B][kPointStride]
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i0 = 0; i0 < din; i0 += B) {
-    for (int j0 = 0; j0 < dout; j0 += B) {
-      __syncthreads();  // the previous band's (or phase's) reads are done
-      for (int idx = tid; idx < s_in * B * 4; idx += kThreads) {
-        const int e = 4 * (idx % 4);
-        const int r = (idx / 4) % B;
-        const int s = idx / (4 * B);
-        const float4 hv = i0 + r < din ? *reinterpret_cast<const float4*>(h + wat(s, i0 + r, max_w) + e) : zero;
-        const float4 gv = j0 + r < dout ? *reinterpret_cast<const float4*>(gz + wat(s, j0 + r, max_w) + e) : zero;
-        *reinterpret_cast<float4*>(hs + (s * B + r) * kPointStride + e) = hv;
-        *reinterpret_cast<float4*>(gs + (s * B + r) * kPointStride + e) = gv;
-      }
-      __syncthreads();
-      float a[T][T];
-#pragma unroll
-      for (int x = 0; x < T; ++x)
-#pragma unroll
-        for (int y = 0; y < T; ++y) a[x][y] = 0.0f;
-      for (int s = 0; s < s_in; ++s) {
-#pragma unroll
-        for (int p = 0; p < kBlockPoints; p += 4) {
-          float hv[T][4], gv[T][4];
-#pragma unroll
-          for (int x = 0; x < T; ++x) {
-            load_pts<4>(hs + (s * B + tr + 16 * x) * kPointStride + p, hv[x]);
-            load_pts<4>(gs + (s * B + tc + 16 * x) * kPointStride + p, gv[x]);
-          }
-#pragma unroll
-          for (int x = 0; x < T; ++x)
-#pragma unroll
-            for (int y = 0; y < T; ++y)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) a[x][y] = fmaf(hv[x][e], gv[y][e], a[x][y]);
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < T; ++x)
-#pragma unroll
-        for (int y = 0; y < T; ++y) {
-          const int i = i0 + tr + 16 * x;
-          const int jj = j0 + tc + 16 * y;
-          if (i < din && jj < dout) out[(size_t)i * dout + jj] += a[x][y];
-        }
-    }
-  }
-}
-
-// Dynamic shared memory of one wide block (bytes): a W chunk of the replay
-// or gh with its rows of the input streams, or a gW band of h and gz rows,
-// whichever is larger.
-__host__ __device__ constexpr size_t wide_smem_bytes(int S) {
-  return sizeof(float) * (kWideK * (kWidePitch + S * kBlockPoints) > 2 * S * kWideBand * kPointStride
-                              ? kWideK * (kWidePitch + S * kBlockPoints)
-                              : 2 * S * kWideBand * kPointStride);
-}
-
-// scratch: [gridDim.x][L + 2][S][max_w][kBlockPoints] floats (the stash of
-// the L - 1 hidden layers, then hin, hout and gh); partials: one row of
-// padded(n_params) floats per block, zeroed here; dynamic shared memory
-// wide_smem_bytes(S).  The phases and their barriers are
-// fused_fields_bwd_kernel's.
-template <int ND, int ACT>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_fields_bwd_wide_kernel(const float* __restrict__ X, const float* __restrict__ G,
-                             const float* __restrict__ params, const Widths wd, const int n_params,
-                             const int max_w, const int P, const int tiles, float* scratch,
-                             float* __restrict__ partials, float* __restrict__ gX) {
-  constexpr int S = 1 + 2 * ND;
-  const int L = wd.n_layers;
-  const int np = padded(n_params);
-  const size_t buf = (size_t)S * max_w * kBlockPoints;
-  float* stash = scratch + (size_t)blockIdx.x * (L + 2) * buf;
-  float* hin = stash + (L - 1) * buf;
-  float* hout = hin + buf;
-  float* gh = hout + buf;
-  float* acc = partials + (size_t)blockIdx.x * np;  // this block's gW, gb sums, packed as params
-  extern __shared__ __align__(16) float smem[];     // W chunks (replay, gh), gW bands
-
-  const int tid = threadIdx.x;
-  const int d = wd.w[0];
-  for (int i = tid; i < np; i += kThreads) acc[i] = 0.0f;
-
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int p0 = (blockIdx.x * tiles + tile) * kBlockPoints;
-    if (p0 >= P) break;
-    __syncthreads();  // the zeroed row, and the previous tile's last reads of hin and gz, are done
-    wide_seed<ND>(X, d, p0, P, max_w, hin, tid);
-    __syncthreads();
-
-    const float* Wl = params;
-    for (int l = 0; l < L - 1; ++l) {
-      const int din = wd.w[l];
-      const int dout = wd.w[l + 1];
-      const float* bl = Wl + din * dout;
-      wide_replay<ND, ACT>(hin, Wl, bl, din, dout, max_w, stash + l * buf, hout, smem, tid);
-      __syncthreads();
-      float* t = hin;
-      hin = hout;
-      hout = t;
-      Wl = bl + dout;
-    }
-
-    float* gz = hout;
-    if (tid < kBlockPoints * S) {
-      const int gp = p0 + tid / S;
-      gz[wat(tid % S, 0, max_w) + tid / S] = gp < P ? G[(size_t)p0 * S + tid] : 0.0f;
-    }
-    __syncthreads();
-
-    int off = n_params - (wd.w[L - 1] + 1);  // packed offset of W_{L-1}
-    for (int l = L - 1; l >= 0; --l) {
-      const int din = wd.w[l];
-      const int dout = wd.w[l + 1];
-      const float* W = params + off;
-      wide_gw<S>(hin, gz, din, dout, l == 0 ? 1 + ND : S, max_w, acc + off, smem, tid);
-      for (int j = tid; j < dout; j += kThreads) {
-        const float* gs = gz + wat(0, j, max_w);
-        float sum = 0.0f;
-#pragma unroll
-        for (int p = 0; p < kBlockPoints; ++p) sum += gs[p];
-        acc[off + din * dout + j] += sum;
-      }
-      if (l == 0) {
-        const int p = tid % kBlockPoints;
-        if (gX != nullptr && p0 + p < P) {
-          for (int i = tid / kBlockPoints; i < din; i += kThreads / kBlockPoints) {
-            float sum = 0.0f;
-            for (int j = 0; j < dout; ++j) sum = fmaf(gz[wat(0, j, max_w) + p], W[(size_t)i * dout + j], sum);
-            gX[(size_t)(p0 + p) * d + i] = sum;
-          }
-        }
-        break;
-      }
-      wide_gh<ND>(gz, W, din, dout, max_w, gh, smem, tid);
-      __syncthreads();
-      wide_gz<ND, ACT>(stash + (size_t)(l - 1) * buf, gh, din, max_w, gz, tid);
-      if (l == 1)
-        wide_seed<ND>(X, d, p0, P, max_w, hin, tid);
-      else
-        wide_activate<ND, ACT>(stash + (size_t)(l - 2) * buf, wd.w[l - 1], max_w, hin, tid);
-      __syncthreads();
-      off -= wd.w[l - 1] * din + din;
-    }
-  }
-}
-
 // out[k] = sum_b partials[b, k], b in a fixed order, in one launch.  A lane
 // takes four consecutive columns: one 16-byte load a row where rows are
 // 16-byte aligned (ALIGNED), else four 4-byte loads through the read-only
@@ -980,42 +596,18 @@ cudaError_t launch_act(int act, const BwdArgs& a) {
   return act == 0 ? launch_minb<ND, 0>(a) : launch_minb<ND, 1>(a);
 }
 
-template <int ND, int ACT>
-cudaError_t launch_wide(const BwdArgs& a, float* scratch) {
-  // The shared memory is a function of ND alone: opt in once per device.
-  static bool allowed[kMaxDevices] = {};
-  auto kernel = fused_fields_bwd_wide_kernel<ND, ACT>;
-  const size_t smem = wide_smem_bytes(1 + 2 * ND);
-  const bool known = a.device >= 0 && a.device < kMaxDevices;
-  if (!known || !allowed[a.device]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    if (known) allowed[a.device] = true;
-  }
-  const int n_tiles = (a.P + kBlockPoints - 1) / kBlockPoints;
-  const dim3 grid((n_tiles + a.tiles - 1) / a.tiles);
-  kernel<<<grid, dim3(kThreads), smem, a.stream>>>(
-      a.X, a.G, a.params, a.wd, a.n_params, a.max_w, a.P, a.tiles, scratch, a.partials, a.gX);
-  return cudaGetLastError();
-}
-
-template <int ND>
-cudaError_t launch_wide_act(int act, const BwdArgs& a, float* scratch) {
-  return act == 0 ? launch_wide<ND, 0>(a, scratch) : launch_wide<ND, 1>(a, scratch);
-}
-
-// The arguments both forms check, into a (widths up to max_width); else an
+// The arguments, checked, into a (widths up to kResidentMaxWidth); else an
 // error code.
 cudaError_t bwd_args(const float* X, const float* G, const float* params, const int* widths, int n_layers, int P,
                      int n_dirs, int activation, int tiles, float* partials, float* gX, int device, void* stream,
-                     int max_width, BwdArgs& a) {
+                     BwdArgs& a) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
       activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0])
     return cudaErrorInvalidValue;
   a = BwdArgs{X, G, params, Widths{}, 0, 0, P, tiles, partials, gX, 0, device, static_cast<cudaStream_t>(stream)};
   a.wd.n_layers = n_layers;
   for (int l = 0; l <= n_layers; ++l) {
-    if (widths[l] < 1 || widths[l] > max_width) return cudaErrorInvalidValue;
+    if (widths[l] < 1 || widths[l] > kResidentMaxWidth) return cudaErrorInvalidValue;
     a.wd.w[l] = widths[l];
     if (l < n_layers) {
       a.n_params += widths[l] * widths[l + 1] + widths[l + 1];
@@ -1068,41 +660,13 @@ int hp_fused_fields_bwd_f32(const float* X, const float* G, const float* params,
                             int tiles, float* partials, float* gX, int device, void* stream) {
   BwdArgs a;
   cudaError_t err = bwd_args(X, G, params, widths, n_layers, P, n_dirs, activation, tiles, partials, gX, device,
-                             stream, kResidentMaxWidth, a);
+                             stream, a);
   if (err != cudaSuccess) return (int)err;
   a.smem = (size_t)hp_fused_fields_bwd_smem_bytes(a.n_params, a.max_w, n_layers, n_dirs);
   switch (n_dirs) {
     case 1: return (int)launch_act<1>(activation, a);
     case 2: return (int)launch_act<2>(activation, a);
     default: return (int)launch_act<3>(activation, a);
-  }
-}
-
-// Device memory (bytes) of the wide form's scratch for n_blocks blocks: per
-// block the stash of the n_layers - 1 hidden layers and three stream buffers,
-// each (1 + 2 n_dirs) x max_w x 16 floats.  ops/fused_fields.py::
-// bwd_wide_scratch_bytes repeats it.
-long long hp_fused_fields_bwd_wide_scratch_bytes(int max_w, int n_layers, int n_dirs, int n_blocks) {
-  return (long long)sizeof(float) * n_blocks * (n_layers + 2LL) * (1 + 2 * n_dirs) * max_w * kBlockPoints;
-}
-
-// The wide form: the arguments and partials of hp_fused_fields_bwd_f32
-// (widths up to kMaxWidth), and scratch, hp_fused_fields_bwd_wide_scratch_bytes
-// (max width, n_layers, n_dirs, blocks) of device memory, 16-byte aligned.
-// Writes every row of partials (it needs no zeroing).  Launches on `stream`,
-// does not synchronise, returns cudaGetLastError().
-int hp_fused_fields_bwd_wide_f32(const float* X, const float* G, const float* params, const int* widths,
-                                 int n_layers, int P, int n_dirs, int activation, int tiles, float* scratch,
-                                 float* partials, float* gX, int device, void* stream) {
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  BwdArgs a;
-  cudaError_t err = bwd_args(X, G, params, widths, n_layers, P, n_dirs, activation, tiles, partials, gX, device,
-                             stream, kMaxWidth, a);
-  if (err != cudaSuccess) return (int)err;
-  switch (n_dirs) {
-    case 1: return (int)launch_wide_act<1>(activation, a, scratch);
-    case 2: return (int)launch_wide_act<2>(activation, a, scratch);
-    default: return (int)launch_wide_act<3>(activation, a, scratch);
   }
 }
 

@@ -1,17 +1,17 @@
 // B2's layered form: the second-derivative backward as per-layer fp32 GEMMs
 // over many points, the per-point rules in their epilogues (sm_90a).  Built
-// into the fused_fields_bwd library beside the resident and wide forms of
+// into the fused_fields_bwd library beside the resident form of
 // csrc/fused_fields_bwd.cu, whose per-point rules it shares
-// (csrc/fused_fields_bwd_rules.cuh).
+// (csrc/fused_fields_bwd_rules.cuh), and whose block sum adds its partials.
 //
 // Replaces hpvpinns_tpu/ops/pallas_fields.py::_fields_bwd_kernel (:259-381,
 // launched by _pallas_fields_bwd :385-448), the VJP of fields_flat for
 // second=True: from the cotangent g [P, S] of every field column (S = 1 +
 // 2 n_dirs: u, u_k, u_kk) it gives gW, gb of every layer and gX.  The TPU
 // kernel walks tiles of points through every layer at once; here each layer
-// is one launch over all points:
+// is one launch over a chunk of points:
 //   seed     stash_0 from X (layer 0: z = x W + b, z_k = W[k], z_kk = 0)
-//   replay   Z_s = H_s W_l over all points, H = outputs(stash_{l-1}) built as
+//   replay   Z_s = H_s W_l over the chunk, H = outputs(stash_{l-1}) built as
 //            the A tile is loaded; epilogue: + b and stash_value on the value
 //            stream; writes stash_l (t or z, z_k, z_kk)
 //   head     the linear last layer: gh_s = g_s W_last and gz_point with the
@@ -19,9 +19,10 @@
 //            split over the point slices
 //   gw       gW_l = sum_s H_s^T GZ_s, split-K over the point slices, and gb_l
 //            (the value stream's column sums) in the same launch
-//   gh       GH_s = GZ_s W_l^T over all points; epilogue: gz_point with the
+//   gh       GH_s = GZ_s W_l^T over the chunk; epilogue: gz_point with the
 //            stash of the layer below, written in place over that stash
-//   input    gW_0, gb_0 from X, the e_k seeds and gz_0, split over the slices
+//   input    gW_0, gb_0 from X, the e_k seeds and gz_0, split over the slices,
+//            a group of up to 8 inputs a block (any input count)
 //   gx       gX = gz_0 W_0^T on the value stream
 // in that order on one stream (gw_l before gh_l, which overwrites the stash
 // gw_l reads).  Each slice of slice_points consecutive points writes one row
@@ -29,10 +30,23 @@
 // zero); block_sum_kernel (fused_fields_bwd.cu) adds the rows in a fixed
 // order.  No float atomics, and the plan (ops/fused_fields.py::bwd_plan) comes
 // from the shapes alone: two runs give the same bits on any card.  The form is
-// not bit-identical to the resident and wide forms (another order of sums).
-// bwd_plan takes it above the resident form's limits for a network with a
-// hidden layer and at most three inputs; the wide form keeps the rest.  Its
-// times on the card, beside the wide form's, are in PERF.md §6.
+// not bit-identical to the resident form (another order of sums).  bwd_plan
+// takes it for every network above the resident form's limits; its times on
+// the card are in PERF.md §6.
+//
+// Up to three inputs (x, y, z) every entry of gW_0, gb_0 and gX is summed
+// over the same points, in the same lanes and trees, as before the form took
+// any input count, so its partials and gX keep their bits there; above
+// three, input takes 8 inputs a block.
+//
+// A network without a hidden layer, (d, 1) with d above the resident form's
+// width: u = x W + b, u_k = W[k], u_kk = 0, so gW[i] = sum_p x_i g_0 + (i <
+// n_dirs) sum_p g_{1+i}, gb = sum_p g_0 and gX = g_0 W^T.  That is the input
+// and gx launches with g itself as gz_0 (its rows S floats apart, its seed
+// streams one float apart), and nothing else: no stash, no scratch.  The
+// resident form was the other way (it is linear there too), but its shared
+// memory grows with the input width (432 KB at (256, 1), n_dirs 3), and the
+// resident kernel stays as it is.
 //
 // What bounds it at (2,256,256,256,1), P 16,384, n_dirs 2 (S = 5): 1,973,248
 // multiply-adds a point, 64.66 GFLOP, about a third each in the replay, gW and
@@ -41,36 +55,47 @@
 // they bring from device memory (A tiles are reused by every neuron tile), so
 // they are bound by operations, not by the 3.35 TB/s of HBM.
 //
-// What its tiling does about what held the wide form (v3) back:
+// What its tiling does about what held back the form it retired (the wide
+// form: one kernel walking tiles of 16 points, each block's stash in device
+// memory):
 // - Tiles of 16 points, W re-read P/16 times: a replay or gh block tile is 64
 //   points x 64 neurons x all S streams, and gW's is 128 x 128 entries over a
 //   slice of points, so each W value in shared memory feeds 64 S FMAs.
 // - Few FMAs per shared load: a thread holds acc[S][4 points][4 neurons] (gW:
 //   8 x 8 entries); per k step one 16-byte load of W and S of the streams feed
 //   16 S FMAs (gW: four loads, 64 FMAs).
-// - A barrier every chunk, no overlap: chunks of 8 k (gW: 2 points x S, 4 at
-//   S = 3) are double-buffered in shared memory, the next chunk's cp.async
-//   copies in flight during this chunk's FMAs, one barrier a chunk.  The A
-//   operand (H from the stash) lands in a staging buffer and each thread
-//   applies outputs() to its own words on their way to the chunk's buffer,
-//   so no prefetch registers are held: two blocks an SM at S <= 5.
+// - A barrier every chunk of k, no overlap: chunks of 8 k (gW: 2 points x S,
+//   4 at S = 3) are double-buffered in shared memory, the next chunk's
+//   cp.async copies in flight during this chunk's FMAs, one barrier a chunk.
+//   The A operand (H from the stash) lands in a staging buffer and each
+//   thread applies outputs() to its own words on their way to the chunk's
+//   buffer, so no prefetch registers are held: two blocks an SM at S <= 5.
 // - Small gW bands with short sums: each gW block sums slice_points x S
 //   terms into 64 registers a thread and writes its entries once.
-// - Large partials: one row per slice, about 128 rows at P 16,384 (v3: 512),
-//   so the block sum reads 68 MB there instead of 272 MB.
+// - Large partials: one row per slice, at most 128 rows (68 MB at 3 x 256).
 // - Spills and occupancy: 256 threads, two blocks an SM (one at S = 7) and
 //   no spill stores in the GEMMs and gW (ptxas's report, chip_smoke.py phase
 //   2).  Chunks of 16 k with dynamic shared memory were 1% faster at 3 x 256
 //   and 2% slower at n_dirs 3; copies spread evenly over all 256 threads were
 //   4% slower in the GEMMs (5% faster in gW, which keeps them).
 //
-// Bytes and chunking: the scratch holds the stash of every hidden layer,
-// (n_layers - 1) x S x P x pitch floats, pitch = the widest hidden layer
-// rounded up to 4 (251,658,240 B at 3 x 256, P 16,384, the wide form's size);
-// gz replaces the stash in place on the way down, so nothing else is stored.
-// Every stash is written once and read by the next replay, by gw and by gh;
-// a layer's 84 MB stash does not fit the 50 MB L2, and the points are not
-// chunked: the GEMMs' FMAs, not their reads, set the time.
+// Bytes and chunks of points: the scratch holds the stash of every hidden
+// layer for one chunk of chunk_points consecutive points, (n_layers - 1) x S
+// x chunk_points x pitch floats, pitch = the widest hidden layer rounded up
+// to 4; gz replaces the stash in place on the way down, so nothing else is
+// stored.  bwd_plan picks chunk_points from the shapes alone: the most
+// 2,048-point groups (a power of two) whose stash stays within 2^28 bytes,
+// or P where that covers P (then the launches are those of one call over all
+// points).  The C function loops over the chunks on its stream; each chunk
+// is cut into the same slices, and slice r of every chunk writes partial row
+// r: the first chunk stores it, each later chunk adds into it, in chunk
+// order.  So the partials stay at most 128 rows, no float atomic is added
+// and the sum order still comes from the shapes alone.  Only points are
+// chunked: a chunk keeps up to 128 slices, so gW's grid (dout/128, din/128,
+// slices) still fills the card.  Every stash is written once and read by the
+// next replay, by gw and by gh; a layer's stash (84 MB at 3 x 256 and 16,384
+// points) does not fit the 50 MB L2: the GEMMs' FMAs, not their reads, set
+// the time.
 //
 // Precision: IEEE fp32 throughout; build without --use_fast_math.
 
@@ -82,8 +107,7 @@
 namespace {
 
 constexpr int kLayeredMaxLayers = 16;
-constexpr int kLayeredMaxWidth = 256;
-constexpr int kLayeredMaxInputs = 3;  // x, y, z: the input and gx kernels hold three
+constexpr int kLayeredMaxWidth = 256;  // every width, the input layer's too
 constexpr int kThreadsL = 256;
 constexpr int kSlicePoints = 16;  // a slice is a multiple of this many points
 constexpr int kGemmM = 64;        // replay, gh: points per block tile
@@ -94,6 +118,8 @@ constexpr int kGwTile = 128;      // gw: entries per block tile side
 constexpr int kLaneRows = 32;     // head, input: neurons per block (8 point lanes)
 constexpr int kPointLanes = kThreadsL / kLaneRows;
 constexpr int kGxPoints = kThreadsL / 32;  // gx: points per block, 32 lanes each
+constexpr int kFewInputs = 3;              // x, y, z: one group of the input kernel
+constexpr int kInputGroup = 8;             // input: inputs a block above kFewInputs
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
 
@@ -112,6 +138,17 @@ __device__ __forceinline__ float4 load_row4(const float* row, int c, int n) {
   if (c + 2 >= n) v.z = 0.0f;
   if (c + 3 >= n) v.w = 0.0f;
   return v;
+}
+
+// A partial-row entry: the first chunk of points stores it, each later chunk
+// adds into it (ACCUM; in chunk order: the chunks run one after another on
+// one stream).
+template <bool ACCUM>
+__device__ __forceinline__ void put(float* at, float v) {
+  if (ACCUM)
+    *at += v;
+  else
+    *at = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -323,7 +360,7 @@ bwd_layered_gemm(const float* __restrict__ A, const float* __restrict__ W, const
 // 128 x 128 tile (i0, j0) and slice blockIdx.z; row `slice` of partials gets
 // W_l's entries at `off` (row-major [din, dout]) and, from the blocks of the
 // first row of tiles, gb_l = the column sums of the value stream of GZ at off
-// + din dout.  Chunks of BKP points x S streams, double-buffered as in the
+// + din dout (stored, or added with ACCUM).  Chunks of BKP points x S streams, double-buffered as in the
 // GEMM above: threads 0-127 copy H (8 bytes a stream at point it / 64,
 // columns 2 (it % 64)..) with cp.async into `raw` and apply outputs() on
 // the way to their buffer, threads 128-255 copy GZ the same way straight
@@ -338,7 +375,7 @@ struct GwSmem {
   float raw[S][BKP][kGwTile];  // the next H chunk as it lands
 };
 
-template <int ND, int ACT>
+template <int ND, int ACT, bool ACCUM>
 __global__ void __launch_bounds__(kThreadsL, (1 + 2 * ND) <= 5 ? 2 : 1)
 bwd_layered_gw(const float* __restrict__ H, const float* __restrict__ GZ, int din, int dout, int P, int pitch,
                long long sstride, int slice_points, float* __restrict__ partials, long long row_pitch, long long off) {
@@ -454,10 +491,10 @@ bwd_layered_gw(const float* __restrict__ H, const float* __restrict__ GZ, int di
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int j = j0 + (c < 4 ? 4 * tx + c : 64 + 4 * tx + c - 4);
-      if (j < dout) row[(long long)i * dout + j] = acc[a][c];
+      if (j < dout) put<ACCUM>(row + (long long)i * dout + j, acc[a][c]);
     }
   }
-  if (gb_owner && j0 + tid < dout) row[(long long)din * dout + j0 + tid] = gb;
+  if (gb_owner && j0 + tid < dout) put<ACCUM>(row + (long long)din * dout + j0 + tid, gb);
 }
 
 // The sums of the kPointLanes point lanes of a block, added by a fixed
@@ -478,9 +515,10 @@ __device__ __forceinline__ void lane_tree(float* red, int count, int lane, int q
 // written over the stash (it is gz_{L-2} from here on); gW[i] += sum_s h_s g_s
 // and gb += g_0.  A block has kLaneRows neurons x kPointLanes point lanes
 // (lane q takes points q, q + 8, ...); the lanes' sums meet in lane_tree.
-// Row `slice` of partials gets W_last's entries at off, b_last at off + din,
-// and zero pad columns from n_params to row_pitch.
-template <int ND, int ACT>
+// Row `slice` of partials gets W_last's entries at off, b_last at off + din
+// (stored, or added with ACCUM), and zero pad columns from n_params to
+// row_pitch.
+template <int ND, int ACT, bool ACCUM>
 __global__ void __launch_bounds__(kThreadsL)
 bwd_layered_head(const float* __restrict__ G, const float* __restrict__ W, int din, int P, int pitch,
                  long long sstride, int slice_points, float* __restrict__ st, float* __restrict__ partials,
@@ -521,9 +559,9 @@ bwd_layered_head(const float* __restrict__ G, const float* __restrict__ W, int d
   lane_tree(red, 2, lane, q);
   if (q != 0) return;
   float* row = partials + slice * row_pitch;
-  if (i < din) row[off + i] = red[lane];
+  if (i < din) put<ACCUM>(row + off + i, red[lane]);
   if (blockIdx.y == 0 && lane == 0) {
-    row[off + din] = red[kLaneRows];
+    put<ACCUM>(row + off + din, red[kLaneRows]);
     for (long long k = n_params; k < row_pitch; ++k) row[k] = 0.0f;
   }
 }
@@ -532,16 +570,26 @@ bwd_layered_head(const float* __restrict__ G, const float* __restrict__ W, int d
 // input: layer 0 (W0 [d, w1]).  Its input streams are x, the seeds e_k and
 // zero, so gW0[i, j] = sum_p x_i gz_0[p, j] + (i < n_dirs) sum_p gz_{1+i}[p, j]
 // and gb0[j] = sum_p gz_0[p, j], over the slice's points; laid out as head.
-template <int ND>
+// Block (slice, neuron tile, group) takes inputs KX blockIdx.z ..; group 0
+// also the seed terms and gb (n_dirs <= 3 <= KX).  Each entry's sum runs
+// over the same points in the same lanes and tree whatever KX is.  gz_0's
+// value stream is gz[p pitch + j], its seed streams sstride floats apart (a
+// network without a hidden layer passes g itself: pitch S, sstride 1).  Pad
+// columns [pad_from, row_pitch) are zeroed here (head zeroes them where there
+// is a hidden layer: pad_from = row_pitch).
+template <int ND, int KX, bool ACCUM>
 __global__ void __launch_bounds__(kThreadsL)
 bwd_layered_input(const float* __restrict__ X, const float* __restrict__ gz, int d, int w1, int P, int pitch,
-                  long long sstride, int slice_points, float* __restrict__ partials, long long row_pitch) {
-  constexpr int C = 3 + ND + 1;  // x terms (d <= 3), seed terms, gb
+                  long long sstride, int slice_points, float* __restrict__ partials, long long row_pitch,
+                  long long pad_from) {
+  constexpr int C = KX + ND + 1;  // x terms, seed terms, gb
   __shared__ float red[kPointLanes * C * kLaneRows];
   const int lane = threadIdx.x % kLaneRows;
   const int q = threadIdx.x / kLaneRows;
   const int j = blockIdx.y * kLaneRows + lane;
   const int slice = blockIdx.x;
+  const int i0 = blockIdx.z * KX;
+  const bool first = blockIdx.z == 0;  // block-uniform
   const int pb = slice * slice_points;
   const int pe = min(P, pb + slice_points);
   float acc[C];
@@ -553,11 +601,13 @@ bwd_layered_input(const float* __restrict__ X, const float* __restrict__ gz, int
       const float* at = gz + (long long)p * pitch + j;
       const float g0 = at[0];
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-        if (i < d) acc[i] = fmaf(X[(long long)p * d + i], g0, acc[i]);
+      for (int c = 0; c < KX; ++c)
+        if (i0 + c < d) acc[c] = fmaf(X[(long long)p * d + i0 + c], g0, acc[c]);
+      if (first) {
 #pragma unroll
-      for (int k = 0; k < ND; ++k) acc[3 + k] += at[(1 + k) * sstride];
-      acc[3 + ND] += g0;
+        for (int k = 0; k < ND; ++k) acc[KX + k] += at[(1 + k) * sstride];
+        acc[KX + ND] += g0;
+      }
     }
   }
 #pragma unroll
@@ -565,42 +615,59 @@ bwd_layered_input(const float* __restrict__ X, const float* __restrict__ gz, int
   lane_tree(red, C, lane, q);
   if (q != 0 || j >= w1) return;
   float* row = partials + slice * row_pitch;
-  for (int i = 0; i < d; ++i) row[i * w1 + j] = i < ND ? red[i * kLaneRows + lane] + red[(3 + i) * kLaneRows + lane]
-                                                       : red[i * kLaneRows + lane];
-  row[d * w1 + j] = red[(3 + ND) * kLaneRows + lane];
+  for (int c = 0; c < KX && i0 + c < d; ++c) {
+    const int i = i0 + c;
+    put<ACCUM>(row + (long long)i * w1 + j,
+               i < ND ? red[c * kLaneRows + lane] + red[(KX + i) * kLaneRows + lane] : red[c * kLaneRows + lane]);
+  }
+  if (!first) return;
+  put<ACCUM>(row + (long long)d * w1 + j, red[(KX + ND) * kLaneRows + lane]);
+  if (blockIdx.y == 0 && lane == 0)
+    for (long long k = pad_from; k < row_pitch; ++k) row[k] = 0.0f;
 }
 
 // ---------------------------------------------------------------------------
 // gx: gX[p, i] = sum_j gz_0[p, j] W0[i, j] (the value stream; the seeds are
-// constants).  32 lanes a point, each summing j = lane, lane + 32, ..., then a
-// fixed tree over the lanes in shared memory.
+// constants), 32 lanes a point.  Each lane holds its values of gz_0 (j =
+// lane, lane + 32, ...) in registers and, input by input, sums them against
+// W0's row in that order; the lanes' sums meet in a fixed tree of warp
+// shuffles (lane l adds lane l + 16, then l + 8, ...: the pairs, and so the
+// bits, of a tree in shared memory).  Above kFewInputs inputs with a first
+// layer at most 32 wide (a network without a hidden layer: 1), a lane takes
+// inputs i = lane, lane + 32, ... instead and sums over j in order: 32
+// shuffle trees an input cost more there than the sums.
 __global__ void __launch_bounds__(kThreadsL)
 bwd_layered_gx(const float* __restrict__ gz, const float* __restrict__ W0, int d, int w1, int P, int pitch,
                float* __restrict__ gX) {
-  __shared__ float red[kGxPoints][3][32];
   const int lane = threadIdx.x % 32;
-  const int pl = threadIdx.x / 32;
-  const int p = blockIdx.x * kGxPoints + pl;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  if (p < P) {
-    for (int j = lane; j < w1; j += 32) {
-      const float g = gz[(long long)p * pitch + j];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        if (i < d) acc[i] = fmaf(g, W0[i * w1 + j], acc[i]);
+  const int p = blockIdx.x * kGxPoints + threadIdx.x / 32;
+  if (d > kFewInputs && w1 <= 32) {  // block-uniform; no shuffle below
+    if (p >= P) return;
+    const float* g = gz + (long long)p * pitch;
+    for (int i = lane; i < d; i += 32) {
+      float sum = 0.0f;
+      for (int j = 0; j < w1; ++j) sum = fmaf(g[j], W0[(long long)i * w1 + j], sum);
+      gX[(long long)p * d + i] = sum;
     }
+    return;
   }
+  constexpr int J = kLayeredMaxWidth / 32;
+  float g[J];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) red[pl][i][lane] = acc[i];
-  for (int half = 16; half > 0; half /= 2) {
-    __syncthreads();
-    if (lane < half)
-#pragma unroll
-      for (int i = 0; i < 3; ++i) red[pl][i][lane] += red[pl][i][lane + half];
+  for (int t = 0; t < J; ++t) {
+    const int j = lane + 32 * t;
+    g[t] = p < P && j < w1 ? gz[(long long)p * pitch + j] : 0.0f;
   }
-  __syncthreads();
-  if (lane == 0 && p < P)
-    for (int i = 0; i < d; ++i) gX[(long long)p * d + i] = red[pl][i][0];
+  for (int i = 0; i < d; ++i) {  // every lane of the warp, p < P or not: the shuffles need all 32
+    const float* w = W0 + (long long)i * w1;
+    float sum = 0.0f;
+#pragma unroll
+    for (int t = 0; t < J; ++t)
+      if (lane + 32 * t < w1) sum = fmaf(g[t], w[lane + 32 * t], sum);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (lane == 0 && p < P) gX[(long long)p * d + i] = sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -609,7 +676,7 @@ struct LayeredArgs {
   const float* X;
   const float* G;
   const float* params;
-  int n_layers, P, n_dirs, act, slice_points, pitch;
+  int n_layers, P, n_dirs, act, slice_points, chunk_points, pitch;
   int w[kLayeredMaxLayers + 1];
   long long off[kLayeredMaxLayers];  // packed offset of W_l (b_l follows it)
   long long n_params, row_pitch, sstride;
@@ -623,6 +690,7 @@ float* stash(const LayeredArgs& a, int l) { return a.scratch + (long long)l * (1
 
 int blocks_for(long long n, int per) { return (int)((n + per - 1) / per); }
 
+// The seed and the replay GEMMs over a's points (one chunk).
 template <int ND, int ACT>
 cudaError_t run_replay(const LayeredArgs& a) {
   const int cells = blocks_for((long long)a.P * a.pitch, kThreadsL);
@@ -638,19 +706,39 @@ cudaError_t run_replay(const LayeredArgs& a) {
   return err;
 }
 
-template <int ND, int ACT>
-cudaError_t run(const LayeredArgs& a) {
+// The input and gx launches with gz_0 at gz (value stream gz[p pitch + j],
+// seed streams sstride floats apart), over a's points (one chunk).
+template <int ND, bool ACCUM>
+cudaError_t run_input(const LayeredArgs& a, const float* gz, int pitch, long long sstride, long long pad_from) {
+  const int slices = blocks_for(a.P, a.slice_points);
+  const bool few = a.w[0] <= kFewInputs;
+  const dim3 in_grid(slices, blocks_for(a.w[1], kLaneRows), few ? 1 : blocks_for(a.w[0], kInputGroup));
+  if (few)
+    bwd_layered_input<ND, kFewInputs, ACCUM><<<in_grid, kThreadsL, 0, a.stream>>>(a.X, gz, a.w[0], a.w[1], a.P, pitch, sstride, a.slice_points, a.partials, a.row_pitch, pad_from);
+  else
+    bwd_layered_input<ND, kInputGroup, ACCUM><<<in_grid, kThreadsL, 0, a.stream>>>(a.X, gz, a.w[0], a.w[1], a.P, pitch, sstride, a.slice_points, a.partials, a.row_pitch, pad_from);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.gX == nullptr) return err;
+  bwd_layered_gx<<<blocks_for(a.P, kGxPoints), kThreadsL, 0, a.stream>>>(gz, a.params, a.w[0], a.w[1], a.P, pitch, a.gX);
+  return cudaGetLastError();
+}
+
+// Every launch of one chunk (a: its points, X, G and gX); ACCUM: add into the
+// partial rows instead of storing them (every chunk but the first).
+template <int ND, int ACT, bool ACCUM>
+cudaError_t run_chunk(const LayeredArgs& a) {
+  const int L = a.n_layers;
+  if (L == 1) return run_input<ND, ACCUM>(a, a.G, 1 + 2 * ND, 1, a.n_params);  // no hidden layer: gz_0 = g
   cudaError_t err = run_replay<ND, ACT>(a);
   if (err != cudaSuccess) return err;
-  const int L = a.n_layers;
   const int slices = blocks_for(a.P, a.slice_points);
   const dim3 head_grid(slices, blocks_for(a.w[L - 1], kLaneRows));
-  bwd_layered_head<ND, ACT><<<head_grid, kThreadsL, 0, a.stream>>>(a.G, a.params + a.off[L - 1], a.w[L - 1], a.P, a.pitch, a.sstride, a.slice_points, stash(a, L - 2), a.partials, a.row_pitch, a.off[L - 1], (int)a.n_params);
+  bwd_layered_head<ND, ACT, ACCUM><<<head_grid, kThreadsL, 0, a.stream>>>(a.G, a.params + a.off[L - 1], a.w[L - 1], a.P, a.pitch, a.sstride, a.slice_points, stash(a, L - 2), a.partials, a.row_pitch, a.off[L - 1], (int)a.n_params);
   err = cudaGetLastError();
   for (int l = L - 2; l >= 1 && err == cudaSuccess; --l) {
     const int din = a.w[l], dout = a.w[l + 1];
     const dim3 gw_grid(blocks_for(dout, kGwTile), blocks_for(din, kGwTile), slices);
-    bwd_layered_gw<ND, ACT><<<gw_grid, kThreadsL, 0, a.stream>>>(stash(a, l - 1), stash(a, l), din, dout, a.P, a.pitch, a.sstride, a.slice_points, a.partials, a.row_pitch, a.off[l]);
+    bwd_layered_gw<ND, ACT, ACCUM><<<gw_grid, kThreadsL, 0, a.stream>>>(stash(a, l - 1), stash(a, l), din, dout, a.P, a.pitch, a.sstride, a.slice_points, a.partials, a.row_pitch, a.off[l]);
     err = cudaGetLastError();
     if (err != cudaSuccess) break;
     const dim3 gh_grid(blocks_for(a.P, kGemmM), blocks_for(din, kGemmN));
@@ -658,12 +746,23 @@ cudaError_t run(const LayeredArgs& a) {
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  const dim3 in_grid(slices, blocks_for(a.w[1], kLaneRows));
-  bwd_layered_input<ND><<<in_grid, kThreadsL, 0, a.stream>>>(a.X, stash(a, 0), a.w[0], a.w[1], a.P, a.pitch, a.sstride, a.slice_points, a.partials, a.row_pitch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.gX == nullptr) return err;
-  bwd_layered_gx<<<blocks_for(a.P, kGxPoints), kThreadsL, 0, a.stream>>>(stash(a, 0), a.params, a.w[0], a.w[1], a.P, a.pitch, a.gX);
-  return cudaGetLastError();
+  return run_input<ND, ACCUM>(a, stash(a, 0), a.pitch, a.sstride, a.row_pitch);
+}
+
+// The chunks in order on a's stream: chunk c is points [c chunk_points, (c +
+// 1) chunk_points) of X, G and gX, its stash in the one scratch.
+template <int ND, int ACT>
+cudaError_t run(const LayeredArgs& a) {
+  cudaError_t err = cudaSuccess;
+  for (int p0 = 0; p0 < a.P && err == cudaSuccess; p0 += a.chunk_points) {
+    LayeredArgs c = a;
+    c.P = a.P - p0 < a.chunk_points ? a.P - p0 : a.chunk_points;
+    c.X = a.X + (long long)p0 * a.w[0];
+    c.G = a.G + (long long)p0 * (1 + 2 * ND);
+    c.gX = a.gX == nullptr ? nullptr : a.gX + (long long)p0 * a.w[0];
+    err = p0 == 0 ? run_chunk<ND, ACT, false>(c) : run_chunk<ND, ACT, true>(c);
+  }
+  return err;
 }
 
 template <int ND>
@@ -686,13 +785,14 @@ int widest_hidden(const int* widths, int n_layers) {
   return m;
 }
 
-// The arguments, checked, into a; else an error code.
+// The arguments, checked, into a; else an error code.  The scratch may be
+// null only without a hidden layer (no stash).
 cudaError_t layered_args(const float* X, const float* G, const float* params, const int* widths, int n_layers, int P,
-                         int n_dirs, int activation, int tiles, float* scratch, float* partials, float* gX,
-                         int device, void* stream, LayeredArgs& a) {
-  if (n_layers < 2 || n_layers > kLayeredMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
-      activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0] || widths[0] > kLayeredMaxInputs ||
-      scratch == nullptr)
+                         int n_dirs, int activation, int tiles, int chunk_points, float* scratch, float* partials,
+                         float* gX, int device, void* stream, LayeredArgs& a) {
+  if (n_layers < 1 || n_layers > kLayeredMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
+      chunk_points < 1 || activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0] ||
+      (scratch == nullptr && n_layers > 1))
     return cudaErrorInvalidValue;
   a = LayeredArgs{};
   a.X = X;
@@ -703,6 +803,7 @@ cudaError_t layered_args(const float* X, const float* G, const float* params, co
   a.n_dirs = n_dirs;
   a.act = activation;
   a.slice_points = tiles * kSlicePoints;
+  a.chunk_points = chunk_points < P ? chunk_points : P;
   a.scratch = scratch;
   a.partials = partials;
   a.gX = gX;
@@ -717,7 +818,7 @@ cudaError_t layered_args(const float* X, const float* G, const float* params, co
   }
   a.row_pitch = round4((int)a.n_params);
   a.pitch = round4(widest_hidden(widths, n_layers));
-  a.sstride = (long long)P * a.pitch;
+  a.sstride = (long long)a.chunk_points * a.pitch;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess || current == device) return err;
@@ -728,43 +829,48 @@ cudaError_t layered_args(const float* X, const float* G, const float* params, co
 
 extern "C" {
 
-// Device memory (bytes) of the layered form's scratch: the stash of the
-// n_layers - 1 hidden layers, each (1 + 2 n_dirs) x P x pitch floats, pitch =
-// the widest hidden layer rounded up to 4.  ops/fused_fields.py::
+// Device memory (bytes) of the layered form's scratch for chunks of `points`
+// points: the stash of the n_layers - 1 hidden layers, each (1 + 2 n_dirs) x
+// points x pitch floats, pitch = the widest hidden layer rounded up to 4
+// (zero without a hidden layer).  ops/fused_fields.py::
 // bwd_layered_scratch_bytes repeats it.
-long long hp_fused_fields_bwd_layered_scratch_bytes(int max_hidden_w, int n_layers, int n_dirs, int P) {
-  return (long long)sizeof(float) * (n_layers - 1LL) * (1 + 2 * n_dirs) * P * round4(max_hidden_w);
+long long hp_fused_fields_bwd_layered_scratch_bytes(int max_hidden_w, int n_layers, int n_dirs, int points) {
+  return (long long)sizeof(float) * (n_layers - 1LL) * (1 + 2 * n_dirs) * points * round4(max_hidden_w);
 }
 
-// The layered form: X [P, widths[0]] (widths[0] <= 3) and G [P, 1 + 2 n_dirs]
-// row-major fp32; params packs W_0 [in, out], b_0, W_1, ... (n_params
-// floats); widths (host memory) has n_layers + 1 entries (n_layers >= 2,
-// widths up to 256) and ends in 1.  A slice is `tiles` x 16 consecutive
-// points; partials [ceil(P / slice), round4(n_params)] gets one row a slice
-// (every entry written, pad columns zero); scratch holds
-// hp_fused_fields_bwd_layered_scratch_bytes(widest hidden, n_layers, n_dirs,
-// P), 16-byte aligned.  Unless gX is null it writes gX [P, widths[0]].
+// The layered form: X [P, widths[0]] and G [P, 1 + 2 n_dirs] row-major fp32;
+// params packs W_0 [in, out], b_0, W_1, ... (n_params floats); widths (host
+// memory) has n_layers + 1 entries (n_layers 1-16, widths up to 256) and ends
+// in 1.  The points go in chunks of chunk_points consecutive points, one
+// after another; a slice is `tiles` x 16 consecutive points of a chunk;
+// partials [ceil(min(chunk_points, P) / slice), round4(n_params)] gets one row
+// a slice, slice r of every chunk adding into row r (every entry written, pad
+// columns zero); scratch holds hp_fused_fields_bwd_layered_scratch_bytes(widest
+// hidden, n_layers, n_dirs, min(chunk_points, P)), 16-byte aligned (null
+// without a hidden layer).  Unless gX is null it writes gX [P, widths[0]].
 // activation: 0 = tanh, 1 = sin.  Launches its kernels on `stream` in order,
 // does not synchronise, and returns the first launch error (0 on success).
 int hp_fused_fields_bwd_layered_f32(const float* X, const float* G, const float* params, const int* widths,
-                                    int n_layers, int P, int n_dirs, int activation, int tiles, float* scratch,
-                                    float* partials, float* gX, int device, void* stream) {
+                                    int n_layers, int P, int n_dirs, int activation, int tiles, int chunk_points,
+                                    float* scratch, float* partials, float* gX, int device, void* stream) {
   LayeredArgs a;
-  cudaError_t err = layered_args(X, G, params, widths, n_layers, P, n_dirs, activation, tiles, scratch, partials,
-                                 gX, device, stream, a);
+  cudaError_t err = layered_args(X, G, params, widths, n_layers, P, n_dirs, activation, tiles, chunk_points,
+                                 scratch, partials, gX, device, stream, a);
   if (err != cudaSuccess) return (int)err;
   return (int)run_any(a, false);
 }
 
-// The replay alone (seed and the replay GEMMs): the stash of every hidden
-// layer in scratch, laid out as above ([n_layers - 1][S][P][pitch]).  For
-// checks and timings of that part (chip_smoke.py phase 15 (e)).
+// The replay alone (seed and the replay GEMMs) over all P points, in one
+// chunk: the stash of every hidden layer in scratch, laid out as above
+// ([n_layers - 1][S][P][pitch]; scratch_bytes(..., P)).  For checks and
+// timings of that part (chip_smoke.py phase 15 (e)); it needs a hidden layer.
 int hp_fused_fields_bwd_layered_replay_f32(const float* X, const float* params, const int* widths, int n_layers,
                                            int P, int n_dirs, int activation, float* scratch, int device,
                                            void* stream) {
+  if (n_layers < 2) return (int)cudaErrorInvalidValue;
   LayeredArgs a;
-  cudaError_t err = layered_args(X, nullptr, params, widths, n_layers, P, n_dirs, activation, 1, scratch, nullptr,
-                                 nullptr, device, stream, a);
+  cudaError_t err = layered_args(X, nullptr, params, widths, n_layers, P, n_dirs, activation, 1, P, scratch,
+                                 nullptr, nullptr, device, stream, a);
   if (err != cudaSuccess) return (int)err;
   return (int)run_any(a, true);
 }

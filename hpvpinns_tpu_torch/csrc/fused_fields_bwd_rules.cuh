@@ -1,5 +1,5 @@
 // The per-point rules of B2, the second-derivative backward (fp32), shared by
-// its forms: csrc/fused_fields_bwd.cu (resident and wide) and
+// its forms: csrc/fused_fields_bwd.cu (resident) and
 // csrc/fused_fields_bwd_layered.cu (layered).  They are the JAX kernel's
 // rules, hpvpinns_tpu/ops/pallas_fields.py:246-253 and its forward replay.
 //

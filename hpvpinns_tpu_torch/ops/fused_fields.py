@@ -9,19 +9,20 @@ csrc/fused_fields.cu on a CUDA tensor, and the plain PyTorch version
 launches or the call raises, it never falls back.  The kernels take float32,
 sin/tanh, a scalar output, n_dirs 1-3, up to MAX_LAYERS = 16 layers and layer
 widths up to FWD_MAX_WIDTH = 256, and raise above.  B1 has two forms,
-resident or staged, chosen by `fwd_plan`; B2 three: resident (everything in
-shared memory, widths up to BWD_RESIDENT_WIDTH = 64), wide (one kernel, its
-stash in device memory) and layered (per-layer GEMMs over all points,
-csrc/fused_fields_bwd_layered.cu), chosen by `bwd_plan`.  Both plans are
-functions of the shapes alone.
+resident or staged, chosen by `fwd_plan`; B2 two: resident (everything in
+shared memory, widths up to BWD_RESIDENT_WIDTH = 64) and layered (per-layer
+GEMMs over chunks of points, its stash in device memory under
+LAYERED_SCRATCH_CAP bytes, csrc/fused_fields_bwd_layered.cu), chosen by
+`bwd_plan`.  Both plans are functions of the shapes alone.
 
 The gradient: for second=False it is autograd through the plain Taylor
 propagation (ops/taylor.py::mlp_fields), which is what the JAX package does
 (pallas_fields.py:194-196; its TPU kernel has no backward for that layout).
-For second=True it is B2, csrc/fused_fields_bwd.cu (the JAX package's
-_fields_bwd_kernel): per-block partial sums of the weight gradients, added
-in a fixed order by a second kernel of the same file (block_sum), so the
-gradient is bit-identical from run to run.  On a CPU tensor its plain
+For second=True it is B2, csrc/fused_fields_bwd.cu and
+csrc/fused_fields_bwd_layered.cu (the JAX package's _fields_bwd_kernel):
+per-block (per-slice) partial sums of the weight gradients, added in a fixed
+order by a second kernel (block_sum), so the gradient is bit-identical from
+run to run.  On a CPU tensor its plain
 version `fields_flat_bwd_reference` (autograd through the plain forward)
 runs instead.
 """
@@ -200,9 +201,8 @@ _FWD_LIBRARY = CudaLibrary(
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
-    "hp_fused_fields_bwd_wide_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
-    "hp_fused_fields_bwd_wide_scratch_bytes": ([_I32] * 4, _I64),
-    "hp_fused_fields_bwd_layered_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_layered_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32,
+                                        _VP],
     "hp_fused_fields_bwd_layered_replay_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _I32, _VP],
     "hp_fused_fields_bwd_layered_scratch_bytes": ([_I32] * 4, _I64),
     "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
@@ -430,24 +430,27 @@ BWD_TILE_POINTS = 16
 BWD_POINT_STRIDE = 20
 BWD_BLOCKS = 512  # T grows only above this many blocks: four per SM of an H100
 BWD_MAX_TILES = 8
-BWD_FORMS = ("resident", "wide", "layered")
-# The layered form (csrc/fused_fields_bwd_layered.cu): its point slices, each a
-# whole number of BWD_TILE_POINTS tiles, doubled until there are at most
-# LAYERED_ROWS slices (one partial row each), and its inputs (widths[0]: x, y,
-# z at most; kLayeredMaxInputs there).
+BWD_FORMS = ("resident", "layered")
+# The layered form (csrc/fused_fields_bwd_layered.cu) takes the points in
+# chunks whose stash stays within LAYERED_SCRATCH_CAP bytes, each a power-of-two
+# number of LAYERED_ROWS x BWD_TILE_POINTS-point groups (or all P points where
+# that covers them); a chunk's slices are whole numbers of BWD_TILE_POINTS
+# tiles, doubled until there are at most LAYERED_ROWS (one partial row each).
 LAYERED_ROWS = 128
-LAYERED_MAX_INPUTS = 3
+LAYERED_SCRATCH_CAP = 2**28
+LAYERED_CHUNK_GROUP = LAYERED_ROWS * BWD_TILE_POINTS
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """B2's launch shape for a network and P points: the form (resident,
-    wide or layered), tiles_per_block tiles of BWD_TILE_POINTS points per
-    block (the layered form: per slice), n_blocks blocks (slices), each
-    writing one partial row of row_pitch floats (n_params rounded up to a
-    multiple of 4), the shared memory one resident block needs
-    (bwd_smem_bytes, whatever the form) and the wide or layered form's
-    scratch in device memory (0 for the resident form)."""
+    """B2's launch shape for a network and P points: the form (resident or
+    layered), tiles_per_block tiles of BWD_TILE_POINTS points per block (the
+    layered form: per slice of a chunk), n_blocks blocks (slices of a chunk),
+    each writing one partial row of row_pitch floats (n_params rounded up to
+    a multiple of 4), the shared memory one resident block needs
+    (bwd_smem_bytes, whatever the form), the layered form's scratch in
+    device memory (0 for the resident form) and its chunk_points (P for the
+    resident form, which does not chunk)."""
 
     tiles_per_block: int
     n_blocks: int
@@ -455,6 +458,7 @@ class BwdPlan:
     smem_bytes: int
     form: str
     scratch_bytes: int
+    chunk_points: int
 
 
 def _row_pitch(layers) -> int:
@@ -471,37 +475,36 @@ def bwd_smem_bytes(layers, n_dirs: int) -> int:
     return 4 * (2 * _row_pitch(layers) + (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_POINT_STRIDE)
 
 
-def bwd_wide_scratch_bytes(layers, n_dirs: int, n_blocks: int) -> int:
-    """Device memory of the wide form's scratch
-    (hp_fused_fields_bwd_wide_scratch_bytes): per block the stash of every
-    hidden layer and three stream buffers, each (1 + 2 n_dirs) x max width x
-    BWD_TILE_POINTS floats."""
-    n_layers = len(layers) - 1
-    return 4 * n_blocks * (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_TILE_POINTS
+def bwd_layered_scratch_bytes(layers, n_dirs: int, points: int) -> int:
+    """Device memory of the layered form's scratch for chunks of `points`
+    points (hp_fused_fields_bwd_layered_scratch_bytes): the stash of every
+    hidden layer, (1 + 2 n_dirs) x points x pitch floats each, pitch = the
+    widest hidden layer rounded up to a multiple of 4 (gz takes the stash's
+    place on the way down); 0 without a hidden layer."""
+    hidden = layers[1:-1]
+    return 4 * len(hidden) * (1 + 2 * n_dirs) * points * (-(-max(hidden, default=0) // 4) * 4)
 
 
-def bwd_layered_scratch_bytes(layers, n_dirs: int, P: int) -> int:
-    """Device memory of the layered form's scratch
-    (hp_fused_fields_bwd_layered_scratch_bytes): the stash of every hidden
-    layer, (1 + 2 n_dirs) x P x pitch floats each, pitch = the widest hidden
-    layer rounded up to a multiple of 4 (gz takes the stash's place on the
-    way down)."""
-    return 4 * (len(layers) - 2) * (1 + 2 * n_dirs) * P * (-(-max(layers[1:-1]) // 4) * 4)
+def layered_chunk_points(layers, n_dirs: int, P: int) -> int:
+    """Points per chunk of the layered form: the most LAYERED_CHUNK_GROUP-point
+    groups, a power of two, whose stash stays within LAYERED_SCRATCH_CAP
+    bytes (never fewer than one group: at 16 layers, n_dirs 3 and width 256
+    one group's is 220 MB), and never more than P.  Where that covers P it is
+    P, and the plan is that of one call over all points."""
+    chunk = LAYERED_CHUNK_GROUP
+    while chunk < P and bwd_layered_scratch_bytes(layers, n_dirs, 2 * chunk) <= LAYERED_SCRATCH_CAP:
+        chunk *= 2
+    return min(chunk, P)
 
 
 def layered_slice_tiles(P: int) -> int:
-    """Tiles of BWD_TILE_POINTS points per slice of the layered form: the
-    fewest (a power of two) that give at most LAYERED_ROWS slices."""
+    """Tiles of BWD_TILE_POINTS points per slice of the layered form's chunk
+    of P points: the fewest (a power of two) that give at most LAYERED_ROWS
+    slices."""
     n_tiles, T = -(-P // BWD_TILE_POINTS), 1
     while -(-n_tiles // T) > LAYERED_ROWS:
         T *= 2
     return T
-
-
-def bwd_layered_takes(layers) -> bool:
-    """Whether the layered form takes the network: a hidden layer and at
-    most LAYERED_MAX_INPUTS inputs."""
-    return len(layers) >= 3 and layers[0] <= LAYERED_MAX_INPUTS
 
 
 def bwd_resident_fits(layers, n_dirs: int) -> bool:
@@ -511,38 +514,33 @@ def bwd_resident_fits(layers, n_dirs: int) -> bool:
     return max(layers) <= BWD_RESIDENT_WIDTH and bwd_smem_bytes(layers, n_dirs) <= SMEM_PER_BLOCK
 
 
-def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, form: str | None = None) -> BwdPlan:
+def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, form: str | None = None,
+             chunk_points: int | None = None) -> BwdPlan:
     """B2's plan, from the shapes alone (so the summation order, and the
     gradient, do not depend on the card).  The resident form where
-    bwd_resident_fits; else the layered form where bwd_layered_takes (a
-    hidden layer, at most three inputs: every network of the port's
-    problems); else the wide form (`form` forces one: for tests and
-    chip_smoke.py; forcing a form on a network it does not take raises).
+    bwd_resident_fits, else the layered form, which takes every network B1
+    takes (`form` forces one: for tests and chip_smoke.py; forcing the
+    resident form on a network it does not take raises).
 
-    The layered form replaces the wide one wherever it runs: in one call on
-    an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 15 (f), C
-    functions in turns wide, layered, layered, wide) it was faster at every
-    shape the wide form took by default, µs layered / wide: 589.9 / 1,139.0
-    at (2,128,128,128,1) and 1,932.8 / 4,101.9 at (2,256,256,256,1), P
-    16,384, n_dirs 2; 23.1 / 58.8 at (2,256,1) and 54.3 / 78.5 at
-    (1,200,40,1), P 1,000; 223.0 / 257.6 at (3,56,56,56,1) and 229.3 / 284.4
-    at (3,64,64,64,1), P 8,000, n_dirs 3.  Where the resident form fits it
-    stays: forced there the layered form took 235.2 µs at (2,20,20,20,1)
-    against the resident form's 53.4.
-
-    The layered form's scratch (bwd_layered_scratch_bytes) holds every
-    point's stash, so it grows with P with no cap; the wide form's stops
-    growing as fast once its blocks reach BWD_MAX_TILES tiles.  Layered /
-    wide scratch is 0.5 below P 16,384, 1 at 16,384, 2 at 32,768 and 4
-    from 65,536 up: 2.01 GB against 0.50 GB at (2,256,256,256,1), n_dirs 2,
-    P 131,072; 15.4 GB against 3.8 GB at P 10^6.
+    The layered form replaced a third, wide form (one kernel over tiles of
+    16 points) wherever it ran: in turns within one call on an NVIDIA H100
+    80GB HBM3 at 700.00 W (chip_smoke.py phase 15) it was faster at every
+    shape, µs layered / wide: 589.9 / 1,139.0 at (2,128,128,128,1) and
+    1,932.8 / 4,101.9 at (2,256,256,256,1), P 16,384, n_dirs 2; 23.1 / 58.8
+    at (2,256,1) and 54.3 / 78.5 at (1,200,40,1), P 1,000; 223.0 / 257.6 at
+    (3,56,56,56,1) and 229.3 / 284.4 at (3,64,64,64,1), P 8,000, n_dirs 3;
+    PERF.md §6 has the shapes above three inputs.  Where the resident form
+    fits it stays: forced there the layered form took 235.2 µs at
+    (2,20,20,20,1) against the resident form's 53.4.
 
     T = tiles_per_block, by default as many tiles per block as keep at least
-    BWD_BLOCKS blocks (at most BWD_MAX_TILES): a function of P alone, the
-    same for the resident and wide forms, so that both add in one order.
-    The layered form's slices are layered_slice_tiles(P) tiles."""
+    BWD_BLOCKS blocks (at most BWD_MAX_TILES), a function of P alone, for
+    the resident form.  The layered form's chunk (`chunk_points` forces it:
+    for tests and chip_smoke.py) is layered_chunk_points, and its slices are
+    layered_slice_tiles(chunk) tiles, at most LAYERED_ROWS a chunk; its
+    scratch is one chunk's stash."""
     fits = bwd_resident_fits(layers, n_dirs)
-    form = form or ("resident" if fits else "layered" if bwd_layered_takes(layers) else "wide")
+    form = form or ("resident" if fits else "layered")
     if form not in BWD_FORMS:
         raise ValueError(f"B2's form is one of {BWD_FORMS}; got {form!r}")
     if form == "resident" and not fits:
@@ -550,35 +548,29 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
             f"B2's resident form takes widths <= {BWD_RESIDENT_WIDTH} and <= {SMEM_PER_BLOCK} B of shared memory; "
             f"layers {tuple(layers)} at n_dirs {n_dirs} need {bwd_smem_bytes(layers, n_dirs)} B"
         )
-    if form == "layered" and not bwd_layered_takes(layers):
-        raise ValueError(f"B2's layered form takes a hidden layer and <= {LAYERED_MAX_INPUTS} inputs; "
-                         f"got layers {tuple(layers)}")
-    n_tiles = -(-P // BWD_TILE_POINTS)
+    if chunk_points is not None and (chunk_points < 1 or form == "resident"):
+        raise ValueError(f"chunk_points is the layered form's, at least 1; got {chunk_points} for the {form} form")
     if form == "layered":
-        T = tiles_per_block or layered_slice_tiles(P)
+        chunk = min(chunk_points, P) if chunk_points else layered_chunk_points(layers, n_dirs, P)
+        T = tiles_per_block or layered_slice_tiles(chunk)
+        scratch = bwd_layered_scratch_bytes(layers, n_dirs, chunk)
     else:
-        T = tiles_per_block or max(1, min(BWD_MAX_TILES, n_tiles // BWD_BLOCKS))
-    n_blocks = -(-n_tiles // T)
-    scratch = 0
-    if form == "wide":
-        scratch = bwd_wide_scratch_bytes(layers, n_dirs, n_blocks)
-    elif form == "layered":
-        scratch = bwd_layered_scratch_bytes(layers, n_dirs, P)
-    return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs), form, scratch)
+        chunk, scratch = P, 0
+        T = tiles_per_block or max(1, min(BWD_MAX_TILES, -(-P // BWD_TILE_POINTS) // BWD_BLOCKS))
+    n_blocks = -(-(-(-chunk // BWD_TILE_POINTS)) // T)
+    return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs), form, scratch, chunk)
 
 
 class FusedFieldsBwdKernel(KernelWrapper):
     """One form of B2 (`form`): the CUDA kernel
-    csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident),
-    ::fused_fields_bwd_wide_kernel (wide), or the launches of
-    csrc/fused_fields_bwd_layered.cu (layered: one C call, one count), built
-    at first use.  A call returns the per-block (per-slice) partial sums
-    [n_blocks, row_pitch] of the weight gradients (packed as pack_params
-    packs the weights, then zero pad columns; bwd_plan gives the shape) and
-    gX (or None).  The resident form raises for a network it cannot hold,
-    the layered form for one without a hidden layer or with more than three
-    inputs; the wide form takes any (the tests and chip_smoke.py force it at
-    resident widths)."""
+    csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident) or the
+    launches of csrc/fused_fields_bwd_layered.cu over every chunk of points
+    (layered: one C call, one count), built at first use.  A call returns
+    the per-block (per-slice) partial sums [n_blocks, row_pitch] of the
+    weight gradients (packed as pack_params packs the weights, then zero pad
+    columns; bwd_plan gives the shape) and gX (or None).  The resident form
+    raises for a network it cannot hold; the layered form takes every
+    network B1 takes (chip_smoke.py forces it at resident widths)."""
 
     def __init__(self, library: CudaLibrary, fn: str, form: str):
         super().__init__(library, fn)
@@ -594,10 +586,11 @@ class FusedFieldsBwdKernel(KernelWrapper):
         return built
 
     def prepare(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
-                tiles_per_block: int | None = None):
-        """Check the arguments and allocate the outputs (and the wide form's
-        scratch) of one launch: (the C function's arguments and the buffers
-        they point into, partials, gX or None)."""
+                tiles_per_block: int | None = None, chunk_points: int | None = None):
+        """Check the arguments and allocate the outputs (and the layered
+        form's scratch, one chunk's stash) of one launch: (the C function's
+        arguments and the buffers they point into, partials, gX or None).
+        `tiles_per_block` and `chunk_points` force bwd_plan's."""
         check_kernel_args(spec, params, X, n_dirs, FWD_MAX_WIDTH)
         P = X.shape[0]
         n_fields = 1 + 2 * n_dirs
@@ -606,7 +599,7 @@ class FusedFieldsBwdKernel(KernelWrapper):
                 f"g must be contiguous float32 [{P}, {n_fields}] on {X.device}; "
                 f"got {g.dtype} {tuple(g.shape)} on {g.device}"
             )
-        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block, self.form)
+        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block, self.form, chunk_points)
         packed, widths = pack_params(spec, params)
         dev = _device_index(X)
         self.load()
@@ -623,22 +616,20 @@ class FusedFieldsBwdKernel(KernelWrapper):
                 n_dirs, _ACTIVATION_CODE[spec.activation], plan.tiles_per_block)
         tail = (partials.data_ptr(), gX.data_ptr() if want_x else None, dev,
                 torch.cuda.current_stream(X.device).cuda_stream)
-        args = head + ((scratch.data_ptr(),) if scratch is not None else ()) + tail
+        args = head + ((plan.chunk_points, scratch.data_ptr()) if scratch is not None else ()) + tail
         return (args, packed, widths, scratch), partials, gX
 
     def __call__(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
-                 tiles_per_block: int | None = None):
-        (args, *_keep), partials, gX = self.prepare(spec, params, X, g, n_dirs, want_x, tiles_per_block)
+                 tiles_per_block: int | None = None, chunk_points: int | None = None):
+        (args, *_keep), partials, gX = self.prepare(spec, params, X, g, n_dirs, want_x, tiles_per_block, chunk_points)
         if X.shape[0]:
             self.launch(*args)
         return partials, gX
 
 
 fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32", "resident")
-fused_fields_bwd_wide_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_wide_f32", "wide")
 fused_fields_bwd_layered_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_layered_f32", "layered")
-_BWD_KERNELS = {k.form: k for k in (fused_fields_bwd_kernel, fused_fields_bwd_wide_kernel,
-                                    fused_fields_bwd_layered_kernel)}
+_BWD_KERNELS = {k.form: k for k in (fused_fields_bwd_kernel, fused_fields_bwd_layered_kernel)}
 
 
 # Must equal kSumThreads / kMaxSumTiles in csrc/fused_fields_bwd.cu.

@@ -77,8 +77,7 @@ def _kernels() -> dict:
     from hpvpinns_tpu_torch.ops import fused_fields as ff
 
     return {"fused_fields": ff.fused_fields_kernel, "fused_fields_bwd": ff.fused_fields_bwd_kernel,
-            "fused_fields_bwd_layered": ff.fused_fields_bwd_layered_kernel,
-            "fused_fields_bwd_wide": ff.fused_fields_bwd_wide_kernel, "block_sum": ff.block_sum_kernel}
+            "fused_fields_bwd_layered": ff.fused_fields_bwd_layered_kernel, "block_sum": ff.block_sum_kernel}
 
 
 def _launch_counts() -> dict:

@@ -34,7 +34,6 @@ from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
     bwd_layered_scratch_bytes,
     bwd_plan,
     bwd_smem_bytes,
-    bwd_wide_scratch_bytes,
     fields_flat,
     fields_flat_bwd_reference,
     fused_fields_1d,
@@ -209,15 +208,13 @@ def test_block_sum_plan_at_phase7_shapes(name, layers, n_dirs, P, want, rows):
     assert slabs == 1 or -(-n // (4 * lanes)) <= SUM_MAX_TILES
 
 
-def test_bwd_plan_takes_the_wide_form_exactly_above_the_resident_limits():
+def test_bwd_plan_takes_the_layered_form_exactly_above_the_resident_limits():
     """The resident form wherever no layer is wider than 64 and its shared
     memory fits the H100's per-block opt-in; above those limits (at n_dirs
-    3 with three hidden layers from width 55) the layered form by default
-    (these networks have a hidden layer and at most three inputs), and the
-    wide form when forced, with the resident form's tiles per block, so that
-    both add in one order.  Forcing the resident form above its limits
-    raises."""
-    resident_order = bwd_plan((2, 8, 1), 2, 8000)  # the tiles a block of P 8,000 takes, whatever the widths
+    3 with three hidden layers from width 55) the layered form, which is
+    also what forcing it gives at any width, its slices from P alone and
+    its scratch one chunk's stash (at P 8,000 one chunk covers every
+    network here).  Forcing the resident form above its limits raises."""
     for n_dirs in (1, 2, 3):
         for n_hidden in (1, 2, 3, 4):
             for w in (8, 40, 48, 52, 54, 55, 56, 60, 64, 65, 128, 256):
@@ -226,41 +223,23 @@ def test_bwd_plan_takes_the_wide_form_exactly_above_the_resident_limits():
                 plan = bwd_plan(layers, n_dirs, 8000)
                 assert plan.form == ("resident" if fits else "layered"), layers
                 assert plan.scratch_bytes == (0 if fits else bwd_layered_scratch_bytes(layers, n_dirs, 8000))
-                forced = bwd_plan(layers, n_dirs, 8000, form="wide")
-                assert forced.form == "wide"
-                assert forced.scratch_bytes == bwd_wide_scratch_bytes(layers, n_dirs, forced.n_blocks)
-                assert (forced.tiles_per_block, forced.n_blocks, forced.row_pitch) == (
-                    resident_order.tiles_per_block, resident_order.n_blocks, plan.row_pitch)
+                forced = bwd_plan(layers, n_dirs, 8000, form="layered")
+                assert (forced.form, forced.chunk_points, forced.tiles_per_block, forced.n_blocks) == (
+                    "layered", 8000, 4, 125)
+                assert forced.scratch_bytes == bwd_layered_scratch_bytes(layers, n_dirs, 8000)
+                assert forced.row_pitch == plan.row_pitch
                 if not fits:
+                    assert plan == forced
                     with pytest.raises(ValueError, match="resident form"):
                         bwd_plan(layers, n_dirs, 8000, form="resident")
     assert bwd_plan((3, 54, 54, 54, 1), 3, 8000).form == "resident"
     assert bwd_plan((3, 55, 55, 55, 1), 3, 8000).form == "layered"
-    assert bwd_plan((3, 55, 55, 55, 1), 3, 8000, form="wide").form == "wide"
     assert bwd_plan((2, 64, 64, 64, 1), 2, 16384).form == "resident"  # 222,240 B
     assert bwd_plan((2, 64, 64, 64, 64, 1), 2, 16384).form == "layered"  # 281,120 B
-    assert bwd_plan((2, 64, 64, 64, 64, 1), 2, 16384, form="wide").form == "wide"
     with pytest.raises(ValueError, match="form"):
         bwd_plan((2, 8, 1), 2, 100, form="staged")
-
-
-def test_wide_scratch_bytes_by_hand():
-    """The wide form's scratch, the form forced: per block (n_layers + 2)
-    buffers of (1 + 2 n_dirs) x max width x 16 floats (the stash of the
-    hidden layers and three stream buffers), worked out by hand at
-    chip_smoke.py phase 15's shapes."""
-    cases = [  # layers, n_dirs, P, blocks, bytes
-        ((2, 256, 256, 256, 1), 2, 16384, 512, 4 * 512 * 6 * 5 * 256 * 16),  # 251,658,240
-        ((2, 128, 128, 128, 1), 2, 16384, 512, 4 * 512 * 6 * 5 * 128 * 16),
-        ((2, 256, 1), 2, 1000, 63, 4 * 63 * 4 * 5 * 256 * 16),
-        ((1, 200, 40, 1), 1, 1000, 63, 4 * 63 * 5 * 3 * 200 * 16),
-        ((3, 64, 64, 64, 1), 3, 8000, 500, 4 * 500 * 6 * 7 * 64 * 16),  # 86,016,000
-    ]
-    for layers, n_dirs, P, blocks, want in cases:
-        plan = bwd_plan(layers, n_dirs, P, form="wide")
-        assert (plan.form, plan.n_blocks, plan.scratch_bytes) == ("wide", blocks, want), layers
-    assert bwd_plan((2, 256, 256, 256, 1), 2, 16384, form="wide").scratch_bytes == 251_658_240
-    assert bwd_plan((2, 256, 256, 256, 1), 2, 16384, form="wide").row_pitch == 132_612
+    with pytest.raises(ValueError, match="form"):
+        bwd_plan((2, 256, 256, 1), 2, 100, form="wide")
 
 
 @pytest.mark.parametrize("layers,n_dirs", [((2, 256, 1), 2), ((1, 200, 40, 1), 1)])
