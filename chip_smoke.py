@@ -290,7 +290,13 @@ form) with nvcc for sm_90a, and then, one line per phase:
      on a host of several cards only, an NCCL world of one rank a card
      (children `chip_smoke.py --mesh-child`): each rank's captured steps
      against unsharded (rtol 1e-4), NCCL's kernel among its nodes, its
-     graph steps/s;
+     graph steps/s; (f) Gauss-Newton on element_point_mesh((2, 2)), four
+     gloo ranks sharing the card (children `chip_smoke.py
+     --gn-point-child`), on (c)'s tiny Poisson-2D: "host" under "pallas"
+     at var_form 0 with (2, 20, 20, 1) (a reverse-built J: B1 a build, B2
+     and the block sum a cotangent, on every rank) and "cg" under
+     "taylor", 2 accepted steps each against the unsharded run (rtol
+     1e-4), each rank's launches, trials and LM wall seconds;
  24. trains from the JAX package's own initial draws (tools/draws/, made by
      tools/jax_draws.py on a CPU): (a) advdiff_quality in float64 from the
      seed-1234 draw, DRAWS_ADVDIFF_STEPS Adam steps against the JAX CPU
@@ -4222,6 +4228,37 @@ def phase22(dev) -> None:
 
 MESH_STEPS = 200  # (a)'s train runs and its rate turns, a turn each
 MESH_ADAM_STEPS = 50  # (b)'s eager Adam steps on two ranks, (e)'s graph steps a rank
+GN_POINT_MESH = (2, 2)  # (f)'s element x point mesh, four gloo ranks on the card
+GN_POINT_STEPS = 2  # (f)'s accepted LM steps a case
+GN_POINT_RTOL = 1e-4  # (f)'s loss against the unsharded run, as (c)
+
+
+def gn_point_cases() -> dict:
+    """Phase 23 (f)'s cases on (c)'s tiny float32 Poisson-2D
+    (multihost_check._tiny_config: E 8, Q 4, 3 x 3 tests): label -> (config,
+    solve).  "host" under "pallas" at var_form 0 with (2, 20, 20, 1), whose
+    501 parameters exceed a rank's 356 rows: J by reverse mode, B1 once a
+    build and B2 + the block sum once a cotangent; "cg" under "taylor"."""
+    from hpvpinns_tpu_torch.parallel.multihost_check import _tiny_config
+
+    tiny = _tiny_config()
+    return {"host pallas": (dataclasses.replace(tiny, deriv_mode="pallas", var_form=0, layers=(2, 20, 20, 1)), "host"),
+            "cg taylor": (tiny, "cg")}
+
+
+def gn_point_run(cfg, solve: str, device, mesh=None) -> dict:
+    """One of (f)'s cases: GN_POINT_STEPS accepted LM steps from the seed-3
+    init on `mesh` (None: unsharded), with the kernels' launches counted from
+    0 just before it."""
+    import hpvpinns_tpu_torch as hv
+
+    prob = hv.build(cfg, device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    gn = hv.gauss_newton(prob, prob.init_params(torch.Generator().manual_seed(3)), iterations=GN_POINT_STEPS,
+                         solve=solve, mesh=mesh, verbose=False)
+    return {"loss": float(gn.final_aux["loss"]), "accepted": gn.accepted, "trials": gn.iterations_run,
+            "launches": read_counts(), "wall_s": time.perf_counter() - t0}
 
 
 def mesh_config(var_form: int, steps: int):
@@ -4296,7 +4333,8 @@ def phase23(dev) -> dict:
     Gauss-Newton "cg" to 2 accepted steps at two ranks ("taylor", the tiny
     float32 problem of the JAX package's check) against unsharded (rtol
     1e-4); (d) dryrun_multichip(2) on the card through gloo.  (c) and (d)
-    run at once.  (e) on a host of several cards (mesh_cards).  Returns
+    run at once.  (e) on a host of several cards (mesh_cards).  (f)
+    Gauss-Newton on the element x point mesh (gn_point_mesh).  Returns
     each path's launches."""
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -4383,6 +4421,7 @@ def phase23(dev) -> dict:
           f"{gn['children'][0]['gn_accepted']} accepted steps, loss {gn['children'][0]['gn_loss']!r} vs unsharded "
           f"{gn['reference']['gn_loss']!r}; (d) dryrun_multichip(2, cuda, gloo): GN loss {dry['gn_loss']!r} vs "
           f"{dry['gn_loss_ref']!r}; {time.perf_counter() - t0:.1f} s (run at once)", flush=True)
+    paths.update(gn_point_mesh(dev))
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         print("phase 23 (e) skipped: one card (NCCL takes one rank a card; run on a host with more cards)",
@@ -4390,6 +4429,48 @@ def phase23(dev) -> dict:
     else:
         paths.update(mesh_cards(dev, n_cards))
     print(f"phase 23: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
+def gn_point_mesh(dev) -> dict:
+    """Phase 23 (f): Gauss-Newton on the element x point mesh GN_POINT_MESH,
+    four gloo ranks sharing the card (children `chip_smoke.py
+    --gn-point-child`), each case of gn_point_cases against the unsharded run
+    in this process (computed while the ranks run): GN_POINT_STEPS accepted
+    steps on every rank, the loss within GN_POINT_RTOL, every rank's loss
+    the same, B1, B2 and the block sum launched on every rank under
+    "pallas" and no kernel under "taylor".  Returns each rank's launches
+    under "pallas"."""
+    from hpvpinns_tpu_torch.parallel.multihost_check import spawn
+
+    t0 = time.perf_counter()
+    n = GN_POINT_MESH[0] * GN_POINT_MESH[1]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        job = pool.submit(spawn, [sys.executable, __file__, "--gn-point-child"], n, 300, "cuda", "gloo")
+        refs = {label: gn_point_run(cfg, solve, dev) for label, (cfg, solve) in gn_point_cases().items()}
+        ranks = job.result()
+    paths = {}
+    for label, ref in refs.items():
+        gaps = [abs(r[label]["loss"] - ref["loss"]) / abs(ref["loss"]) for r in ranks]
+        launches = [r[label]["launches"] for r in ranks]
+        kernels = SECOND_PATH if label.endswith("pallas") else ()
+        if (max(gaps) > GN_POINT_RTOL or len({r[label]["loss"] for r in ranks}) != 1
+                or any(r[label]["accepted"] != GN_POINT_STEPS for r in ranks) or ref["accepted"] != GN_POINT_STEPS
+                or any(min(c[k] for k in kernels) < 1 for c in launches if kernels)
+                or any(sum(c.values()) != 0 for c in launches if not kernels)
+                or any(r["jax_modules"] for r in ranks)):
+            fail(f"phase 23 (f) {label}: ranks {[r[label] for r in ranks]} against unsharded {ref}, "
+                 f"JAX modules {[r['jax_modules'] for r in ranks]}")
+        if kernels:
+            paths.update({f"mesh GN {GN_POINT_MESH} gloo {label}, rank {r['rank']}": r[label]["launches"]
+                          for r in ranks})
+        print(f"phase 23 (f) Gauss-Newton {label} on element_point_mesh({GN_POINT_MESH}), four gloo ranks on "
+              f"one card: {GN_POINT_STEPS} accepted steps a rank in {ranks[0][label]['trials']} trials (unsharded "
+              f"{ref['trials']}), loss {ranks[0][label]['loss']!r} vs unsharded "
+              f"{ref['loss']!r}, rel gaps {gaps} (bound {GN_POINT_RTOL:g}); LM wall s a rank "
+              f"{[round(r[label]['wall_s'], 3) for r in ranks]} (unsharded {ref['wall_s']:.3f}); launches a rank "
+              f"{launches} (unsharded {ref['launches']})", flush=True)
+    print(f"phase 23 (f): {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
 
@@ -4487,6 +4568,23 @@ def phase24(dev) -> dict:
     return paths
 
 
+def gn_point_child(argv) -> int:
+    """A rank of phase 23 (f)'s gloo world on the element x point mesh:
+    PORT RANK N OUT DEVICE BACKEND (as multihost_check.spawn passes them)."""
+    from hpvpinns_tpu_torch.parallel import distributed
+    from hpvpinns_tpu_torch.parallel.multihost_check import jax_modules
+    from hpvpinns_tpu_torch.parallel.sharding import element_point_mesh
+
+    port, rank, n, out, device, backend = argv[:6]
+    distributed.initialize(f"localhost:{port}", int(n), int(rank), backend=backend, device=device)
+    mesh = element_point_mesh(GN_POINT_MESH, device=device, backend=backend)
+    result = {label: gn_point_run(cfg, solve, mesh.device, mesh) for label, (cfg, solve) in gn_point_cases().items()}
+    with open(out, "w") as f:
+        json.dump({"rank": int(rank), "device": str(mesh.device), "jax_modules": jax_modules(), **result}, f)
+    distributed.shutdown()
+    return 0
+
+
 def mesh_child(argv) -> int:
     """A rank of phase 23 (e)'s NCCL world: PORT RANK N OUT (as
     multihost_check.spawn passes them)."""
@@ -4524,6 +4622,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--mesh-child"]:  # a rank of phase 23 (e)'s world, started by phase 23
         return mesh_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--gn-point-child"]:  # a rank of phase 23 (f)'s world, started by phase 23
+        return gn_point_child(sys.argv[2:])
     import hpvpinns_tpu_torch as hv
     from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
     from hpvpinns_tpu_torch.ops.fused_fields import fused_fields_bwd_kernel, fused_fields_kernel

@@ -136,7 +136,7 @@ def strong_residual(problem: Problem, params, X: Optional[np.ndarray] = None) ->
         mom_y = wt[..., 1] + u * wx[..., 1] + v * wy[..., 1] + wy[..., 2] - nu * (wxx[..., 1] + wyy[..., 1])
         r = torch.cat([mom_x, mom_y, wx[..., 0] + wy[..., 1]], dim=-1)
     else:
-        raise NotImplementedError(f"strong_residual for {problem.name!r} is not ported yet (ROADMAP.md)")
+        raise ValueError(f"no strong form registered for problem {problem.name!r}")
     return r.detach().cpu().numpy()
 
 

@@ -187,7 +187,9 @@ def element_point_mesh(shape: tuple, devices: Optional[Sequence] = None, axis_na
 class _AllReduce(torch.autograd.Function):
     """Sum over a group.  Backward: the cotangent unchanged (this rank's
     share; module docstring).  Forward mode: the tangents summed, the
-    derivative of the sum.  Under vmap the batched tensor is summed whole."""
+    derivative of the sum, through this Function again, so that under vmap
+    (a batch of tangents, as a forward-built Jacobian has) its vmap rule
+    sums the batched tensor whole: one collective a batch on every rank."""
 
     @staticmethod
     def forward(t, group):
@@ -205,9 +207,7 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, t_dot, _):
-        out = t_dot.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out.view(-1), group=ctx.group)
-        return out
+        return _AllReduce.apply(t_dot, ctx.group)
 
     @staticmethod
     def vmap(info, in_dims, t, group):
@@ -224,13 +224,41 @@ def psum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _AllReduce.apply(t, axis.group)
 
 
+class _Replica(torch.autograd.Function):
+    """The identity with no gradient: a replicated term off its axis's root.
+    Its tangent passes (through this Function again, so that a gradient of
+    the tangent stops here too), so that a forward-mode derivative of the
+    value is the same on every rank; its backward is none (module
+    docstring)."""
+
+    @staticmethod
+    def forward(t):
+        return t.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None
+
+    @staticmethod
+    def jvp(ctx, t_dot):
+        return _Replica.apply(t_dot)
+
+    @staticmethod
+    def vmap(info, in_dims, t):
+        return _Replica.apply(t), in_dims[0]
+
+
 def once(t: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """A term replicated along `axis`, counted once: its value on every
-    rank, its gradient on the axis's root only; on a share axis its value
-    on the root only."""
+    """A term replicated along `axis`, counted once: its value and its
+    tangent on every rank, its gradient on the axis's root only; on a share
+    axis its value on the root only."""
     if axis.root:
         return t
-    return torch.zeros_like(t) if axis.share else t.detach()
+    return torch.zeros_like(t) if axis.share else _Replica.apply(t)
 
 
 def allreduce_grads(leaves: Sequence[torch.Tensor], axis: Axis, extra: Sequence[torch.Tensor] = ()) -> None:

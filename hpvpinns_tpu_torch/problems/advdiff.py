@@ -498,20 +498,24 @@ def build(
         real = (el.mask.reshape(el.mask.shape[0], -1) != 0).any(dim=1).to(el.x.dtype)
         return real.reshape(-1, *([1] * (el.x.dim() - 1)))
 
-    def reg_sum(params, data):
-        """sum(eps_x^2) over this rank's real points of its real elements
-        (over the point group too).  On a point axis the fast axis is
-        padded to a multiple of its size (parallel/sharding.py::pad_points)
-        with edge-copied coordinates, so its columns past the unpadded Q are
-        masked out."""
-        el = data["elements"]
-        ex = eps_x_of(params, el.x) * torch.ones_like(el.x)
+    def _real_points(el, points):
+        """_real, and on a point axis (`points`) 0 on the fast axis's
+        columns past the unpadded Q: the fast axis is padded to a multiple
+        of the axis's size (parallel/sharding.py::pad_points) with
+        edge-copied coordinates."""
         real = _real(el)
-        points = points_of(data["basis_x"].wphi)
         if points is not None:
             q = el.x.shape[-1]
             real = real * (torch.arange(points.index * q, (points.index + 1) * q, device=el.x.device) < n_quad_x)
-        total = torch.sum(ex * ex * real)
+        return real
+
+    def reg_sum(params, data):
+        """sum(eps_x^2) over this rank's real points of its real elements
+        (over the point group too)."""
+        el = data["elements"]
+        ex = eps_x_of(params, el.x) * torch.ones_like(el.x)
+        points = points_of(data["basis_x"].wphi)
+        total = torch.sum(ex * ex * _real_points(el, points))
         return total if points is None else psum(total, points)
 
     def loss_fn(params, data, axis_name=None):
@@ -553,12 +557,13 @@ def build(
         def reg_resvec_fn(params, data, axis_name=None):
             """The Tikhonov term as least-squares residuals: sum(r^2) equals
             loss_fn's regularization term (for the Gauss-Newton phase).
-            Under `axis_name` the rows of this rank's elements, the padded
-            ones zero."""
+            Under `axis_name` the rows of this rank's points of its
+            elements, those of padded elements and padded point columns
+            zero."""
             el = data["elements"]
             ex = eps_x_of(params, el.x) * torch.ones_like(el.x)
             if axis_name is not None:
-                ex = ex * _real(el)
+                ex = ex * _real_points(el, points_of(data["basis_x"].wphi))
             return np.sqrt(cfg.epsilon_reg / n_reg) * ex.reshape(-1)
 
         reg_resvec_fn.element_rows = True  # its rows follow the elements (training/gauss_newton.py)

@@ -34,18 +34,33 @@ its Rademacher probes from a torch.Generator seeded 17, not from
 `jax.random.key(17)`: a difference by design (ROADMAP.md, queue C).
 
 On a mesh (parallel/sharding.py; JAX: gauss_newton.py:427-474) the rows
-of r and J stay sharded: each rank holds the rows of its elements, and the
-rows of the replicated terms (boundary data, sensors, collocation points)
-on rank 0 only, zero elsewhere, so that every rank holds as many rows and
-sum(r^2) over the ranks is the loss.  "normal" and "host" all-reduce J^T J
-and J^T r and solve the primal system on every rank; "qr" all-gathers J and
-r in rank order and factors the same matrix on every rank; "cg" and
-"lsqr" all-reduce each matvec's parameter-space result and each norm of a
-residual-space vector, so their stopping tests read global values.  The
-loss the LM control reads is the global one, so every rank takes the same
-branch.  `cg_precond`'s probes of a rank's rows come from a generator
-seeded 17 + rank.  An element x point mesh is not supported (the
-Jacobian's rows would be split over the point group).
+of r and J stay sharded, and every rank holds as many rows: the rows of
+its elements, the rows of the replicated terms (boundary data, sensors,
+collocation points) on rank 0 only, zero elsewhere, and the rows of a
+regulariser with a row a quadrature point (AdvDiff's Tikhonov term) of its
+own points, zero at padded ones.  On an element x point mesh the ranks of
+one point group hold the same element rows in full (the contractions sum
+their points over the group), and their reverse-mode Jacobian rows are
+each rank's share of the full row (parallel/sharding.py's rule): one
+all-reduce over the point group a build sums them, the rows of the
+replicated terms with them (rank 0's alone are nonzero), the
+regulariser's rows not.  A 0/1 row weight `own` then counts each row once:
+1 on the point group's index 0 for the element and replicated rows, 1
+everywhere for the regulariser's.  Every residual-space sum is the sum of
+own * (...) over the whole mesh (the loss, the model's decrease, the norms
+of LSQR), and every product J^T u sums the ranks' products over the mesh
+with u unweighted (its element rows are the same on every rank of a point
+group, so their shares add up to the full product).  On an element mesh
+own is all ones, and the sums are those of the unweighted rows, bit for
+bit.  "normal" and "host" all-reduce J^T own J and J^T own r and solve the
+primal system on every rank; "qr" all-gathers own J and own r in rank
+order (zero rows do not change the least-squares solution) and factors the
+same matrix on every rank; "cg" and "lsqr" all-reduce each matvec's
+parameter-space result and each norm of a residual-space vector, so their
+stopping tests read global values.  The loss the LM control reads is the
+global one, so every rank takes the same branch.  `cg_precond`'s probes of
+a rank's rows come from a generator seeded 17 + its element index, the
+same on the ranks of a point group (the rank itself on an element mesh).
 """
 
 from __future__ import annotations
@@ -76,7 +91,10 @@ def make_residual_vector(problem) -> Callable:
     taken `.as_share()`) the vector is this rank's rows (module
     docstring): the rows of a `reg_resvec_fn` marked `element_rows`
     (AdvDiff's Tikhonov term, over the elements' points) follow the
-    elements, the others are replicated."""
+    elements, the others are replicated.  `resvec.point_rows(params, data,
+    axis_name)` counts the trailing rows that are this rank's own on an
+    element x point mesh (the `element_rows`), not shared over its point
+    group."""
     residual_fn = problem.extras.get("residual_fn")
     if residual_fn is None:
         raise ValueError(
@@ -110,6 +128,10 @@ def make_residual_vector(problem) -> Callable:
                 parts.append(once(reg_fn(params, data).reshape(-1), axis_name))
         return torch.cat(parts)
 
+    def point_rows(params, data, axis_name):
+        return reg_fn(params, data, axis_name=axis_name).numel() if reg_sharded else 0
+
+    resvec.point_rows = point_rows
     return resvec
 
 
@@ -145,46 +167,81 @@ def _aux_floats(aux) -> Dict[str, float]:
     return dict(zip(keys, torch.stack([aux[k].detach() for k in keys]).tolist()))  # one device sync
 
 
-def _model_terms(r, J, delta, total=None):
+def _sq(t, own=None):
+    """sum(t^2), each row weighted by `own` (module docstring) where given."""
+    return torch.sum(t * t) if own is None else torch.sum(own * t * t)
+
+
+def _model_terms(r, J, delta, total=None, own=None):
     """The predicted squared-residual decrease of the undamped model and
-    |J^T r|_inf; on a mesh `total` sums a rank's parts over the ranks."""
+    |J^T r|_inf; on a mesh `total` sums a rank's parts over the ranks, its
+    rows weighted by `own`."""
     pred = r + J @ delta
-    dec, g = torch.sum(r * r) - torch.sum(pred * pred), J.T @ r
+    dec, g = _sq(r, own) - _sq(pred, own), J.T @ (r if own is None else own * r)
     if total is not None:
         dec, g = total(dec), total(g)
     return dec, torch.max(torch.abs(g))
 
 
 def _summer(axis):
-    """t -> the sum of t over the ranks of `axis` (a new tensor); None off a
-    mesh."""
+    """t -> the sum of t over the ranks of `axis`'s whole mesh (a new
+    tensor); None off a mesh."""
     if axis is None:
         return None
 
     def total(t):
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t.view(-1), group=axis.group)
+        dist.all_reduce(t.view(-1), group=axis.mesh_group)
         return t
 
     return total
 
 
 def _gathered(t, axis):
-    """The ranks' `t` stacked along axis 0 in rank order."""
-    parts = [torch.empty_like(t) for _ in range(axis.size)]
-    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    """The ranks' `t` stacked along axis 0 in rank order, over `axis`'s
+    whole mesh."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(axis.mesh_group))]
+    dist.all_gather(parts, t.contiguous(), group=axis.mesh_group)
     return torch.cat(parts)
 
 
-def _normal_delta(r, J, lam, dual: bool, total=None):
+def _row_weights(axis, n_res: int, n_shared: int, like: torch.Tensor):
+    """`own`, the 0/1 weight of this rank's rows in a residual-space sum
+    (module docstring): 0 on the leading `n_shared` rows (those the ranks of
+    a point group share) off the point group's index 0, else 1; None off a
+    mesh."""
+    if axis is None:
+        return None
+    own = torch.ones(n_res, dtype=like.dtype, device=like.device)
+    if not axis.point_root:
+        own[:n_shared] = 0
+    return own
+
+
+def _point_summer(points, n_shared: int):
+    """J -> J with its leading `n_shared` rows summed over the point group
+    of `points` (the point Axis); None off an element x point mesh."""
+    if points is None:
+        return None
+
+    def point_sum(J):
+        J = J.contiguous()
+        dist.all_reduce(J[:n_shared], group=points.group)
+        return J
+
+    return point_sum
+
+
+def _normal_delta(r, J, lam, dual: bool, total=None, own=None):
     """-argmin ||r + J d||^2 + lam ||d||^2 by a Cholesky factorization of the
     damped normal (primal) or dual system: (delta, info), info != 0 where it
-    failed.  On a mesh (`total`) the primal system, J^T J and J^T r summed
-    over the ranks."""
+    failed.  On a mesh (`total`) the primal system, J^T own J and J^T own r
+    summed over the ranks."""
     if total is not None:
-        A = total(J.T @ J) + lam * torch.eye(J.shape[1], dtype=J.dtype, device=J.device)
+        Jo = J if own is None else own[:, None] * J
+        A = total(J.T @ Jo) + lam * torch.eye(J.shape[1], dtype=J.dtype, device=J.device)
         L, info = torch.linalg.cholesky_ex(A)
-        return -torch.cholesky_solve(total(J.T @ r)[:, None], L)[:, 0], info
+        return -torch.cholesky_solve(total(Jo.T @ r)[:, None], L)[:, 0], info
     if dual:
         A = J @ J.T + lam * torch.eye(J.shape[0], dtype=J.dtype, device=J.device)
         L, info = torch.linalg.cholesky_ex(A)
@@ -195,17 +252,20 @@ def _normal_delta(r, J, lam, dual: bool, total=None):
 
 
 def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: Optional[int] = None,
-                   cg_maxiter: Optional[int] = None, cg_tol: float = 1e-3, cg_precond: int = 0, axis=None):
+                   cg_maxiter: Optional[int] = None, cg_tol: float = 1e-3, cg_precond: int = 0, axis=None,
+                   own=None, point_sum=None):
     """(r_and_J, loss_of, {solve name: step}) over the flat parameter vector.
 
     `jac_chunk` bounds the Jacobian build's memory: the min(M, P) vmapped
     JVP/VJP passes run in blocks of that many (torch.func.vmap's
     chunk_size).  None: all at once when min(M, P) <= 2048, else blocks of
     256, as in the JAX package.  On a mesh (`axis`, the element Axis) r and
-    J are this rank's rows and the solves sum over the ranks (module
-    docstring)."""
+    J are this rank's rows, weighted by `own` in the residual-space sums,
+    and the solves sum over the ranks; on an element x point mesh a
+    reverse build's J passes through `point_sum` (module docstring)."""
     total = _summer(axis)
     share = None if axis is None else axis.as_share()
+    n_ranks = 1 if axis is None else dist.get_world_size(axis.mesh_group)
 
     def r_of(theta):
         return resvec(unravel(theta), data, share)
@@ -225,28 +285,29 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
             cols = torch.func.vmap(lambda v: torch.func.jvp(r_of, (theta,), (v,))[1], chunk_size=chunk)(eye)
             return r_of(theta).detach(), cols.T.detach()  # [M, P]
         r, vjp = torch.func.vjp(r_of, theta)
-        return r.detach(), torch.func.vmap(lambda v: vjp(v)[0], chunk_size=chunk)(eye).detach()
+        J = torch.func.vmap(lambda v: vjp(v)[0], chunk_size=chunk)(eye).detach()
+        return r.detach(), J if point_sum is None else point_sum(J)
 
     def loss_of(theta):
         with torch.no_grad():
-            r = r_of(theta)
-            return summed(torch.sum(r * r))
+            return summed(_sq(r_of(theta), own))
 
     dual = n_res < n_params  # underdetermined: the min-norm step through J J^T
 
     def lm_step(r, J, lam):
         """The damped normal equations by Cholesky; a failed factorization
         gives a NaN step (rejected), as JAX's cho_factor does."""
-        delta, info = _normal_delta(r, J, lam, dual, total)
+        delta, info = _normal_delta(r, J, lam, dual, total, own)
         delta = torch.where(info == 0, delta, torch.full_like(delta, float("nan")))
-        return (delta, *_model_terms(r, J, delta, total))
+        return (delta, *_model_terms(r, J, delta, total, own))
 
     def lm_step_qr(r, J, lam):
         """The damped step from the reduced QR of the augmented [J; sqrt(lam) I],
         backward-stable at cond(J) rather than cond(J)^2; no primal/dual
-        branch (the damping block gives full column rank).  On a mesh J and
-        r are gathered first, in rank order."""
+        branch (the damping block gives full column rank).  On a mesh own J
+        and own r are gathered first, in rank order."""
         if axis is not None:
+            r, J = (r, J) if own is None else (own * r, own[:, None] * J)
             r, J = _gathered(r, axis), _gathered(J, axis)
         p = J.shape[1]
         A = torch.cat([J, torch.sqrt(lam) * torch.eye(p, dtype=J.dtype, device=J.device)])
@@ -260,13 +321,14 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         on r's device).  A system that is not finite or a factorization that
         fails returns delta None, which the loop rejects."""
         r64, J64 = r.double(), J.double()
+        own64 = None if own is None else own.double()
         finite = (torch.isfinite(J64).all() & torch.isfinite(r64).all()).double()
-        if not bool(summed(finite) == (1 if axis is None else axis.size)):  # the same answer on every rank
+        if not bool(summed(finite) == n_ranks):  # the same answer on every rank
             return None, 0.0, float("inf")
-        delta, info = _normal_delta(r64, J64, lam.double(), dual, total)
+        delta, info = _normal_delta(r64, J64, lam.double(), dual, total, own64)
         if int(info) != 0:
             return None, 0.0, float("inf")
-        pred_dec, grad_inf = _model_terms(r64, J64, delta, total)
+        pred_dec, grad_inf = _model_terms(r64, J64, delta, total, own64)
         return delta.to(r.dtype), float(pred_dec), float(grad_inf)
 
     # The iteration cap: n_params (the exact-arithmetic Krylov bound), at most 2000.
@@ -295,7 +357,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
 
         minv = None
         if cg_precond > 0:
-            gen = torch.Generator().manual_seed(17 + (0 if axis is None else dist.get_rank()))
+            gen = torch.Generator().manual_seed(17 + (0 if axis is None else axis.index))
             zs = (2 * torch.randint(0, 2, (cg_precond, n_res), generator=gen) - 1).to(dtype=r.dtype, device=r.device)
             diag_est = torch.stack([vjp(z) ** 2 for z in zs]).mean(dim=0)
             minv = 1.0 / (diag_est + lam)
@@ -318,7 +380,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
             rz_new = torch.dot(rk, zk)
             p, rz, rs, k = zk + (rz_new / rz) * p, rz_new, torch.dot(rk, rk), k + 1
         pred = r + jvp_lin(x)
-        return x, summed(torch.sum(r * r) - torch.sum(pred * pred)), torch.max(torch.abs(g)), k
+        return x, summed(_sq(r, own) - _sq(pred, own)), torch.max(torch.abs(g)), k
 
     def lm_step_lsqr(theta, lam):
         """Matrix-free: damped LSQR (Paige and Saunders 1982), Golub-Kahan
@@ -332,7 +394,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         tiny = torch.as_tensor(1e-30, dtype=r.dtype, device=r.device)
 
         b = -r
-        beta1 = torch.sqrt(summed(torch.sum(b * b)))
+        beta1 = torch.sqrt(summed(_sq(b, own)))
         u = b / torch.maximum(beta1, tiny)
         v_raw = vjp(u)
         alpha = torch.linalg.norm(v_raw)
@@ -343,7 +405,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
         x, w, phibar, rhobar, ntest, k = torch.zeros_like(g), v, beta1, alpha, gnorm + tol, 0
         while k < max_cg and bool(ntest > tol):
             u_new = jvp_lin(v) - alpha * u
-            beta = torch.sqrt(summed(torch.sum(u_new * u_new)))
+            beta = torch.sqrt(summed(_sq(u_new, own)))
             u_new = u_new / torch.maximum(beta, tiny)
             v_new = vjp(u_new) - beta * v
             alpha_new = torch.linalg.norm(v_new)
@@ -364,7 +426,7 @@ def _build_kernels(resvec, unravel, data, n_params: int, n_res: int, jac_chunk: 
             ntest = torch.abs(phibar_new * alpha_new * c)
             u, v, alpha, phibar, rhobar, k = u_new, v_new, alpha_new, phibar_new, -c * alpha_new, k + 1
         pred = r + jvp_lin(x)
-        return x, summed(torch.sum(r * r) - torch.sum(pred * pred)), torch.max(torch.abs(g)), k
+        return x, summed(_sq(r, own) - _sq(pred, own)), torch.max(torch.abs(g)), k
 
     return r_and_J, loss_of, {
         "normal": lm_step, "host": lm_step_host, "qr": lm_step_qr, "cg": lm_step_cg, "lsqr": lm_step_lsqr,
@@ -400,22 +462,19 @@ def gauss_newton(
     loss decrease of an accepted step), a damping above damping_max, or the
     iteration budget.  `solve` picks the damped step (module docstring);
     None: "host" for parameters below float64, "normal" for float64, or
-    `host_solve`'s choice when that is given.  `mesh` (an element mesh,
-    parallel/sharding.py) keeps the rows sharded (module docstring):
-    `data` is then this rank's shard, by default the problem's data
-    sharded, and `params` are broadcast from rank 0."""
+    `host_solve`'s choice when that is given.  `mesh` (an element mesh or
+    an element x point mesh, parallel/sharding.py) keeps the rows sharded
+    (module docstring): `data` is then this rank's shard, by default the
+    problem's data sharded, and `params` are broadcast from rank 0."""
     if solve is None:
         if host_solve is not None:
             solve = "host" if host_solve else "normal"
     elif solve not in SOLVES:
         raise ValueError(f"solve must be 'normal', 'host', 'qr', 'cg' or 'lsqr', got {solve!r}")
-    axis = None
+    axis = points = None
     if mesh is not None:
-        if POINT_AXIS in mesh.axis_names:
-            raise NotImplementedError(
-                "gauss_newton on an element x point mesh: a Jacobian row's sum over the point group is not "
-                "implemented; use element_mesh (ROADMAP.md)")
         axis = mesh.axis(AXIS)
+        points = mesh.axis(POINT_AXIS) if POINT_AXIS in mesh.axis_names else None
         data = shard_problem(problem.data, mesh) if data is None else data
         params = replicate(params, mesh)
         verbose = verbose and mesh.is_root
@@ -431,8 +490,11 @@ def gauss_newton(
 
     with torch.no_grad():
         probe = resvec(unravel(theta), data, share)
+        n_res, n_params = int(probe.numel()), int(theta.numel())
+        n_shared = n_res - (0 if axis is None else resvec.point_rows(unravel(theta), data, share))
+        own = _row_weights(axis, n_res, n_shared, theta)
         loss_probe = float(loss_fn(unravel(theta), data)[0])
-        sq_t = torch.sum(probe * probe)
+        sq_t = _sq(probe, own)
         sq = float(sq_t if total is None else total(sq_t))
     # The LM objective must be the training loss: a loss term the residual
     # vector misses (an unregistered regularizer) fails here.
@@ -441,7 +503,6 @@ def gauss_newton(
             f"residual-vector identity violated: sum(r^2)={sq:.6e} vs loss={loss_probe:.6e}; the problem's loss "
             "contains terms outside extras['residual_fn'] + boundary data (+ extras['reg_resvec_fn'])"
         )
-    n_res, n_params = int(probe.numel()), int(theta.numel())
     if solve is None:
         solve = "host" if theta.dtype != torch.float64 else "normal"
     matrix_free = solve in ("cg", "lsqr")
@@ -451,7 +512,8 @@ def gauss_newton(
         torch.func.jvp(lambda th: resvec(unravel(th), data, share), (theta,), (torch.zeros_like(theta),))
     r_and_J, loss_of, lm_steps = _build_kernels(
         resvec, unravel, data, n_params, n_res, jac_chunk=jac_chunk,
-        cg_maxiter=cg_maxiter, cg_tol=cg_tol, cg_precond=cg_precond, axis=axis,
+        cg_maxiter=cg_maxiter, cg_tol=cg_tol, cg_precond=cg_precond, axis=axis, own=own,
+        point_sum=_point_summer(points, n_shared),
     )
     lm_step = lm_steps[solve]
 
@@ -470,7 +532,7 @@ def gauss_newton(
         loss = float(loss_of(theta))
     else:
         r, J = r_and_J(theta)
-        loss = float(torch.sum(r * r) if total is None else total(torch.sum(r * r)))
+        loss = float(_sq(r, own) if total is None else total(_sq(r, own)))
     cg_iters = None
     it = 0
     while accepted < iterations:

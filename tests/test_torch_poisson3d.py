@@ -163,7 +163,8 @@ def test_training_and_evaluate_match_jax():
     """6 Adam steps under "pallas" (the plain versions on the CPU) against
     JAX "taylor" from the same parameters: records to rtol 1e-8, and
     evaluate() on the 41^3 grid (the L-BFGS phase is held to JAX's in
-    tests/test_torch_trainer.py)."""
+    tests/test_torch_trainer.py); strong_residual raises the ValueError
+    that JAX's raises."""
     train = dict(iterations=6, check_every=3)
     jprob, _ = build_both(var_form=0, train=train)
     _, tprob = build_both(var_form=0, train=train, deriv_mode="pallas")
@@ -176,8 +177,11 @@ def test_training_and_evaluate_match_jax():
     got = tv.evaluate_problem(tprob, tres.params)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-8, err_msg=k)
-    with pytest.raises(NotImplementedError, match="poisson3d"):
+    message = "no strong form registered for problem 'poisson3d'"
+    with pytest.raises(ValueError, match=message):
         tv.strong_residual(tprob, tres.params)
+    with pytest.raises(ValueError, match=message):
+        jv.evaluate.strong_residual(jprob, jres.params)
 
 
 def test_b2_shared_memory_ceiling_at_three_axes():

@@ -204,6 +204,14 @@ def test_gauss_newton_sharded_matches_unsharded(world, solve, iterations, rtol):
                                    **ptol)
 
 
+def test_gauss_newton_row_weights_keep_the_element_mesh_bits(world):
+    """On an element mesh every row weight `own` is 1: "qr"'s parameters
+    after three steps equal, bit for bit, those of the same run with the
+    rows unweighted (the arrangement before the element x point mesh)."""
+    for r in world:
+        assert r["gn_qr"]["params"] == r["gn_qr_unweighted"]["params"]
+
+
 def test_gauss_newton_rows_of_the_elements_points(world):
     """AdvDiff's Tikhonov term on a quadratic eps is a row a quadrature
     point of the elements (`reg_resvec_fn.element_rows`): on the mesh its

@@ -1,7 +1,9 @@
 """The per-rank side of the port's multi-process tests.
 
-tests/test_torch_sharding.py and tests/test_torch_parallel.py each spawn one
-gloo world on the CPU (hpvpinns_tpu_torch.parallel.multihost_check.spawn):
+tests/test_torch_sharding.py, tests/test_torch_parallel.py and
+tests/test_torch_gauss_newton_point_mesh.py (suites "sharding", "parallel"
+and "gn_points") each spawn one gloo world on the CPU
+(hpvpinns_tpu_torch.parallel.multihost_check.spawn):
 
     python tests/torch_mesh_cases.py SUITE PORT RANK N OUT DEVICE BACKEND
 
@@ -12,6 +14,7 @@ torch, numpy and the port only.  The configurations are the JAX tests'
 (tests/test_sharding.py).
 """
 
+import importlib
 import json
 import os
 import sys
@@ -36,6 +39,7 @@ from hpvpinns_tpu_torch.parallel.sharding import (  # noqa: E402
 from hpvpinns_tpu_torch.problems.base import parameters  # noqa: E402
 
 F64 = torch.float64
+gn_module = importlib.import_module("hpvpinns_tpu_torch.training.gauss_newton")
 
 
 def p2d_config(**kw):
@@ -87,6 +91,17 @@ POINT_CASES = {
 }
 
 TRAIN = dict(iterations=20, check_every=10)
+
+# Gauss-Newton on the element x point mesh (2, 2) ("gn_points"): Poisson-2D
+# with Q 5 padded to 6 and a network wider than a rank's 116 rows (P 205),
+# so that the Jacobian is built in reverse mode; each solve's accepted steps.
+GN_P2D = dict(n_quad=5, n_bound=5, layers=(2, 12, 12, 1))
+GN_SOLVES = {"normal": 3, "host": 3, "qr": 3, "cg": 3, "lsqr": 3}
+# P 25 <= M: the forward build; var_form "2c" (edge fluxes through `once`
+# over the points) under "cg" (forward-mode products on every rank)
+GN_FORWARD = dict(n_quad=5, n_bound=5, layers=(2, 6, 1))
+GN_FLUX = dict(n_elements_x=3, n_quad=5, n_bound=5, layers=(2, 12, 12, 1), var_form="2c")
+GN_TRAIN = dict(iterations=40, check_every=20, gn_iterations=3, gn_solve="cg")
 
 
 def family_config(name):
@@ -159,12 +174,40 @@ def suite_sharding(mesh):
     for solve, its in (("cg", 5), ("qr", 3), ("normal", 3), ("lsqr", 3)):
         gn = tv.gauss_newton(p2d, params, iterations=its, solve=solve, mesh=mesh, verbose=False)
         out[f"gn_{solve}"] = {"loss": gn.final_aux["loss"], "accepted": gn.accepted, "params": flat(parameters(gn.params))}
+    # "qr" with the rows unweighted (no `own`), the arrangement before the
+    # element x point mesh: on an element mesh its parameters are bit for bit
+    # those of the weighted rows
+    weights = gn_module._row_weights
+    gn_module._row_weights = lambda *args: None
+    try:
+        gn = tv.gauss_newton(p2d, params, iterations=3, solve="qr", mesh=mesh, verbose=False)
+    finally:
+        gn_module._row_weights = weights
+    out["gn_qr_unweighted"] = {"params": flat(parameters(gn.params))}
     reg = build(family_config("advdiff_reg"))
     gn = tv.gauss_newton(reg, tv.params_from_jax(shared_tree(reg), dtype=F64), iterations=2, solve="qr", mesh=mesh,
                          verbose=False)
     out["gn_advdiff_reg"] = {"loss": gn.final_aux["loss"], "accepted": gn.accepted}
     ens = tv.train_ensemble(p2d, tv.TrainConfig(**TRAIN), seeds=(0, 1, 2), verbose=False, mesh=mesh)
     out["ensemble"] = {"loss": np.asarray(ens.final_aux["loss"]).tolist()}
+    return out
+
+
+def gn_case(prob, mesh, solve, iterations):
+    gn = tv.gauss_newton(prob, tv.params_from_jax(shared_tree(prob), dtype=F64), iterations=iterations, solve=solve,
+                         mesh=mesh, verbose=False)
+    return {"loss": gn.final_aux["loss"], "accepted": gn.accepted, "params": flat(parameters(gn.params))}
+
+
+def suite_gn_points(_):
+    mesh = element_point_mesh((2, 2), device="cpu")
+    p2d = build(p2d_config(**GN_P2D))
+    out = {f"gn_{solve}": gn_case(p2d, mesh, solve, its) for solve, its in GN_SOLVES.items()}
+    out["gn_forward"] = gn_case(build(p2d_config(**GN_FORWARD)), mesh, "normal", 3)
+    out["gn_flux_cg"] = gn_case(build(p2d_config(**GN_FLUX)), mesh, "cg", 2)
+    for name in ("advdiff_reg", "advdiff_reg_mlp"):
+        out[f"gn_{name}"] = gn_case(build(family_config(name)), mesh, "qr", 2)
+    out["train_gn"] = train_losses(p2d, mesh, tv.TrainConfig(**GN_TRAIN))
     return out
 
 
@@ -183,7 +226,8 @@ def main(argv):
     topo = distributed.initialize(coordinator_address=f"localhost:{port}", num_processes=int(n),
                                   process_id=int(rank), device="cpu")
     mesh = element_mesh(device="cpu")
-    result = {"topology": topo, "mesh": mesh.shape, **{"sharding": suite_sharding, "parallel": suite_parallel}[suite](mesh),
+    suites = {"sharding": suite_sharding, "parallel": suite_parallel, "gn_points": suite_gn_points}
+    result = {"topology": topo, "mesh": mesh.shape, **suites[suite](mesh),
               "jax_modules": jax_modules()}
     with open(out_path, "w") as f:
         json.dump(result, f)
