@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
 
-    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --fwd-only [EARLIER_FWD_SOURCE] | --quality SEED...
+    python3 chip_smoke.py [--bwd-only [UNTILED_BWD_SOURCE] | --bwd-parent PARENT_CSRC | --fwd-only [EARLIER_FWD_SOURCE]
+                           | --quality SEED...
                            | --adaptive-only | --adaptive [studies] [burgers] [sweep]
                            | --advdiff-only | --advdiff-quality SEED... | --volumetric-only
                            | --poisson3d-quality [SEED...] | --wide-only [CHECKOUT_CSRC]
@@ -27,8 +28,10 @@ form) with nvcc for sm_90a, and then, one line per phase:
      second-derivative shapes phases 8-10 train on (rtol 2e-5, atol 1e-6),
      at four shapes above width 64, which take the staged form (rtol 5e-5,
      atol 2e-6: sums of up to 256 terms in another order than cuBLAS's),
-     and the firsts-only gradient against autograd through the plain
-     version (rtol 2e-4, atol 1e-5; 5e-4, 1e-4 above width 64); checks
+     and the firsts-only gradient, through B2 in firsts-only mode (the
+     launches counted), against autograd through the plain version (rtol
+     2e-4, atol 1e-5; 5e-4, 1e-4 above width 64; the cotangents of a mean
+     over the points, as in phase 7); checks
      ops/fused_fields.py::fwd_plan against the kernel's own shared-memory
      count and, up to width 64, the staged form forced on the same inputs
      bit for bit against the resident one; times both: ms per call over 50
@@ -46,10 +49,13 @@ form) with nvcc for sm_90a, and then, one line per phase:
      eager (_build_stepwise_chunk) from the same params with the same
      capturable Adam must agree bit for bit (else within 1e-6 relative,
      printed), and the path's kernels must be nodes of the captured step
-     (B1; B2 and the block sum where second derivatives run), counted by
-     name in the graph's DOT dump; then poisson2d_scaled trains 200 steps
-     through `train` (the loss must fall; the wrappers count their host
-     launches, the warm-up and capture, since the steps replay the graph);
+     (B1, B2 and the block sum: B2 in firsts-only mode at var_form 1),
+     counted by name in the graph's DOT dump; then poisson2d_scaled trains
+     200 steps through `train` (the loss must fall; the wrappers count
+     their host launches, the warm-up and capture, since the steps replay
+     the graph: B1, B2's firsts-only launches and the block sum must each
+     launch).  Throughout, B1's and B2's plain versions must see no CUDA
+     tensor (as in phases 10 and 13 (c));
   6. trains poisson2d_quality ("taylor" and "pallas"), poisson1d_quality
      ("pallas") at their full schedules and poisson2d_quality(hard_bc=True)
      (the lifted ansatz on the JVP engine; its L-BFGS cut from 20k to 5k
@@ -69,9 +75,16 @@ form) with nvcc for sm_90a, and then, one line per phase:
      the shape B2 wrote before its redesign (one row per 16 points,
      n_params wide); times B2, the block sum, both together and the plain
      version as phase 3 does, and B2 and the block sum alone by CUDA events
-     over 50 launches of their C functions, arguments prepared once; and
-     the block sum on two streams at once (each launch has its own tickets)
-     bit for bit against one stream;
+     over 50 launches of their C functions, arguments prepared once; then
+     B2 in firsts-only mode (g [P, 1 + n_dirs]) at poisson2d_scaled,
+     poisson2d_quality, the n_dirs-3 ragged shape, (2,256,256,256,1) P
+     16,384 (the layered form) and poisson2d_scaled with the layered form
+     forced: gW, gb and gX against the plain version at the same
+     tolerances, two runs bit-identical, the launch shape against bwd_plan,
+     and the C functions by CUDA events over 50 launches beside the block
+     sum, the plain version, the "taylor" VJP and the bound; and the block
+     sum on two streams at once (each launch has its own tickets) bit for
+     bit against one stream;
   8. checks the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under
      "taylor" and "pallas" for poisson1d_of_record forms 1/2/3 and
      poisson2d_quality forms 0 and "2c";
@@ -88,12 +101,14 @@ form) with nvcc for sm_90a, and then, one line per phase:
      median forward, backward and Adam ms of 50 steps, each part followed
      by a device sync, and from torch.profiler over 20 steps the kernels'
      device µs, kernel launches, busy share and five largest kernels.  On
-     poisson2d_scaled var_form 0 and advdiff_of_record under "pallas" B1,
-     B2 and the block sum must be in the captured step;
+     poisson2d_scaled var_form 0 and 1 and advdiff_of_record under "pallas"
+     B1, B2 and the block sum must be in the captured step (at var_form 1
+     B2 in firsts-only mode);
  11. builds poisson2d_scaled with the (2, 256, 256, 256, 1) network, checks
      the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under "taylor"
      and "pallas", trains it 50 steps through `train` under "pallas" (the
-     loss must fall; B1's staged form must be in the captured step), and
+     loss must fall; B1's staged form must be in the captured step, and the
+     layered B2 in firsts-only mode must launch and be in it), and
      times 50 Adam steps a turn in turns eager, graph, graph, eager under
      both modes;
  12. AdvDiff identification (phase12): loss and gradients, eps's included,
@@ -379,7 +394,13 @@ With --bwd-only it runs phases 1, 2 and 7 and prints no summary; given
 also the path of an earlier csrc/fused_fields_bwd.cu whose B2 has no tiles
 argument (from a `git archive` of the commit before the tiled B2), phase 7
 holds this B2 at one tile per block bit for bit against it on the same
-inputs and times the two in turns.  The
+inputs and times the two in turns.  With --bwd-parent PARENT_CSRC (the
+csrc/ of a `git archive` of the commit before B2's firsts-only mode, whose
+C functions take no `second`) it runs phases 1, 2 and 7, then holds both
+forms' second-derivative partials and gX bit for bit against that
+checkout's at every phase-7 shape (the resident form at BWD_CASES, the
+layered form forced there and at (2,256,256,256,1) P 16,384), timing the
+two in turns.  The
 tolerances are those of tests/test_pallas_fields.py.  It exits non-zero
 at the first failure, and when no CUDA device is present.  Its last three
 lines are the whole run's seconds, a JSON summary of the kernels and
@@ -388,6 +409,7 @@ lines are the whole run's seconds, a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -581,6 +603,12 @@ KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nod
 SECOND_PATH = ("fused_fields", "fused_fields_bwd", "block_sum")  # second derivatives, B2's resident form
 B2_WRAPPER = {"resident": "fused_fields_bwd", "layered": "fused_fields_bwd_layered"}
 LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered", "block_sum")  # second derivatives, B2's layered form
+# read_counts' names for each B2 form's firsts-only launches (a graph node
+# names the kernel, not its mode: SECOND_PATH and LAYERED_PATH name a
+# firsts-only step's nodes too)
+FIRSTS = {"fused_fields_bwd": "fused_fields_bwd_firsts", "fused_fields_bwd_layered": "fused_fields_bwd_layered_firsts"}
+FIRSTS_PATH = ("fused_fields", "fused_fields_bwd_firsts", "block_sum")  # var_form 1: firsts, B2's resident form
+FIRSTS_LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered_firsts", "block_sum")  # firsts, B2's layered form
 GRAPH_DUMPS = "hpvpinns_tpu_torch/_build/graphs"
 
 
@@ -621,10 +649,51 @@ def wrappers() -> dict:
 def zero_counts():
     for k in wrappers().values():
         k.launches = 0
+        if hasattr(k, "firsts_launches"):
+            k.firsts_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: k.launches for name, k in wrappers().items()}
+    """Each wrapper's host launches since zero_counts: B2's forms count their
+    second-derivative launches under their own names and their firsts-only
+    launches apart, under FIRSTS' names."""
+    out = {}
+    for name, k in wrappers().items():
+        out[name] = k.launches
+        if name in FIRSTS:
+            out[name] -= k.firsts_launches
+            out[FIRSTS[name]] = k.firsts_launches
+    return out
+
+
+@contextlib.contextmanager
+def plain_off_the_card(label: str):
+    """Fail unless B1's and B2's plain versions (fields_flat_reference,
+    fields_flat_bwd_reference) see no CUDA tensor inside the block: on the
+    card the port's path runs the kernels.  Counted by wrapping both in
+    their module for the block (the port looks them up there)."""
+    from hpvpinns_tpu_torch.ops import fused_fields as ff
+
+    names = ("fields_flat_reference", "fields_flat_bwd_reference")
+    saved, seen = {n: getattr(ff, n) for n in names}, dict.fromkeys(names, 0)
+
+    def counted(name, fn):
+        def call(spec, params, X, *args, **kw):
+            seen[name] += int(X.is_cuda)
+            return fn(spec, params, X, *args, **kw)
+
+        return call
+
+    for n in names:
+        setattr(ff, n, counted(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(ff, n, saved[n])
+    if any(seen.values()):
+        fail(f"{label}: a plain version ran on the card's tensors: {seen}")
+    print(f"{label}: B1's and B2's plain versions saw no CUDA tensor", flush=True)
 
 
 def fresh_state(prob, cfg):
@@ -688,12 +757,13 @@ def fwd_work(layers, P, n_dirs, second):
     return 4 * (P * layers[0] + n_params + P * S), 2 * P * S * macs
 
 
-def bwd_work(layers, P, n_dirs):
-    """(bytes, FLOPs) of the second-derivative backward: X, g and the network
+def bwd_work(layers, P, n_dirs, second=True):
+    """(bytes, FLOPs) of B2, the backward with second derivatives (S = 1 + 2
+    n_dirs streams) or firsts only (S = 1 + n_dirs): X, g and the network
     read once, gX and the gradients written once; the replayed forward of the
     hidden layers, gW (the input layer's h_kk streams are zero) and gh (the
     value stream only below the input layer)."""
-    S = 1 + 2 * n_dirs
+    S = 1 + n_dirs * (2 if second else 1)
     pairs = [a * b for a, b in zip(layers[:-1], layers[1:])]
     n_params = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
     macs = S * sum(pairs[:-1]) + (1 + n_dirs) * pairs[0] + S * sum(pairs[1:]) + S * sum(pairs[1:]) + pairs[0]
@@ -763,9 +833,10 @@ def against_untiled(fn, name, spec, net, X, g, nd):
 def phase7(dev, untiled_src=None):
     """B2 and its block sum against the plain backward at BWD_CASES: the
     largest error of B2 + block sum and of the block sum, and per case the ms
-    and device µs of each timed function and the partials' shape.  With
-    untiled_src (an earlier, untiled fused_fields_bwd.cu), also
-    against_untiled at each case."""
+    and device µs of each timed function and the partials' shape; then B2's
+    firsts-only mode (phase7_firsts).  With untiled_src (an earlier, untiled
+    fused_fields_bwd.cu), also against_untiled at each case.  Returns
+    (errors, sums' error, timings, phase7_firsts' numbers)."""
     from hpvpinns_tpu_torch.models.mlp import MLP
     from hpvpinns_tpu_torch.ops.fused_fields import (
         block_sum_kernel,
@@ -805,7 +876,7 @@ def phase7(dev, untiled_src=None):
         plan = bwd_plan(layers, nd, P)
         n_params = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
         c_smem = fused_fields_bwd_kernel.load().lib.hp_fused_fields_bwd_smem_bytes(
-            n_params, max(layers[:-1]), len(layers) - 1, nd)
+            n_params, max(layers[:-1]), len(layers) - 1, nd, 1)
         if c_smem != plan.smem_bytes or tuple(partials.shape) != (plan.n_blocks, plan.row_pitch):
             fail(f"{name}: bwd_plan {plan} disagrees with the kernel ({c_smem} B, partials {tuple(partials.shape)})")
         # The partials' shape before this redesign: one row per 16 points,
@@ -856,7 +927,166 @@ def phase7(dev, untiled_src=None):
         )
         if untiled:
             against_untiled(untiled, name, spec, net, X, g, nd)
-    return bwd_err, sum_err, bwd_times
+    return bwd_err, sum_err, bwd_times, phase7_firsts(dev)
+
+
+BWD_FIRSTS_CASES = [  # phase 7, firsts only: (name, layers, activation, P, n_dirs, a form forced or None)
+    ("p2d_scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2, None),
+    ("p2d_quality", (2, 48, 48, 48, 48, 1), "tanh", 4096, 2, None),
+    ("ragged", (3, 48, 48, 48, 1), "sin", 1003, 3, None),
+    ("p2d_scaled 3 x 256", (2, 256, 256, 256, 1), "tanh", 16384, 2, None),  # the layered form
+    ("forced p2d_scaled", (2, 20, 20, 20, 1), "tanh", 16384, 2, "layered"),
+]
+
+
+def phase7_firsts(dev) -> dict:
+    """B2 in firsts-only mode (g [P, 1 + n_dirs]: the var_form-1 backward)
+    and the block sum at BWD_FIRSTS_CASES: gW, gb and gX against the plain
+    version (fields_flat_bwd_reference(..., second=False)) at phase 7's
+    tolerances, two runs bit-identical (each run one launch of the form's
+    wrapper in firsts-only mode and one of the block sum, counted), the
+    launch shape against bwd_plan and the C function's own shared memory or
+    scratch count, then the C functions by CUDA events over 50 launches
+    (B2 twice) beside the block sum, the plain version, the "taylor" VJP and
+    bwd_work's bound with S = 1 + n_dirs.  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        _BWD_KERNELS,
+        block_sum_kernel,
+        bwd_plan,
+        fields_flat_bwd_reference,
+        fused_fields_bwd,
+    )
+
+    rng = np.random.default_rng(71)
+    out = {}
+    for name, layers, act, P, nd, forced in BWD_FIRSTS_CASES:
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev, second=False)
+        plan = bwd_plan(layers, nd, P, form=forced, second=False)
+        kernel = _BWD_KERNELS[plan.form]
+        tol = WIDE_GRAD_TOL if max(layers) >= 48 else GRAD_TOL
+        zero_counts()
+        if forced:
+            runs = [forced_b2(kernel, spec, net, X, g, nd, second=False) for _ in range(2)]
+        else:
+            runs = [fused_fields_bwd(spec, net, X, g, nd, second=False) for _ in range(2)]
+        counts = read_counts()
+        if counts[FIRSTS[B2_WRAPPER[plan.form]]] != 2 or counts["block_sum"] != 2 or sum(counts.values()) != 4:
+            fail(f"phase 7 firsts {name}: host launches {counts}")
+        (got, got_x), (again, again_x) = runs
+        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd, second=False)
+        torch.cuda.synchronize()
+        err = check_close(f"phase 7 firsts {name} gX", got_x, want_x, **tol)
+        same = torch.equal(got_x, again_x)
+        for l, (a, b, c) in enumerate(zip(got, want, again)):
+            for k in ("W", "b"):
+                err = max(err, check_close(f"phase 7 firsts {name} g{k}_{l}", a[k], b[k], **tol))
+                same = same and torch.equal(a[k], c[k])
+        if not same:
+            fail(f"phase 7 firsts {name}: two runs of B2 + block sum differ")
+        (b2_args, *b2_keep), partials, _ = kernel.prepare(spec, net, X, g, nd, second=False)
+        lib = kernel.load().lib
+        n_params = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+        if plan.form == "resident":
+            c_bytes = lib.hp_fused_fields_bwd_smem_bytes(n_params, max(layers[:-1]), len(layers) - 1, nd, 0)
+            want_bytes = plan.smem_bytes
+        else:
+            c_bytes = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1], default=0), len(layers) - 1,
+                                                                    nd, 0, plan.chunk_points)
+            want_bytes = plan.scratch_bytes
+        if c_bytes != want_bytes or tuple(partials.shape) != (plan.n_blocks, plan.row_pitch):
+            fail(f"phase 7 firsts {name}: bwd_plan {plan} disagrees with the kernel ({c_bytes} B, partials "
+                 f"{tuple(partials.shape)})")
+        b2 = lambda: kernel.launch(*b2_args)  # noqa: E731
+        b2()
+        (sum_args, sum_keep), _ = block_sum_kernel.prepare(partials)
+        total = lambda: block_sum_kernel.launch(*sum_args)  # noqa: E731
+        ev = [1e3 * cuda_ms(b2) for _ in range(2)]
+        sum_us = 1e3 * cuda_ms(total)
+        p_ms = cuda_ms(lambda: fields_flat_bwd_reference(spec, net, X, g, nd, second=False))
+        t_us = taylor_vjp_us(spec, net, X, g, nd, second=False)
+        bound, by = bound_ms(*bwd_work(layers, P, nd, second=False))
+        rows, cols = partials.shape
+        s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
+        us = (ev[0] + ev[1]) / 2
+        out[name] = {"form": plan.form, "us": us, "runs_us": ev, "plain_ms": p_ms, "taylor_vjp_us": t_us,
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us,
+                     "sum_bound_ms": s_bound, "partials": [rows, cols], "layers": list(layers), "P": P,
+                     "n_dirs": nd, "smem_bytes": plan.smem_bytes, "scratch_bytes": plan.scratch_bytes,
+                     "chunk_points": plan.chunk_points}
+        print(f"phase 7 firsts {name}: layers {layers} {act} P={P} n_dirs={nd}, the {plan.form} form"
+              + (" (forced)" if forced else "") + f", {plan.n_blocks} blocks of {16 * plan.tiles_per_block} points, "
+              f"partials [{rows}, {cols}], smem {plan.smem_bytes} B, scratch {plan.scratch_bytes} B; max_abs_err "
+              f"{err:.3e} (rtol {tol['rtol']} atol {tol['atol']}), two runs bit-identical; C function us/launch "
+              f"(CUDA events, 50 launches) {ev[0]:.2f} {ev[1]:.2f}; bound {1e3 * bound:.3f} us ({by}), "
+              f"{1e3 * bound / us:.3f} of it; block sum us/launch {sum_us:.2f}, bound {1e3 * s_bound:.3f} us "
+              f"({s_by}); plain ms/call {p_ms:.4f}; taylor VJP us/call {t_us:.2f}", flush=True)
+        del b2_keep, sum_keep
+    return out
+
+
+def load_parent_bwd(src_dir: str):
+    """Build B2's library from another checkout's csrc/ (`src_dir`: its
+    fused_fields_bwd.cu and fused_fields_bwd_layered.cu, whose C functions
+    take no `second`) under another name; return the library with both
+    forms' argument types set."""
+    import ctypes
+    from pathlib import Path
+
+    from hpvpinns_tpu_torch.ops.cuda_build import build_library
+
+    lib = build_library("fused_fields_bwd_parent", [Path(src_dir) / "fused_fields_bwd.cu",
+                                                    Path(src_dir) / "fused_fields_bwd_layered.cu"]).lib
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hp_fused_fields_bwd_f32.argtypes = [vp] * 4 + [i32] * 5 + [vp, vp, i32, vp]
+    lib.hp_fused_fields_bwd_layered_f32.argtypes = [vp] * 4 + [i32] * 6 + [vp] * 3 + [i32, vp]
+    lib.hp_fused_fields_bwd_f32.restype = lib.hp_fused_fields_bwd_layered_f32.restype = i32
+    return lib
+
+
+PARENT_CASES = BWD_CASES + [("p2d_scaled 3 x 256", (2, 256, 256, 256, 1), "tanh", 16384, 2)]
+
+
+def against_parent(dev, src_dir: str) -> dict:
+    """With --bwd-parent: the second-derivative partials and gX of both
+    forms bit for bit against `src_dir`'s (the csrc/ from before B2's
+    firsts-only mode) at every phase-7 shape, PARENT_CASES: the resident
+    form where it fits, the layered form (forced where the resident form
+    fits); the C functions by CUDA events over 50 launches in turns parent,
+    this, this, parent.  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import _BWD_KERNELS, bwd_resident_fits
+
+    lib = load_parent_bwd(src_dir)
+    fns = {"resident": lib.hp_fused_fields_bwd_f32, "layered": lib.hp_fused_fields_bwd_layered_f32}
+    rng = np.random.default_rng(72)
+    out = {}
+    for name, layers, act, P, nd in PARENT_CASES:
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
+        for form in ("resident", "layered") if bwd_resident_fits(layers, nd) else ("layered",):
+            kernel = _BWD_KERNELS[form]
+            (args, *keep), partials, gX = kernel.prepare(spec, net, X, g, nd)
+            kernel.launch(*args)
+            other, other_x = torch.full_like(partials, float("nan")), torch.full_like(gX, float("nan"))
+            # the parent's arguments: no `second`, its own outputs (the layered form's scratch shared)
+            n = len(args)
+            theirs_args = args[:7] + args[8:n - 4] + (other.data_ptr(), other_x.data_ptr()) + args[n - 2:]
+            code = fns[form](*theirs_args)
+            torch.cuda.synchronize()
+            if code != 0 or not (torch.equal(partials, other) and torch.equal(gX, other_x)):
+                fail(f"--bwd-parent {name} {form}: the partials or gX differ from {src_dir}'s (CUDA error {code})")
+
+            def theirs(a=theirs_args, f=fns[form]):
+                if f(*a) != 0:
+                    fail(f"--bwd-parent {name} {form}: {src_dir}'s B2 did not launch")
+
+            ours = lambda a=args, k=kernel: k.launch(*a)  # noqa: E731
+            ev = [1e3 * cuda_ms(f) for f in (theirs, ours, ours, theirs)]
+            out[f"{name} {form}"] = {"turns_us": ev, "parent_us": (ev[0] + ev[3]) / 2, "this_us": (ev[1] + ev[2]) / 2}
+            print(f"--bwd-parent {name} {form}: layers {layers} {act} P={P} n_dirs={nd}: partials and gX bit for bit "
+                  f"against {src_dir}'s; C functions us/launch (CUDA events, 50 launches) in turns parent, this, "
+                  f"this, parent {ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f} (this / parent "
+                  f"{(ev[1] + ev[2]) / (ev[0] + ev[3]):.4f})", flush=True)
+            del keep, other, other_x
+    return out
 
 
 FWD_CASES = [  # (name, layers, activation, P, n_dirs, second)
@@ -945,6 +1175,7 @@ def phase3(dev, parent_src=None):
     from hpvpinns_tpu_torch.models.mlp import MLP
     from hpvpinns_tpu_torch.ops.fused_fields import (
         FWD_RESIDENT_WIDTH,
+        bwd_plan,
         fields_flat,
         fields_flat_reference,
         fused_fields_kernel,
@@ -986,13 +1217,23 @@ def phase3(dev, parent_src=None):
                 fail(f"{name}: the staged form differs from the resident form")
             line += ", staged form bit-identical"
         if not second:
-            g = torch.as_tensor(rng.standard_normal(got.shape), dtype=torch.float32, device=dev)
+            # Cotangents of a mean over the points, as phases 7 and 13 (a)
+            # take them: B2 sums the gradient over the points in another
+            # order than autograd through the plain version, and unit
+            # cotangents at 16,384 points give sums of ~1e2 whose f32
+            # rounding, in either order, exceeds a 1e-5 atol.
+            g = torch.as_tensor(rng.standard_normal(got.shape) / math.sqrt(P), dtype=torch.float32, device=dev)
             leaves = [t for layer in params for t in (layer["W"], layer["b"])]
+            zero_counts()
             gk = torch.autograd.grad((fields_flat(spec, params, X, nd, False) * g).sum(), leaves)
+            counts = read_counts()
+            form = bwd_plan(layers, nd, P, second=False).form
+            if counts[FIRSTS[B2_WRAPPER[form]]] != 1 or counts["block_sum"] != 1 or sum(counts.values()) != 3:
+                fail(f"{name}: the firsts-only gradient's launches {counts} (B1, B2's {form} form, the block sum)")
             gr = torch.autograd.grad((fields_flat_reference(spec, params, X, nd, False) * g).sum(), leaves)
             tol = WIDE_GRAD_TOL if wide else GRAD_TOL
             gerr = max(check_close(f"{name} grad {i}", a, b, **tol) for i, (a, b) in enumerate(zip(gk, gr)))
-            line += f", grad max_abs_err {gerr:.3e}"
+            line += f", grad (B2's {form} form, firsts only) max_abs_err {gerr:.3e}"
         with torch.no_grad():
             kernel = lambda: fused_fields_kernel(spec, params, X, nd, second)
             plain = lambda: fields_flat_reference(spec, params, X, nd, second)
@@ -1019,10 +1260,10 @@ def phase3(dev, parent_src=None):
     return max_err, wide_err, times
 
 
-GRAPH_CASES = (  # (label, preset, var_form or None, second derivatives): chunks held against the eager ones
-    ("poisson2d_scaled var_form 1", "poisson2d_scaled", None, False),
-    ("poisson2d_scaled var_form 0", "poisson2d_scaled", 0, True),
-    ("poisson1d_of_record", "poisson1d_of_record", None, True),
+GRAPH_CASES = (  # (label, preset, var_form or None): chunks held against the eager ones
+    ("poisson2d_scaled var_form 1", "poisson2d_scaled", None),  # B2 in firsts-only mode
+    ("poisson2d_scaled var_form 0", "poisson2d_scaled", 0),
+    ("poisson1d_of_record", "poisson1d_of_record", None),
 )
 
 
@@ -1116,42 +1357,45 @@ def lbfgs_graph_against_eager(label: str, prob, c) -> None:
 
 def phase5(dev):
     """The main path.  At GRAPH_CASES under "pallas": graph_against_eager,
-    with the path's kernels as nodes of the captured step.  Then
-    poisson2d_scaled trains 200 steps through `train`.  Returns (host
+    with the path's kernels as nodes of the captured step (B1, B2 and the
+    block sum in either mode).  Then poisson2d_scaled trains 200 steps
+    through `train`: B1, B2's firsts-only launches and the block sum must
+    each launch.  All of it under plain_off_the_card.  Returns (host
     launches by path, the captured step's nodes by path)."""
     import hpvpinns_tpu_torch as hv
 
-    nodes = {}
-    for label, preset, vf, second in GRAPH_CASES:
-        c = dataclasses.replace(getattr(hv, preset)(), deriv_mode="pallas")
-        if vf is not None:
-            c = dataclasses.replace(c, var_form=vf)
-        prob = hv.build(c, device=dev)
-        nodes[label] = graph_against_eager(f"phase 5 {label}", prob, c, SECOND_PATH if second else ("fused_fields",))
-        if vf == 0:
-            lbfgs_graph_against_eager(f"phase 5 {label}", prob, c)
+    with plain_off_the_card("phase 5"):
+        nodes = {}
+        for label, preset, vf in GRAPH_CASES:
+            c = dataclasses.replace(getattr(hv, preset)(), deriv_mode="pallas")
+            if vf is not None:
+                c = dataclasses.replace(c, var_form=vf)
+            prob = hv.build(c, device=dev)
+            nodes[label] = graph_against_eager(f"phase 5 {label}", prob, c, SECOND_PATH)
+            if vf == 0:
+                lbfgs_graph_against_eager(f"phase 5 {label}", prob, c)
 
-    cfg = dataclasses.replace(hv.poisson2d_scaled(), deriv_mode="pallas")
-    pp = hv.build(cfg, device=dev)
-    tcfg = dataclasses.replace(cfg.train, iterations=200, check_every=10)
-    zero_counts()
-    res = hv.train(pp, tcfg, verbose=False)
-    counts = read_counts()
-    loss_hist = res.history["loss"]
-    if not np.all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0]:
-        fail(f"poisson2d_scaled loss did not fall: {loss_hist.tolist()}")
-    if counts["fused_fields"] < 1:
-        fail("poisson2d_scaled: B1 did not launch")
-    u = hv.predict(pp, res.params)
-    if u.shape != (pp.test_points.shape[0], 1) or not np.all(np.isfinite(u)):
-        fail(f"prediction has shape {u.shape} or non-finite values")
-    print(
-        f"phase 5 train poisson2d_scaled pallas: {res.iterations_run} steps, loss {loss_hist[0]:.6e} -> "
-        f"{loss_hist[-1]:.6e}, {res.steps_per_sec:.1f} steps/s (host clock, chunks end in a device sync, first "
-        f"chunk excluded), B1 host launches {counts['fused_fields']} (warm-up and capture; the steps replay the graph)",
-        flush=True,
-    )
-    return {"poisson2d_scaled var_form 1": counts}, nodes
+        cfg = dataclasses.replace(hv.poisson2d_scaled(), deriv_mode="pallas")
+        pp = hv.build(cfg, device=dev)
+        tcfg = dataclasses.replace(cfg.train, iterations=200, check_every=10)
+        zero_counts()
+        res = hv.train(pp, tcfg, verbose=False)
+        counts = read_counts()
+        loss_hist = res.history["loss"]
+        if not np.all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0]:
+            fail(f"poisson2d_scaled loss did not fall: {loss_hist.tolist()}")
+        if min(counts[k] for k in FIRSTS_PATH) < 1 or counts["fused_fields_bwd"] or counts["fused_fields_bwd_layered"]:
+            fail(f"poisson2d_scaled: host launches {counts} (B1, B2 firsts-only and the block sum must launch)")
+        u = hv.predict(pp, res.params)
+        if u.shape != (pp.test_points.shape[0], 1) or not np.all(np.isfinite(u)):
+            fail(f"prediction has shape {u.shape} or non-finite values")
+        print(
+            f"phase 5 train poisson2d_scaled pallas: {res.iterations_run} steps, loss {loss_hist[0]:.6e} -> "
+            f"{loss_hist[-1]:.6e}, {res.steps_per_sec:.1f} steps/s (host clock, chunks end in a device sync, first "
+            f"chunk excluded), host launches {counts} (warm-up and capture; the steps replay the graph)",
+            flush=True,
+        )
+        return {"poisson2d_scaled var_form 1": counts}, nodes
 
 
 def train_checked(prob, cfg, label: str, kernels=(), verbose=False, params=None):
@@ -1474,8 +1718,8 @@ def volumetric_kernels(dev):
     """Phase 13 (a): fused_fields_3d against its plain version
     (taylor_fields_3d) at poisson3d_quality's points (P 8,000, (3,48,48,48,1)
     tanh, random weights), firsts (form 1) and with second derivatives (form
-    0): fields at FIELD_TOL, gradients (autograd through B1 firsts-only;
-    B2 + block sum for second derivatives) at phase 7's tolerance for the
+    0): fields at FIELD_TOL, gradients (B2 + block sum, firsts-only for
+    form 1) at phase 7's tolerance for the
     width; each kernel's device us per call against its bound and the plain
     version's; B2 at width 52 (the resident form) and at P3D_WIDE_B2 (the
     layered form) against its plain version.  Returns {kernel: timings} for the
@@ -1526,7 +1770,7 @@ def volumetric_kernels(dev):
                      "bound_by": by, "max_abs_err": ferr}
         print(f"phase 13 (a) fused_fields_3d {'second' if second else 'firsts'} at poisson3d_quality (P {P}, layers "
               f"{layers} tanh, {nd_cols} columns): fields max_abs_err {ferr:.3e}, grad max_abs_err {gerr:.3e} "
-              f"({'B2 + block sum' if second else 'autograd through the plain firsts'}); B1 ms/call {k_ms:.4f}, "
+              f"({'B2 + block sum' if second else 'B2 firsts-only + block sum'}); B1 ms/call {k_ms:.4f}, "
               f"plain {p_ms:.4f}; device us/call B1 " + (f"{k_dev:.2f}" if k_dev else "not measured")
               + " plain " + (f"{p_dev:.2f}" if p_dev else "not measured") + f"; bound {1e3 * bound:.3f} us ({by})",
               flush=True)
@@ -1591,14 +1835,14 @@ def graph_rates(probs: dict, c, steps: int = 1000, chunk: int = 100):
 
 
 def poisson3d_quality_runs(dev, seed=None, hard_bc=False) -> dict:
-    """Phase 13 (c): poisson3d_quality under "pallas" (form 1, B1
-    firsts-only) at its full schedule through train, and with hard_bc the
+    """Phase 13 (c): poisson3d_quality under "pallas" (form 1: B1 and B2
+    firsts-only, the block sum) at its full schedule through train, and with hard_bc the
     lifted ansatz on "jvp": rel-L2 against the JAX row, phase seconds and
     L-BFGS evaluations an iteration.  Returns the host launches by path."""
     import hpvpinns_tpu_torch as hv
 
     runs = [("poisson3d_quality pallas", dataclasses.replace(hv.poisson3d_quality(), deriv_mode="pallas"),
-             JAX_P3D_QUALITY_REL_L2, ("fused_fields",))]
+             JAX_P3D_QUALITY_REL_L2, FIRSTS_PATH)]
     if hard_bc:
         runs.append(("poisson3d_quality hard_bc jvp", dataclasses.replace(hv.poisson3d_quality(hard_bc=True),
                                                                          deriv_mode="jvp"),
@@ -1622,9 +1866,10 @@ def phase13(dev):
     """Poisson-3D through the three-axis kernel path.  (a) volumetric_kernels;
     (b) graph_against_eager (chunks of 10) at poisson3d_quality form 0
     "pallas" (B1, B2 and the block sum nodes of the captured step), form 1
-    "pallas" (B1) and hard BC "jvp"; (c) poisson3d_quality_runs, then graph
-    steps/s of "pallas" against "taylor" in turns over 1,000 Adam steps
-    each, with device us a step and busy share.  Returns (per-kernel
+    "pallas" (the same, B2 in firsts-only mode) and hard BC "jvp"; (c)
+    poisson3d_quality_runs, then graph steps/s of "pallas" against "taylor"
+    in turns over 1,000 Adam steps each, with device us a step and busy
+    share, with no plain version on the card (plain_off_the_card).  Returns (per-kernel
     timings, host launches by path, the captured step's nodes by path)."""
     import hpvpinns_tpu_torch as hv
 
@@ -1634,14 +1879,15 @@ def phase13(dev):
     nodes = {}
     for label, c, need in (
         ("poisson3d_quality var_form 0", dataclasses.replace(base, var_form=0, deriv_mode="pallas"), SECOND_PATH),
-        ("poisson3d_quality var_form 1", dataclasses.replace(base, deriv_mode="pallas"), ("fused_fields",)),
+        ("poisson3d_quality var_form 1", dataclasses.replace(base, deriv_mode="pallas"), SECOND_PATH),  # firsts
         ("poisson3d_quality hard_bc", dataclasses.replace(hv.poisson3d_quality(hard_bc=True), deriv_mode="jvp"), ()),
     ):
         c = with_check_every(c, 10)
         nodes[label] = graph_against_eager(f"phase 13 (b) {label}", hv.build(c, device=dev), c, need)
-    paths = poisson3d_quality_runs(dev)
-    probs = {m: hv.build(dataclasses.replace(base, deriv_mode=m), device=dev) for m in ("pallas", "taylor")}
-    rates, prof = graph_rates(probs, base)
+    with plain_off_the_card("phase 13 (c)"):
+        paths = poisson3d_quality_runs(dev)
+        probs = {m: hv.build(dataclasses.replace(base, deriv_mode=m), device=dev) for m in ("pallas", "taylor")}
+        rates, prof = graph_rates(probs, base)
     for m, r in rates.items():
         us, busy = prof[m]
         print(f"phase 13 (c) poisson3d_quality var_form 1 {m}: graph steps/s {r[0]!r} {r[1]!r} (1,000 Adam steps a "
@@ -1744,24 +1990,25 @@ MANY_INPUT_CASES = [
 NO_HIDDEN_CASE = ("(256, 1)", (256, 1), "tanh", 8000, 3)
 
 
-def b2_inputs(layers, act, P, nd, rng, dev):
+def b2_inputs(layers, act, P, nd, rng, dev, second=True):
     """A random network, points in [-1, 1]^d and the cotangents of a mean
-    over the points (phase 7's)."""
+    over the points (phase 7's), one column a field of the mode."""
     from hpvpinns_tpu_torch.models.mlp import MLP
 
     spec = MLP(layers=layers, activation=act)
     net = random_net(spec, rng, dev)
     X = torch.as_tensor(rng.uniform(-1.0, 1.0, (P, layers[0])), dtype=torch.float32, device=dev)
-    g = torch.as_tensor(rng.standard_normal((P, 1 + 2 * nd)) / math.sqrt(P), dtype=torch.float32, device=dev)
+    F = 1 + nd * (2 if second else 1)
+    g = torch.as_tensor(rng.standard_normal((P, F)) / math.sqrt(P), dtype=torch.float32, device=dev)
     return spec, net, X, g
 
 
-def forced_b2(kernel, spec, net, X, g, nd):
+def forced_b2(kernel, spec, net, X, g, nd, second=True):
     """B2 through `kernel` (a form's wrapper, forced), then the block sum:
     what fused_fields_bwd runs where bwd_plan gives that form."""
     from hpvpinns_tpu_torch.ops.fused_fields import block_sum_kernel, unpack_params
 
-    partials, gX = kernel(spec, net, X, g, nd)
+    partials, gX = kernel(spec, net, X, g, nd, second=second)
     return unpack_params(spec, block_sum_kernel(partials)), gX
 
 
@@ -1838,7 +2085,7 @@ def layered_replay(dev) -> dict:
     return out
 
 
-def taylor_vjp_us(spec, net, X, g, nd) -> float:
+def taylor_vjp_us(spec, net, X, g, nd, second=True) -> float:
     """µs a call of the "taylor" VJP at these inputs: autograd's backward
     through ops/taylor.py's forward (cuBLAS), the forward taken once outside
     the timing.  A yardstick only: the kernel path never calls it."""
@@ -1848,7 +2095,7 @@ def taylor_vjp_us(spec, net, X, g, nd) -> float:
         Xd = X.detach().requires_grad_(True)
         leaves = [t.detach().requires_grad_(True) for layer in net for t in (layer["W"], layer["b"])]
         prm = [{"W": leaves[i], "b": leaves[i + 1]} for i in range(0, len(leaves), 2)]
-        out = fields_flat_reference(spec, prm, Xd, nd, True)
+        out = fields_flat_reference(spec, prm, Xd, nd, second)
         return 1e3 * cuda_ms(lambda: torch.autograd.grad(out, [Xd] + leaves, g, retain_graph=True))
 
 
@@ -1879,7 +2126,7 @@ def layered_b2(dev) -> dict:
         spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev)
         plan = bwd_plan(layers, nd, P, form="layered")
         c_scratch = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1], default=0), len(layers) - 1, nd,
-                                                                   plan.chunk_points)
+                                                                   1, plan.chunk_points)
         if (c_scratch != plan.scratch_bytes or plan.scratch_bytes > LAYERED_SCRATCH_CAP
                 or plan.n_blocks != -(-plan.chunk_points // (16 * plan.tiles_per_block))):
             fail(f"{name}: bwd_plan {plan} (the kernel's scratch {c_scratch} B)")
@@ -2604,7 +2851,7 @@ def phase17(dev) -> dict:
 # Phase 18: the Navier-Stokes systems, Kovasznay and Taylor-Green, on the JVP
 # engine (a (u, v, p) output: no kernel takes it, so this path launches none).
 NS_PRESETS = ("kovasznay_quality", "kovasznay_precision", "taylorgreen_quality", "taylorgreen_precision")
-NS_RATE_STEPS = {"taylorgreen_precision": 20}  # (c): steps a turn where not 50
+NS_RATE_STEPS = {"taylorgreen_precision": 10}  # (c): steps a turn where not 50
 NS_LOSS_RTOL = 1e-5  # (a): the f32 loss on the card against the f64 loss on the CPU
 NS_GRAD_TOL = 1e-4  # (a): each gradient leaf, against its largest entry
 NS_CUT = (2000, 500)  # (d): kovasznay_quality's Adam and L-BFGS iterations in the default run
@@ -2667,7 +2914,7 @@ def ns_graphs_and_rates(dev) -> None:
     """Phase 18 (b) and (c) at the four presets: one chunk of 20 Adam steps
     as CUDA graphs against the eager chunk, bit for bit, with the captured
     step's nodes; then steps/s of the graph chunk and the eager one (50
-    steps a turn, 20 at taylorgreen_precision whose eager step takes ~0.45 s,
+    steps a turn, 10 at taylorgreen_precision whose eager step takes ~0.7 s,
     in chunks of 10, turns e g g e), device us a step and the
     busy share under the graph (torch.profiler over 20 replayed steps)."""
     import hpvpinns_tpu_torch as hv
@@ -3118,7 +3365,7 @@ MARCH_MEM_GROWTH = 64 << 20  # (f): device memory still allocated after a slab's
 # (f): the marches, each at a cut schedule (per slab), and the rows of
 # benchmarks/MEASUREMENTS.md:1864-1926 beside them (accuracy comparators at
 # their own, uncut budgets; not targets)
-MARCH_CUT = {"burgers": (1000, 0), "advdiff": (1000, 0), "taylorgreen": (150, 0)}
+MARCH_CUT = {"burgers": (1000, 0), "advdiff": (1000, 0), "taylorgreen": (75, 0)}
 JAX_MARCH_ROWS = {"burgers net": "2.87e-2 (hard BC, S 2)", "burgers exact": "4.07e-3 (hard BC, S 2)",
                   "advdiff net": "1.00e-2 (advdiff_forward_precision, S 4, the same weights)",
                   "taylorgreen net": "8.28e-3 (hard BC, S 2)"}
@@ -3397,9 +3644,9 @@ def ensemble_rates(probs: dict, seeds, label: str) -> dict:
 
 def ensemble_record_width(dev) -> dict:
     """Phase 20 (c): poisson2d_scaled (2,20,20,20,1) var_form 1, S in
-    ENS_SEEDS, "taylor" and "pallas": steps/s and seed-steps/s in turns; B1
-    launches S a step (an eager step's count and the captured step's
-    nodes); after one step every member equals its serial `train` twin
+    ENS_SEEDS, "taylor" and "pallas": steps/s and seed-steps/s in turns; B1,
+    B2 in firsts-only mode and the block sum launch S a step (an eager
+    step's count and the captured step's nodes); after one step every member equals its serial `train` twin
     (ENS_STEP_TOL, f32; an entry whose twin gradient is below 1e-3 of its
     leaf's largest is excused, where Adam's first step is lr x sign(g) and
     the sign is rounding).  Returns the launches of each path."""
@@ -3412,13 +3659,15 @@ def ensemble_record_width(dev) -> dict:
         seeds = tuple(range(S))
         probs = {m: hv.build(dataclasses.replace(ens_config(1), deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
         counts, nodes, _ = ensemble_step_launches(probs["pallas"], seeds, f"p2d_scaled_f1_S{S}")
-        if counts["fused_fields"] != S or nodes["fused_fields"] != S:
-            fail(f"phase 20 (c) S {S}: B1 launched {counts['fused_fields']} times in a step, {nodes['fused_fields']} "
-                 f"nodes in the captured step; expected {S}")
+        if (any(counts[k] != S for k in FIRSTS_PATH) or any(nodes[k] != S for k in SECOND_PATH)
+                or counts["fused_fields_bwd"]):
+            fail(f"phase 20 (c) S {S}: an eager step launched {counts}, the captured step's nodes {nodes}; expected "
+                 f"{S} of B1, B2 firsts-only and the block sum")
         rates = ensemble_rates(probs, seeds, f"(c) S {S}")
         paths[f"ensemble p2d_scaled f1 S={S} pallas"] = rates["pallas"][0][3]
-        print(f"phase 20 (c) poisson2d_scaled (2,20,20,20,1) var_form 1 S {S}: B1 {counts['fused_fields']} launches "
-              f"an eager step, {nodes['fused_fields']} nodes in the captured step ({nodes['nodes']} nodes); "
+        print(f"phase 20 (c) poisson2d_scaled (2,20,20,20,1) var_form 1 S {S}: an eager step launches "
+              f"{ {k: counts[k] for k in FIRSTS_PATH} }, the captured step's nodes B1 {nodes['fused_fields']} B2 "
+              f"{nodes['fused_fields_bwd']} block sum {nodes['block_sum']} ({nodes['nodes']} nodes); "
               f"{ENS_STEPS} steps a run, turns taylor pallas pallas taylor: "
               + "; ".join(f"{m} steps/s {[r[0] for r in v]} seed-steps/s {[r[1] for r in v]}" for m, v in rates.items())
               + f"; host launches of a pallas run {rates['pallas'][0][3]}", flush=True)
@@ -3504,9 +3753,9 @@ def ensemble_through_b2(dev) -> dict:
 def ensemble_wide_point(dev) -> dict:
     """Phase 20 (e): the JAX package's wide ensemble operating point
     (bench.py::measure_wide_point): poisson2d_scaled at (2,256,256,256,1),
-    S 4, P 16,384; var_form 1 and var_form 0 (the layered B2, S launches a
-    step), "pallas" against "taylor" in turns: graph steps/s, seed-steps/s
-    and peak device memory."""
+    S 4, P 16,384; var_form 1 and var_form 0 (the layered B2, firsts-only at
+    var_form 1, S launches a step), "pallas" against "taylor" in turns:
+    graph steps/s, seed-steps/s and peak device memory."""
     import hpvpinns_tpu_torch as hv
 
     t0 = time.perf_counter()
@@ -3514,11 +3763,11 @@ def ensemble_wide_point(dev) -> dict:
     for vf in (1, 0):
         c = ens_config(vf, layers=layers, iterations=WIDE_ENS_STEPS, check=WIDE_ENS_STEPS // 2)
         probs = {m: hv.build(dataclasses.replace(c, deriv_mode=m), device=dev) for m in ("pallas", "taylor")}
-        path = SECOND_PATH[:1] + ("fused_fields_bwd_layered", "block_sum") if vf == 0 else ("fused_fields",)
+        path = LAYERED_PATH if vf == 0 else FIRSTS_LAYERED_PATH
         counts, nodes, _ = ensemble_step_launches(probs["pallas"], seeds, f"wide_f{vf}_S4")
-        # the layered B2 is one wrapper call of several kernels: its nodes are a multiple of S
-        if any(counts[k] != 4 or nodes[k] % 4 or nodes[k] < 4 or (nodes[k] != 4 and k != "fused_fields_bwd_layered")
-               for k in path):
+        # the layered B2 is one wrapper call of several kernels (in either mode): its nodes are a multiple of S
+        if (any(counts[k] != 4 for k in path) or any(nodes[k] % 4 or nodes[k] < 4 for k in LAYERED_PATH)
+                or any(nodes[k] != 4 for k in ("fused_fields", "block_sum"))):
             fail(f"phase 20 (e) var_form {vf}: an eager step launched {counts}, the captured step's nodes {nodes}")
         rates = ensemble_rates(probs, seeds, f"(e) var_form {vf}")
         paths[f"ensemble p2d_scaled 3 x 256 f{vf} S=4 pallas"] = rates["pallas"][0][3]
@@ -4316,7 +4565,7 @@ def mesh_rates(prob, cfg, mesh, steps: int = MESH_STEPS, chunk: int = 10):
 def phase23(dev) -> dict:
     """Multi-device training (parallel/*) on the card: (a) one rank, NCCL,
     in this process: poisson2d_scaled under "pallas" at var_form 0 (B1
-    second, resident B2, the block sum) and 1 (B1 firsts), `train` on
+    second, resident B2, the block sum) and 1 (the same, firsts only), `train` on
     element_mesh() against the unsharded `train`, MESH_STEPS steps each: the
     loss histories equal bit for bit (a one-rank sum is a copy), both as
     captured graphs, the step's flat all-reduce issued once inside its
@@ -4346,7 +4595,7 @@ def phase23(dev) -> dict:
     mesh = element_mesh(device=dev)
     if mesh.backend != "nccl" or not mesh.captures:
         fail(f"phase 23 (a): the one-rank mesh on the card is {mesh}, not NCCL")
-    for vf, need in ((0, SECOND_PATH), (1, ("fused_fields",))):
+    for vf, need in ((0, SECOND_PATH), (1, FIRSTS_PATH)):  # host launches; the nodes are SECOND_PATH's at both
         c = mesh_config(vf, MESH_STEPS)
         prob = hv.build(c, device=dev)
         zero_counts()
@@ -4366,7 +4615,8 @@ def phase23(dev) -> dict:
         if (r0.chunk_mode, r1.chunk_mode) != ("graph", "graph"):
             fail(f"phase 23 (a) var_form {vf}: chunk modes {r0.chunk_mode}, {r1.chunk_mode}")
         rates, nodes = mesh_rates(prob, c, mesh)
-        if (min(nodes["mesh"]["kernels"][k] for k in need) < 1 or nodes["mesh"]["nodes"] <= nodes["unsharded"]["nodes"]
+        if (min(nodes["mesh"]["kernels"][k] for k in SECOND_PATH) < 1
+                or nodes["mesh"]["nodes"] <= nodes["unsharded"]["nodes"]
                 or (nodes["mesh"]["captured_allreduces"], nodes["unsharded"]["captured_allreduces"]) != (1, 0)):
             fail(f"phase 23 (a) var_form {vf}: the mesh's captured step {nodes['mesh']} against {nodes['unsharded']}")
         u, m = rates["unsharded"], rates["mesh"]
@@ -4615,6 +4865,97 @@ def mesh_child(argv) -> int:
     return 0
 
 
+def phase10(dev) -> None:
+    """The step under "taylor" and "pallas" at poisson1d_of_record,
+    poisson2d_scaled var_form 0 and 1 and advdiff_of_record: steps/s of the
+    graph chunk against the eager one in turns e g g e, the captured step's
+    nodes (B1, B2 and the block sum under "pallas" at n_dirs 2, B2 in
+    firsts-only mode at var_form 1), the graph's device µs a step and busy
+    share, and the eager step's parts and profile."""
+    import hpvpinns_tpu_torch as hv
+
+    for label, c in (
+        ("poisson1d_of_record", hv.poisson1d_of_record()),
+        ("poisson2d_scaled var_form 0", dataclasses.replace(hv.poisson2d_scaled(), var_form=0)),
+        ("poisson2d_scaled var_form 1", hv.poisson2d_scaled()),
+        ("advdiff_of_record", hv.advdiff_of_record()),
+    ):
+        c = dataclasses.replace(c, train=dataclasses.replace(
+            c.train, iterations=200, check_every=10, lbfgs_iterations=0, threshold=None))
+        for mode in ("taylor", "pallas"):
+            prob = hv.build(dataclasses.replace(c, deriv_mode=mode), device=dev)
+            zero_counts()
+            rates, (gch, _) = chunk_rates(prob, c, 200)
+            counts = read_counts()
+            gn = graph_nodes(gch.graphs[0], f"phase10_{label.replace(' ', '_')}_{mode}")
+            g_us, g_busy = graph_profile(gch)
+            g_rate = (rates["graph"][0] + rates["graph"][1]) / 2
+            if mode == "pallas" and label != "poisson1d_of_record":  # B1 + B2 at n_dirs 2 (firsts only at var_form 1)
+                launched = FIRSTS_PATH if label == "poisson2d_scaled var_form 1" else SECOND_PATH
+                if min(counts[k] for k in launched) < 1 or min(gn[k] for k in SECOND_PATH) < 1:
+                    fail(f"{label}: host launches {counts}, graph nodes {gn}")
+            prm, opt = fresh_state(prob, c)
+            fwd, bwd, adam = part_times(prob, prm, opt)
+            prof = step_profile(prob, prm, opt)
+            e, g = rates["eager"], rates["graph"]
+            print(
+                f"phase 10 {label} {mode}: steps/s eager {e[0]!r} {e[1]!r} graph {g[0]!r} {g[1]!r} (200 steps a "
+                f"turn in chunks of 10, turns e g g e; graph / eager {(g[0] + g[1]) / (e[0] + e[1]):.2f}x); graph: "
+                f"{gn['nodes']} nodes a step ({gn['kernels']} kernels; B1 {gn['fused_fields']}, B2 "
+                f"{gn['fused_fields_bwd']}, block sum {gn['block_sum']}), device us/step "
+                + (f"{g_us!r}, busy {g_busy!r} in the profiler's window, {g_us * 1e-6 * g_rate!r} as device "
+                   f"us/step x graph steps/s" if g_us else "not measured")
+                + f"; eager: fwd / bwd / Adam ms {fwd!r} / {bwd!r} / {adam!r}; device us/step "
+                f"{prof['device_us']!r}; launches/step {prof['launches']!r}; busy {prof['busy']!r}; top "
+                + "; ".join(f"{name} {us!r}" for name, us in prof["top"]),
+                flush=True,
+            )
+
+
+def phase11(dev) -> dict:
+    """poisson2d_scaled with the (2, 256, 256, 256, 1) network (B1's staged
+    form, the layered B2 in firsts-only mode): loss and gradients "taylor"
+    against "pallas", 50 Adam steps through train under "pallas" (its host
+    launches counted, zeroed just before), steps/s e g g e under both modes.
+    Returns the train's host launches."""
+    import hpvpinns_tpu_torch as hv
+
+    wcfg = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1))
+    wcfg = dataclasses.replace(wcfg, train=dataclasses.replace(
+        wcfg.train, iterations=50, check_every=10, lbfgs_iterations=0, threshold=None))
+    wprobs = {m: hv.build(dataclasses.replace(wcfg, deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
+    wparams = wprobs["taylor"].init_params(torch.Generator().manual_seed(wcfg.train.seed))
+    wleaves = [t for layer in wparams["net"] for t in (layer["W"], layer["b"])]
+    lt, _ = wprobs["taylor"].loss_fn(wparams, wprobs["taylor"].data)
+    lp, _ = wprobs["pallas"].loss_fn(wparams, wprobs["pallas"].data)
+    check_close("wide loss pallas vs taylor", lp.detach(), lt.detach(), rtol=1e-5, atol=0.0)
+    gt = torch.autograd.grad(lt, wleaves)
+    gp = torch.autograd.grad(lp, wleaves)
+    gerr = max(check_close(f"wide loss grad {i}", a, b, rtol=1e-3, atol=1e-4) for i, (a, b) in enumerate(zip(gp, gt)))
+    zero_counts()
+    rw = hv.train(wprobs["pallas"], verbose=False)
+    counts = read_counts()
+    hw = rw.history["loss"]
+    if not np.all(np.isfinite(hw)) or not hw[-1] < hw[0]:
+        fail(f"poisson2d_scaled 3 x 256 loss did not fall: {hw[[0, -1]].tolist()}")
+    if min(counts[k] for k in FIRSTS_LAYERED_PATH) < 1:
+        fail(f"poisson2d_scaled 3 x 256: host launches {counts} (B1, the layered B2 firsts-only, the block sum)")
+    wrates = {}
+    for mode, prob in wprobs.items():
+        wrates[mode], (gch, _) = chunk_rates(prob, wcfg, 50)
+        if mode == "pallas" and min((gn := graph_nodes(gch.graphs[0], "phase11_pallas"))[k] for k in LAYERED_PATH) < 1:
+            fail(f"poisson2d_scaled 3 x 256: the captured step's nodes {gn} (B1, the layered B2, the block sum)")
+    print(
+        f"phase 11 poisson2d_scaled layers {wcfg.layers}: loss taylor {lt.item():.6e} pallas {lp.item():.6e}, grad "
+        f"max_abs_err {gerr:.3e}; 50 Adam steps under pallas: loss {hw[0]:.6e} -> {hw[-1]:.6e}, host launches "
+        f"{counts}; steps/s (50 steps a turn, turns e g g e) "
+        + "; ".join(f"{m} eager {r['eager'][0]!r} {r['eager'][1]!r} graph {r['graph'][0]!r} {r['graph'][1]!r}"
+                    for m, r in wrates.items()),
+        flush=True,
+    )
+    return counts
+
+
 def main() -> int:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4660,6 +5001,12 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--bwd-only"]:  # for work on B2: phases 1, 2 and 7 only, no summary
         phase7(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+
+    if sys.argv[1:2] == ["--bwd-parent"]:  # phases 1, 2, 7 and both forms bit for bit against a parent's csrc/
+        phase7(dev)
+        against_parent(dev, sys.argv[2])
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
     if sys.argv[1:2] == ["--wide-only"]:  # for work on B2 above the resident form: phases 1, 2 and 15, no summary
@@ -4815,7 +5162,7 @@ def main() -> int:
 
     # 7. B2 and its block sum against the plain backward; the block sum on two
     # streams at once
-    bwd_err, sum_err, bwd_times = phase7(dev)
+    bwd_err, sum_err, bwd_times, firsts_times = phase7(dev)
     two_streams(dev)
 
     # 8. the second-derivative losses both ways
@@ -4857,78 +5204,12 @@ def main() -> int:
 
     # 10. the step at three configurations, "taylor" and "pallas": steps/s of
     # the graph chunk against the eager one, the graph's device time and busy
-    # share, and the eager step's parts and profile
-    for label, c in (
-        ("poisson1d_of_record", hv.poisson1d_of_record()),
-        ("poisson2d_scaled var_form 0", dataclasses.replace(hv.poisson2d_scaled(), var_form=0)),
-        ("poisson2d_scaled var_form 1", hv.poisson2d_scaled()),
-        ("advdiff_of_record", hv.advdiff_of_record()),
-    ):
-        c = dataclasses.replace(c, train=dataclasses.replace(
-            c.train, iterations=200, check_every=10, lbfgs_iterations=0, threshold=None))
-        for mode in ("taylor", "pallas"):
-            prob = hv.build(dataclasses.replace(c, deriv_mode=mode), device=dev)
-            zero_counts()
-            rates, (gch, _) = chunk_rates(prob, c, 200)
-            counts = read_counts()
-            gn = graph_nodes(gch.graphs[0], f"phase10_{label.replace(' ', '_')}_{mode}")
-            g_us, g_busy = graph_profile(gch)
-            g_rate = (rates["graph"][0] + rates["graph"][1]) / 2
-            if mode == "pallas" and label in ("poisson2d_scaled var_form 0", "advdiff_of_record"):  # B1 + B2 at n_dirs 2
-                if min(counts[k] for k in SECOND_PATH) < 1 or min(gn[k] for k in SECOND_PATH) < 1:
-                    fail(f"{label}: host launches {counts}, graph nodes {gn}")
-            prm, opt = fresh_state(prob, c)
-            fwd, bwd, adam = part_times(prob, prm, opt)
-            prof = step_profile(prob, prm, opt)
-            e, g = rates["eager"], rates["graph"]
-            print(
-                f"phase 10 {label} {mode}: steps/s eager {e[0]!r} {e[1]!r} graph {g[0]!r} {g[1]!r} (200 steps a "
-                f"turn in chunks of 10, turns e g g e; graph / eager {(g[0] + g[1]) / (e[0] + e[1]):.2f}x); graph: "
-                f"{gn['nodes']} nodes a step ({gn['kernels']} kernels; B1 {gn['fused_fields']}, B2 "
-                f"{gn['fused_fields_bwd']}, block sum {gn['block_sum']}), device us/step "
-                + (f"{g_us!r}, busy {g_busy!r} in the profiler's window, {g_us * 1e-6 * g_rate!r} as device "
-                   f"us/step x graph steps/s" if g_us else "not measured")
-                + f"; eager: fwd / bwd / Adam ms {fwd!r} / {bwd!r} / {adam!r}; device us/step "
-                f"{prof['device_us']!r}; launches/step {prof['launches']!r}; busy {prof['busy']!r}; top "
-                + "; ".join(f"{name} {us!r}" for name, us in prof["top"]),
-                flush=True,
-            )
+    # share, and the eager step's parts and profile; no plain version on the card
+    with plain_off_the_card("phase 10"):
+        phase10(dev)
 
     # 11. the wide path: poisson2d_scaled with the 3 x 256 network, on the staged form of B1
-    wcfg = dataclasses.replace(hv.poisson2d_scaled(), layers=(2, 256, 256, 256, 1))
-    wcfg = dataclasses.replace(wcfg, train=dataclasses.replace(
-        wcfg.train, iterations=50, check_every=10, lbfgs_iterations=0, threshold=None))
-    wprobs = {m: hv.build(dataclasses.replace(wcfg, deriv_mode=m), device=dev) for m in ("taylor", "pallas")}
-    wparams = wprobs["taylor"].init_params(torch.Generator().manual_seed(wcfg.train.seed))
-    wleaves = [t for layer in wparams["net"] for t in (layer["W"], layer["b"])]
-    lt, _ = wprobs["taylor"].loss_fn(wparams, wprobs["taylor"].data)
-    lp, _ = wprobs["pallas"].loss_fn(wparams, wprobs["pallas"].data)
-    check_close("wide loss pallas vs taylor", lp.detach(), lt.detach(), rtol=1e-5, atol=0.0)
-    gt = torch.autograd.grad(lt, wleaves)
-    gp = torch.autograd.grad(lp, wleaves)
-    gerr = max(check_close(f"wide loss grad {i}", a, b, rtol=1e-3, atol=1e-4) for i, (a, b) in enumerate(zip(gp, gt)))
-    zero_counts()
-    rw = hv.train(wprobs["pallas"], verbose=False)
-    wide_launches = read_counts()["fused_fields"]
-    paths["poisson2d_scaled 3 x 256"] = {"fused_fields": wide_launches}
-    hw = rw.history["loss"]
-    if not np.all(np.isfinite(hw)) or not hw[-1] < hw[0]:
-        fail(f"poisson2d_scaled 3 x 256 loss did not fall: {hw[[0, -1]].tolist()}")
-    if wide_launches < 1:
-        fail("poisson2d_scaled 3 x 256: B1 did not launch")
-    wrates = {}
-    for mode, prob in wprobs.items():
-        wrates[mode], (gch, _) = chunk_rates(prob, wcfg, 50)
-        if mode == "pallas" and graph_nodes(gch.graphs[0], "phase11_pallas")["fused_fields"] < 1:
-            fail("poisson2d_scaled 3 x 256: B1 is not in the captured step")
-    print(
-        f"phase 11 poisson2d_scaled layers {wcfg.layers}: loss taylor {lt.item():.6e} pallas {lp.item():.6e}, grad "
-        f"max_abs_err {gerr:.3e}; 50 Adam steps under pallas: loss {hw[0]:.6e} -> {hw[-1]:.6e}, B1 host launches "
-        f"{wide_launches}; steps/s (50 steps a turn, turns e g g e) "
-        + "; ".join(f"{m} eager {r['eager'][0]!r} {r['eager'][1]!r} graph {r['graph'][0]!r} {r['graph'][1]!r}"
-                    for m, r in wrates.items()),
-        flush=True,
-    )
+    paths["poisson2d_scaled 3 x 256"] = phase11(dev)
 
     # 12. AdvDiff identification: forms, graphs, the Adam and L-BFGS schedules
     adv_paths, adv_nodes = phase12(dev)
@@ -5004,6 +5285,21 @@ def main() -> int:
     main_counts = paths["poisson2d_scaled var_form 1"]
     lay = wide_times["layered"]
     lay_main = lay["p2d_scaled 3 x 256"]
+    f_res, f_lay = firsts_times["p2d_scaled"], firsts_times["p2d_scaled 3 x 256"]
+
+    def firsts_entry(name, source, form, main, launches, shape):
+        """A B2 form in firsts-only mode: its C function's time at `main` (a
+        phase7_firsts case), its launches on the path that runs it."""
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "hpvpinns_tpu/ops/pallas_fields.py:259", "mode": "firsts only (second=False)",
+                "replaces_path": "hpvpinns_tpu/ops/pallas_fields.py:190-196 (XLA's VJP of the Taylor path)",
+                "launches": launches,
+                "max_abs_err": max(v["max_abs_err"] for v in firsts_times.values() if v["form"] == form),
+                "ms": main["us"] * 1e-3, "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None, "shape": shape,
+                "taylor_vjp_ms": main["taylor_vjp_us"] * 1e-3, "block_sum_us": main["sum_us"],
+                "block_sum_bound_ms": main["sum_bound_ms"], "partials": main["partials"],
+                "by_shape": {k: v for k, v in firsts_times.items() if v["form"] == form}}
     kernels = [
         {"name": "fused_fields", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields.cu",
          "replaces": "hpvpinns_tpu/ops/pallas_fields.py:48", "launches": main_counts["fused_fields"],
@@ -5030,8 +5326,14 @@ def main() -> int:
          "block_sum_bound_ms": lay_main["sum_bound_ms"], "partials": lay_main["partials"],
          "replay": wide_times["layered replay"], "by_shape": lay, "cap": wide_times["cap"],
          "train": wide_times["train"]},
+        firsts_entry("fused_fields_bwd_firsts", "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu", "resident", f_res,
+                     main_counts["fused_fields_bwd_firsts"],
+                     "poisson2d_scaled firsts, P 16384 (C function, CUDA events)"),
+        firsts_entry("fused_fields_bwd_layered_firsts", "hpvpinns_tpu_torch/csrc/fused_fields_bwd_layered.cu",
+                     "layered", f_lay, paths["poisson2d_scaled 3 x 256"]["fused_fields_bwd_layered_firsts"],
+                     "(2, 256, 256, 256, 1) firsts, P 16384 (C function, CUDA events)"),
         {"name": "block_sum", "route": "cuda", "source": "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu",
-         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": paths["poisson1d_quality pallas"]["block_sum"],
+         "replaces": "hpvpinns_tpu/ops/pallas_fields.py:328", "launches": main_counts["block_sum"],
          "max_abs_err": sum_err, "ms": ms7["sum"], "plain_ms": ms7["torch.sum"], "bound_ms": sum_bound[0],
          "bound_by": sum_bound[1], "library_ms": ms7["torch.sum"], "shape": f"B2 partials {list(pshape)}",
          "device_us": dev7["sum"], "library_device_us": dev7["torch.sum"]},

@@ -8,7 +8,11 @@
 // _pallas_fields_bwd, the custom VJP of fields_flat for second=True).  Given
 // the cotangent g [P, S] of every field column (S = 1 + 2 n_dirs: u, u_k,
 // u_kk), it returns the gradient of sum(g * fields) with respect to every
-// W_l, b_l and (optionally) X.
+// W_l, b_l and (optionally) X.  The same kernel, compiled without the
+// second-order streams (SECOND false: S = 1 + n_dirs, z_kk, h_kk and gz_kk
+// gone), is the VJP of fields_flat for second=False, which the JAX package
+// leaves to XLA's VJP of its Taylor path (pallas_fields.py:190-196): the
+// var_form-1 backward.
 //
 // Per tile of 16 points: replay the forward (z = h W + b, z_k = h_k W,
 // z_kk = h_kk W; h' = act(z), h_k' = act'(z) z_k,
@@ -136,13 +140,13 @@ __device__ __forceinline__ void store_pts(float* p, const float (&v)[PT]) {
 // the warp's lanes of one neuron read consecutive words.
 __device__ __forceinline__ bool narrow(int width) { return width <= 32; }
 
-// Input streams of layer 0: h = x, h_k = e_k, h_kk = 0.  Thread tid < 16 d
+// Input streams of layer 0: h = x, h_k = e_k[, h_kk = 0].  Thread tid < 16 d
 // takes x[p0 + tid % 16, tid / 16] from x_own (loaded by load_tile); any
 // further values of x (d > 16) come from X.
-template <int ND>
+template <int ND, bool SECOND>
 __device__ void seed_inputs(const float* __restrict__ X, int d, int p0, int P, int max_w,
                             float* h, int tid, float x_own) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   for (int idx = tid; idx < S * d * kBlockPoints; idx += kThreads) {
     const int p = idx % kBlockPoints;
     const int i = (idx / kBlockPoints) % d;
@@ -159,12 +163,12 @@ __device__ void seed_inputs(const float* __restrict__ X, int d, int p0, int P, i
 }
 
 // Forward replay of hidden layer (W [din, dout], b): z_s = h_s W (+ b on the
-// value stream) for every stream s; stashes (t or z, z_k, z_kk) in st and
+// value stream) for every stream s; stashes (t or z, z_k[, z_kk]) in st and
 // writes the layer's output streams to hout.
-template <int ND, int ACT, int PT, int UNR>
+template <int ND, int ACT, int PT, int UNR, bool SECOND>
 __device__ __forceinline__ void replay_layer(const float* hin, const float* W, const float* b, int din,
                                              int dout, int max_w, float* st, float* hout, int tid) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   const int j = tid / (kBlockPoints / PT);
   const int p = (tid % (kBlockPoints / PT)) * PT;
   if (j >= dout) return;
@@ -194,17 +198,17 @@ __device__ __forceinline__ void replay_layer(const float* hin, const float* W, c
     float v[S], h[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) v[s] = acc[s][e];
-    outputs<ND, ACT>(v, h);
+    outputs<ND, ACT, SECOND>(v, h);
 #pragma unroll
     for (int s = 0; s < S; ++s) hout[at(s, j, max_w) + p + e] = h[s];
   }
 }
 
 // A hidden layer's output streams, recomputed from its stash.
-template <int ND, int ACT, int PT>
+template <int ND, int ACT, int PT, bool SECOND>
 __device__ __forceinline__ void activate_layer(const float* st, int width, int max_w, float* h,
                                                int tid) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   const int j = tid / (kBlockPoints / PT);
   const int p = (tid % (kBlockPoints / PT)) * PT;
   if (j >= width) return;
@@ -213,17 +217,16 @@ __device__ __forceinline__ void activate_layer(const float* st, int width, int m
     float v[S], out[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) v[s] = st[at(s, j, max_w) + p + e];
-    outputs<ND, ACT>(v, out);
+    outputs<ND, ACT, SECOND>(v, out);
 #pragma unroll
     for (int s = 0; s < S; ++s) h[at(s, j, max_w) + p + e] = out[s];
   }
 }
 
 // gh_s = gz_s W^T for every stream: the cotangents of the layer's inputs.
-template <int ND, int PT, int UNR>
+template <int S, int PT, int UNR>
 __device__ __forceinline__ void gh_layer(const float* gz, const float* W, int din, int dout, int max_w,
                                          float* gh, int tid) {
-  constexpr int S = 1 + 2 * ND;
   const int i = tid / (kBlockPoints / PT);
   const int p = (tid % (kBlockPoints / PT)) * PT;
   if (i >= din) return;
@@ -248,10 +251,10 @@ __device__ __forceinline__ void gh_layer(const float* gz, const float* W, int di
 }
 
 // gz of a hidden layer from gh and its stash (gz_point at every point).
-template <int ND, int ACT, int PT>
+template <int ND, int ACT, int PT, bool SECOND>
 __device__ __forceinline__ void gz_layer(const float* st, const float* gh, int width, int max_w, float* gz,
                                          int tid) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   const int j = tid / (kBlockPoints / PT);
   const int p = (tid % (kBlockPoints / PT)) * PT;
   if (j >= width) return;
@@ -263,7 +266,7 @@ __device__ __forceinline__ void gz_layer(const float* st, const float* gh, int w
       v[s] = st[at(s, j, max_w) + p + e];
       g[s] = gh[at(s, j, max_w) + p + e];
     }
-    gz_point<ND, ACT>(v, g, out);
+    gz_point<ND, ACT, SECOND>(v, g, out);
 #pragma unroll
     for (int s = 0; s < S; ++s) gz[at(s, j, max_w) + p + e] = out[s];
   }
@@ -313,14 +316,15 @@ __device__ __forceinline__ void gw_tiles(const float* h, const float* gz, int di
 }
 
 // MINB: the blocks per SM the register budget is set for (launch picks 4
-// where four blocks' shared memory fits an SM, else 1).
-template <int ND, int ACT, int MINB>
+// where four blocks' shared memory fits an SM, else 1).  SECOND: the fields
+// u, u_k, u_kk (else u, u_k).
+template <int ND, int ACT, int MINB, bool SECOND>
 __global__ void __launch_bounds__(kThreads, MINB)
 fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G,
                         const float* __restrict__ params, const Widths wd, const int n_params,
                         const int max_w, const int P, const int tiles, float* __restrict__ partials,
                         float* __restrict__ gX) {
-  constexpr int S = 1 + 2 * ND;  // streams = field columns
+  constexpr int S = streams(ND, SECOND);  // streams = field columns
   // Loop unrolling: deep where one block has the SM to itself (latency
   // bound), shallow where four share its registers.
   constexpr int UNR = MINB == 1 ? 4 : 2;
@@ -355,10 +359,10 @@ fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G
     const int gg = p0 + tid / S;
     const float g_own = tid < kBlockPoints * S && gg < P ? G[(size_t)p0 * S + tid] : 0.0f;
     __syncthreads();  // the previous tile's last reads of hin and gz are done
-    seed_inputs<ND>(X, d, p0, P, max_w, hin, tid, x_own);
+    seed_inputs<ND, SECOND>(X, d, p0, P, max_w, hin, tid, x_own);
     __syncthreads();
 
-    // ---- forward replay through the hidden layers, stashing (t or z), z_k, z_kk ----
+    // ---- forward replay through the hidden layers, stashing (t or z), z_k[, z_kk] ----
     const float* Wl = wsm;
     for (int l = 0; l < L - 1; ++l) {
       const int din = wd.w[l];
@@ -366,9 +370,9 @@ fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G
       const float* bl = Wl + din * dout;
       float* st = stash + l * buf;
       if (narrow(dout))
-        replay_layer<ND, ACT, 2, UNR>(hin, Wl, bl, din, dout, max_w, st, hout, tid);
+        replay_layer<ND, ACT, 2, UNR, SECOND>(hin, Wl, bl, din, dout, max_w, st, hout, tid);
       else
-        replay_layer<ND, ACT, 4, UNR>(hin, Wl, bl, din, dout, max_w, st, hout, tid);
+        replay_layer<ND, ACT, 4, UNR, SECOND>(hin, Wl, bl, din, dout, max_w, st, hout, tid);
       __syncthreads();
       float* t = hin;
       hin = hout;
@@ -387,7 +391,7 @@ fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G
       const int dout = wd.w[l + 1];
       const float* W = wsm + off;
       // gW and gb, added to this block's sums; the h_kk streams of the input
-      // layer are zero.
+      // layer are zero (firsts only: S is 1 + ND).
       gw_tiles<S, UNR>(hin, gz, din, dout, l == 0 ? 1 + ND : S, max_w, acc + off, tid);
       for (int j = tid; j < dout; j += kThreads) {
         const float* gs = gz + at(0, j, max_w);
@@ -409,24 +413,24 @@ fused_fields_bwd_kernel(const float* __restrict__ X, const float* __restrict__ G
         break;
       }
       if (narrow(din))
-        gh_layer<ND, 2, UNR>(gz, W, din, dout, max_w, gh, tid);
+        gh_layer<S, 2, UNR>(gz, W, din, dout, max_w, gh, tid);
       else
-        gh_layer<ND, 4, UNR>(gz, W, din, dout, max_w, gh, tid);
+        gh_layer<S, 4, UNR>(gz, W, din, dout, max_w, gh, tid);
       __syncthreads();
 
       // Hidden layer l - 1 (output width din): its gz from gh and the stash,
       // and its input streams, recomputed from the layer below.
       const float* st = stash + (l - 1) * buf;
       if (narrow(din))
-        gz_layer<ND, ACT, 2>(st, gh, din, max_w, gz, tid);
+        gz_layer<ND, ACT, 2, SECOND>(st, gh, din, max_w, gz, tid);
       else
-        gz_layer<ND, ACT, 4>(st, gh, din, max_w, gz, tid);
+        gz_layer<ND, ACT, 4, SECOND>(st, gh, din, max_w, gz, tid);
       if (l == 1) {
-        seed_inputs<ND>(X, d, p0, P, max_w, hin, tid, x_own);
+        seed_inputs<ND, SECOND>(X, d, p0, P, max_w, hin, tid, x_own);
       } else if (narrow(wd.w[l - 1])) {
-        activate_layer<ND, ACT, 2>(stash + (l - 2) * buf, wd.w[l - 1], max_w, hin, tid);
+        activate_layer<ND, ACT, 2, SECOND>(stash + (l - 2) * buf, wd.w[l - 1], max_w, hin, tid);
       } else {
-        activate_layer<ND, ACT, 4>(stash + (l - 2) * buf, wd.w[l - 1], max_w, hin, tid);
+        activate_layer<ND, ACT, 4, SECOND>(stash + (l - 2) * buf, wd.w[l - 1], max_w, hin, tid);
       }
       __syncthreads();
       off -= wd.w[l - 1] * din + din;
@@ -548,6 +552,7 @@ struct BwdArgs {
   const float* params;
   Widths wd;
   int n_params, max_w, P, tiles;
+  bool second;
   float* partials;
   float* gX;
   size_t smem;
@@ -564,12 +569,12 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-template <int ND, int ACT, int MINB>
+template <int ND, int ACT, int MINB, bool SECOND>
 cudaError_t launch(const BwdArgs& a) {
   // Opt in to more dynamic shared memory only when a launch needs more than
   // any before it (per instantiation and device), as B1 does.
   static int allowed[kMaxDevices] = {};
-  auto kernel = fused_fields_bwd_kernel<ND, ACT, MINB>;
+  auto kernel = fused_fields_bwd_kernel<ND, ACT, MINB, SECOND>;
   const bool known = a.device >= 0 && a.device < kMaxDevices;
   if (!known || (int)a.smem > allowed[a.device]) {
     cudaError_t err =
@@ -586,25 +591,31 @@ cudaError_t launch(const BwdArgs& a) {
 
 // Four blocks an SM where their shared memory fits (228 KB an SM, 1 KB of
 // it reserved per block), so their registers are capped at 64; else one.
-template <int ND, int ACT>
+template <int ND, int ACT, bool SECOND>
 cudaError_t launch_minb(const BwdArgs& a) {
-  return 4 * (a.smem + 1024) <= 228 * 1024 ? launch<ND, ACT, 4>(a) : launch<ND, ACT, 1>(a);
+  return 4 * (a.smem + 1024) <= 228 * 1024 ? launch<ND, ACT, 4, SECOND>(a) : launch<ND, ACT, 1, SECOND>(a);
+}
+
+template <int ND, bool SECOND>
+cudaError_t launch_act(int act, const BwdArgs& a) {
+  return act == 0 ? launch_minb<ND, 0, SECOND>(a) : launch_minb<ND, 1, SECOND>(a);
 }
 
 template <int ND>
-cudaError_t launch_act(int act, const BwdArgs& a) {
-  return act == 0 ? launch_minb<ND, 0>(a) : launch_minb<ND, 1>(a);
+cudaError_t launch_mode(int act, const BwdArgs& a) {
+  return a.second ? launch_act<ND, true>(act, a) : launch_act<ND, false>(act, a);
 }
 
 // The arguments, checked, into a (widths up to kResidentMaxWidth); else an
 // error code.
 cudaError_t bwd_args(const float* X, const float* G, const float* params, const int* widths, int n_layers, int P,
-                     int n_dirs, int activation, int tiles, float* partials, float* gX, int device, void* stream,
-                     BwdArgs& a) {
+                     int n_dirs, int second, int activation, int tiles, float* partials, float* gX, int device,
+                     void* stream, BwdArgs& a) {
   if (n_layers < 1 || n_layers > kMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
-      activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0])
+      second < 0 || second > 1 || activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0])
     return cudaErrorInvalidValue;
-  a = BwdArgs{X, G, params, Widths{}, 0, 0, P, tiles, partials, gX, 0, device, static_cast<cudaStream_t>(stream)};
+  a = BwdArgs{X,  G,  params, Widths{}, 0, 0, P, tiles, second == 1, partials, gX, 0, device,
+              static_cast<cudaStream_t>(stream)};
   a.wd.n_layers = n_layers;
   for (int l = 0; l <= n_layers; ++l) {
     if (widths[l] < 1 || widths[l] > kResidentMaxWidth) return cudaErrorInvalidValue;
@@ -629,11 +640,11 @@ int hp_fused_fields_bwd_point_stride() { return kPointStride; }
 
 // Shared memory (bytes) one block needs: the packed network, the block's
 // gW/gb sums (each n_params rounded up to a multiple of 4), the stash of the
-// n_layers - 1 hidden layers and three stream buffers.  The wrapper checks it
-// against the card's limit before launching; ops/fused_fields.py::bwd_plan
-// repeats it.
-long long hp_fused_fields_bwd_smem_bytes(int n_params, int max_w, int n_layers, int n_dirs) {
-  const long long S = 1 + 2 * n_dirs;
+// n_layers - 1 hidden layers and three stream buffers, each of
+// streams(n_dirs, second) streams.  The wrapper checks it against the card's
+// limit before launching; ops/fused_fields.py::bwd_plan repeats it.
+long long hp_fused_fields_bwd_smem_bytes(int n_params, int max_w, int n_layers, int n_dirs, int second) {
+  const long long S = streams(n_dirs, second != 0);
   return (long long)sizeof(float) *
          (2LL * padded(n_params) + (n_layers + 2LL) * S * max_w * kPointStride);
 }
@@ -647,7 +658,8 @@ int hp_fused_fields_bwd_smem_limit(int device) {
   return bytes;
 }
 
-// X [P, widths[0]] and G [P, 1 + 2 n_dirs] row-major fp32 on device `device`;
+// X [P, widths[0]] and G [P, 1 + 2 n_dirs] (second = 1) or [P, 1 + n_dirs]
+// (second = 0: the fields u, u_k alone) row-major fp32 on device `device`;
 // params packs W_0 [in, out], b_0, W_1, b_1, ... back to back (n_params
 // floats); widths (host memory) has n_layers + 1 entries and ends in 1.  Each
 // block takes `tiles` consecutive tiles of 16 points and writes one row of
@@ -655,18 +667,18 @@ int hp_fused_fields_bwd_smem_limit(int device) {
 // gb in the packed layout, pad columns zero.  Unless gX is null it writes gX
 // [P, widths[0]].  activation: 0 = tanh, 1 = sin.  Launches on `stream`, does
 // not synchronise, and returns cudaGetLastError() (0 on success).
-int hp_fused_fields_bwd_f32(const float* X, const float* G, const float* params,
-                            const int* widths, int n_layers, int P, int n_dirs, int activation,
-                            int tiles, float* partials, float* gX, int device, void* stream) {
+int hp_fused_fields_bwd_f32(const float* X, const float* G, const float* params, const int* widths,
+                            int n_layers, int P, int n_dirs, int second, int activation, int tiles,
+                            float* partials, float* gX, int device, void* stream) {
   BwdArgs a;
-  cudaError_t err = bwd_args(X, G, params, widths, n_layers, P, n_dirs, activation, tiles, partials, gX, device,
-                             stream, a);
+  cudaError_t err = bwd_args(X, G, params, widths, n_layers, P, n_dirs, second, activation, tiles, partials, gX,
+                             device, stream, a);
   if (err != cudaSuccess) return (int)err;
-  a.smem = (size_t)hp_fused_fields_bwd_smem_bytes(a.n_params, a.max_w, n_layers, n_dirs);
+  a.smem = (size_t)hp_fused_fields_bwd_smem_bytes(a.n_params, a.max_w, n_layers, n_dirs, second);
   switch (n_dirs) {
-    case 1: return (int)launch_act<1>(activation, a);
-    case 2: return (int)launch_act<2>(activation, a);
-    default: return (int)launch_act<3>(activation, a);
+    case 1: return (int)launch_mode<1>(activation, a);
+    case 2: return (int)launch_mode<2>(activation, a);
+    default: return (int)launch_mode<3>(activation, a);
   }
 }
 

@@ -7,7 +7,12 @@
 // Replaces hpvpinns_tpu/ops/pallas_fields.py::_fields_bwd_kernel (:259-381,
 // launched by _pallas_fields_bwd :385-448), the VJP of fields_flat for
 // second=True: from the cotangent g [P, S] of every field column (S = 1 +
-// 2 n_dirs: u, u_k, u_kk) it gives gW, gb of every layer and gX.  The TPU
+// 2 n_dirs: u, u_k, u_kk) it gives gW, gb of every layer and gX.  Compiled
+// without the second-order streams (SECOND false: S = 1 + n_dirs, the stash
+// (t or z, z_k), no z_kk, h_kk or gz_kk) it is the VJP of fields_flat for
+// second=False, which the JAX package leaves to XLA (pallas_fields.py:
+// 190-196); a firsts-only chunk holds (1 + 2 n_dirs) / (1 + n_dirs) times
+// the points of a second-derivative one under the same cap.  The TPU
 // kernel walks tiles of points through every layer at once; here each layer
 // is one launch over a chunk of points:
 //   seed     stash_0 from X (layer 0: z = x W + b, z_k = W[k], z_kk = 0)
@@ -65,7 +70,7 @@
 //   8 x 8 entries); per k step one 16-byte load of W and S of the streams feed
 //   16 S FMAs (gW: four loads, 64 FMAs).
 // - A barrier every chunk of k, no overlap: chunks of 8 k (gW: 2 points x S,
-//   4 at S = 3) are double-buffered in shared memory, the next chunk's
+//   4 at S <= 3) are double-buffered in shared memory, the next chunk's
 //   cp.async copies in flight during this chunk's FMAs, one barrier a chunk.
 //   The A operand (H from the stash) lands in a staging buffer and each
 //   thread applies outputs() to its own words on their way to the chunk's
@@ -153,13 +158,13 @@ __device__ __forceinline__ void put(float* at, float v) {
 
 // ---------------------------------------------------------------------------
 // seed: the stash of hidden layer 0 from X [P, d]: z = sum_i x_i W0[i, j] +
-// b0[j] (summed from i = 0, as the resident form's replay), z_k = W0[k, j],
-// z_kk = 0; columns j in [w1, pitch) zero.
-template <int ND, int ACT>
+// b0[j] (summed from i = 0, as the resident form's replay), z_k = W0[k, j]
+// [, z_kk = 0]; columns j in [w1, pitch) zero.
+template <int ND, int ACT, bool SECOND>
 __global__ void __launch_bounds__(kThreadsL)
 bwd_layered_seed(const float* __restrict__ X, const float* __restrict__ W0, const float* __restrict__ b0, int d,
                  int w1, int P, int pitch, long long sstride, float* __restrict__ st0) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   const long long n = (long long)P * pitch;
   for (long long idx = blockIdx.x * (long long)kThreadsL + threadIdx.x; idx < n;
        idx += (long long)gridDim.x * kThreadsL) {
@@ -202,11 +207,11 @@ struct GemmSmem {
   float raw[S][kGemmM][kGemmK];  // the next A chunk as it lands, [s][point][k]
 };
 
-template <int ND, int ACT, bool REPLAY>
-__global__ void __launch_bounds__(kThreadsL, (1 + 2 * ND) <= 5 ? 2 : 1)
+template <int ND, int ACT, bool REPLAY, bool SECOND>
+__global__ void __launch_bounds__(kThreadsL, streams(ND, SECOND) <= 5 ? 2 : 1)
 bwd_layered_gemm(const float* __restrict__ A, const float* __restrict__ W, const float* __restrict__ bias, int K,
                  int N, int P, int pitch, long long sstride, float* __restrict__ out) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   __shared__ __align__(16) GemmSmem<S> sm;
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kGemmM;
@@ -267,7 +272,7 @@ bwd_layered_gemm(const float* __restrict__ A, const float* __restrict__ W, const
 #pragma unroll
       for (int s = 0; s < S; ++s) v[s] = k + e < K ? get(ra[s], e) : 0.0f;
       if (REPLAY) {
-        outputs<ND, ACT>(v, h);  // zeros (past P or K) give zeros
+        outputs<ND, ACT, SECOND>(v, h);  // zeros (past P or K) give zeros
       } else {
 #pragma unroll
         for (int s = 0; s < S; ++s) h[s] = v[s];
@@ -339,7 +344,7 @@ bwd_layered_gemm(const float* __restrict__ A, const float* __restrict__ W, const
           v[s] = get(st[s], j);
           g[s] = acc[s][i][j];
         }
-        gz_point<ND, ACT>(v, g, o);
+        gz_point<ND, ACT, SECOND>(v, g, o);
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           if (j == 0) gz[s].x = o[s];
@@ -369,17 +374,17 @@ bwd_layered_gemm(const float* __restrict__ A, const float* __restrict__ W, const
 // over chunks, then streams, then points, in order.
 template <int S>
 struct GwSmem {
-  static constexpr int BKP = S == 3 ? 4 : 2;
+  static constexpr int BKP = S <= 3 ? 4 : 2;
   float h[2][S][BKP][kGwTile];
   float g[2][S][BKP][kGwTile];
   float raw[S][BKP][kGwTile];  // the next H chunk as it lands
 };
 
-template <int ND, int ACT, bool ACCUM>
-__global__ void __launch_bounds__(kThreadsL, (1 + 2 * ND) <= 5 ? 2 : 1)
+template <int ND, int ACT, bool ACCUM, bool SECOND>
+__global__ void __launch_bounds__(kThreadsL, streams(ND, SECOND) <= 5 ? 2 : 1)
 bwd_layered_gw(const float* __restrict__ H, const float* __restrict__ GZ, int din, int dout, int P, int pitch,
                long long sstride, int slice_points, float* __restrict__ partials, long long row_pitch, long long off) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   constexpr int BKP = GwSmem<S>::BKP;
   __shared__ __align__(16) GwSmem<S> sm;
   const int tid = threadIdx.x;
@@ -433,7 +438,7 @@ bwd_layered_gw(const float* __restrict__ H, const float* __restrict__ GZ, int di
         float v[S], h[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) v[s] = c0 + lc + e < width ? (e == 0 ? r[s].x : r[s].y) : 0.0f;
-        outputs<ND, ACT>(v, h);  // zeros (past the slice or din) give zeros
+        outputs<ND, ACT, SECOND>(v, h);  // zeros (past the slice or din) give zeros
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           if (e == 0) o[s].x = h[s];
@@ -518,12 +523,12 @@ __device__ __forceinline__ void lane_tree(float* red, int count, int lane, int q
 // Row `slice` of partials gets W_last's entries at off, b_last at off + din
 // (stored, or added with ACCUM), and zero pad columns from n_params to
 // row_pitch.
-template <int ND, int ACT, bool ACCUM>
+template <int ND, int ACT, bool ACCUM, bool SECOND>
 __global__ void __launch_bounds__(kThreadsL)
 bwd_layered_head(const float* __restrict__ G, const float* __restrict__ W, int din, int P, int pitch,
                  long long sstride, int slice_points, float* __restrict__ st, float* __restrict__ partials,
                  long long row_pitch, long long off, int n_params) {
-  constexpr int S = 1 + 2 * ND;
+  constexpr int S = streams(ND, SECOND);
   __shared__ float red[kPointLanes * 2 * kLaneRows];
   const int lane = threadIdx.x % kLaneRows;
   const int q = threadIdx.x / kLaneRows;
@@ -543,13 +548,13 @@ bwd_layered_head(const float* __restrict__ G, const float* __restrict__ W, int d
       float* at = st + (long long)p * pitch + i;
 #pragma unroll
       for (int s = 0; s < S; ++s) v[s] = at[s * sstride];
-      outputs<ND, ACT>(v, h);
+      outputs<ND, ACT, SECOND>(v, h);
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         gw = fmaf(h[s], g[s], gw);
         gh[s] = g[s] * w;
       }
-      gz_point<ND, ACT>(v, gh, o);
+      gz_point<ND, ACT, SECOND>(v, gh, o);
 #pragma unroll
       for (int s = 0; s < S; ++s) at[s * sstride] = o[s];
     }
@@ -568,7 +573,7 @@ bwd_layered_head(const float* __restrict__ G, const float* __restrict__ W, int d
 
 // ---------------------------------------------------------------------------
 // input: layer 0 (W0 [d, w1]).  Its input streams are x, the seeds e_k and
-// zero, so gW0[i, j] = sum_p x_i gz_0[p, j] + (i < n_dirs) sum_p gz_{1+i}[p, j]
+// (with second derivatives) zero, so gW0[i, j] = sum_p x_i gz_0[p, j] + (i < n_dirs) sum_p gz_{1+i}[p, j]
 // and gb0[j] = sum_p gz_0[p, j], over the slice's points; laid out as head.
 // Block (slice, neuron tile, group) takes inputs KX blockIdx.z ..; group 0
 // also the seed terms and gb (n_dirs <= 3 <= KX).  Each entry's sum runs
@@ -677,6 +682,8 @@ struct LayeredArgs {
   const float* G;
   const float* params;
   int n_layers, P, n_dirs, act, slice_points, chunk_points, pitch;
+  bool second;
+  int streams;  // streams(n_dirs, second): u, u_k[, u_kk]
   int w[kLayeredMaxLayers + 1];
   long long off[kLayeredMaxLayers];  // packed offset of W_l (b_l follows it)
   long long n_params, row_pitch, sstride;
@@ -686,21 +693,21 @@ struct LayeredArgs {
   cudaStream_t stream;
 };
 
-float* stash(const LayeredArgs& a, int l) { return a.scratch + (long long)l * (1 + 2 * a.n_dirs) * a.sstride; }
+float* stash(const LayeredArgs& a, int l) { return a.scratch + (long long)l * a.streams * a.sstride; }
 
 int blocks_for(long long n, int per) { return (int)((n + per - 1) / per); }
 
 // The seed and the replay GEMMs over a's points (one chunk).
-template <int ND, int ACT>
+template <int ND, int ACT, bool SECOND>
 cudaError_t run_replay(const LayeredArgs& a) {
   const int cells = blocks_for((long long)a.P * a.pitch, kThreadsL);
   const int seed_blocks = cells < 4096 ? cells : 4096;  // then grid-stride
-  bwd_layered_seed<ND, ACT><<<seed_blocks, kThreadsL, 0, a.stream>>>(a.X, a.params, a.params + a.w[0] * a.w[1], a.w[0], a.w[1], a.P, a.pitch, a.sstride, stash(a, 0));
+  bwd_layered_seed<ND, ACT, SECOND><<<seed_blocks, kThreadsL, 0, a.stream>>>(a.X, a.params, a.params + a.w[0] * a.w[1], a.w[0], a.w[1], a.P, a.pitch, a.sstride, stash(a, 0));
   cudaError_t err = cudaGetLastError();
   for (int l = 1; l + 1 < a.n_layers && err == cudaSuccess; ++l) {
     const float* W = a.params + a.off[l];
     const dim3 grid(blocks_for(a.P, kGemmM), blocks_for(a.w[l + 1], kGemmN));
-    bwd_layered_gemm<ND, ACT, true><<<grid, kThreadsL, 0, a.stream>>>(stash(a, l - 1), W, W + a.w[l] * a.w[l + 1], a.w[l], a.w[l + 1], a.P, a.pitch, a.sstride, stash(a, l));
+    bwd_layered_gemm<ND, ACT, true, SECOND><<<grid, kThreadsL, 0, a.stream>>>(stash(a, l - 1), W, W + a.w[l] * a.w[l + 1], a.w[l], a.w[l + 1], a.P, a.pitch, a.sstride, stash(a, l));
     err = cudaGetLastError();
   }
   return err;
@@ -725,24 +732,24 @@ cudaError_t run_input(const LayeredArgs& a, const float* gz, int pitch, long lon
 
 // Every launch of one chunk (a: its points, X, G and gX); ACCUM: add into the
 // partial rows instead of storing them (every chunk but the first).
-template <int ND, int ACT, bool ACCUM>
+template <int ND, int ACT, bool ACCUM, bool SECOND>
 cudaError_t run_chunk(const LayeredArgs& a) {
   const int L = a.n_layers;
-  if (L == 1) return run_input<ND, ACCUM>(a, a.G, 1 + 2 * ND, 1, a.n_params);  // no hidden layer: gz_0 = g
-  cudaError_t err = run_replay<ND, ACT>(a);
+  if (L == 1) return run_input<ND, ACCUM>(a, a.G, streams(ND, SECOND), 1, a.n_params);  // no hidden layer: gz_0 = g
+  cudaError_t err = run_replay<ND, ACT, SECOND>(a);
   if (err != cudaSuccess) return err;
   const int slices = blocks_for(a.P, a.slice_points);
   const dim3 head_grid(slices, blocks_for(a.w[L - 1], kLaneRows));
-  bwd_layered_head<ND, ACT, ACCUM><<<head_grid, kThreadsL, 0, a.stream>>>(a.G, a.params + a.off[L - 1], a.w[L - 1], a.P, a.pitch, a.sstride, a.slice_points, stash(a, L - 2), a.partials, a.row_pitch, a.off[L - 1], (int)a.n_params);
+  bwd_layered_head<ND, ACT, ACCUM, SECOND><<<head_grid, kThreadsL, 0, a.stream>>>(a.G, a.params + a.off[L - 1], a.w[L - 1], a.P, a.pitch, a.sstride, a.slice_points, stash(a, L - 2), a.partials, a.row_pitch, a.off[L - 1], (int)a.n_params);
   err = cudaGetLastError();
   for (int l = L - 2; l >= 1 && err == cudaSuccess; --l) {
     const int din = a.w[l], dout = a.w[l + 1];
     const dim3 gw_grid(blocks_for(dout, kGwTile), blocks_for(din, kGwTile), slices);
-    bwd_layered_gw<ND, ACT, ACCUM><<<gw_grid, kThreadsL, 0, a.stream>>>(stash(a, l - 1), stash(a, l), din, dout, a.P, a.pitch, a.sstride, a.slice_points, a.partials, a.row_pitch, a.off[l]);
+    bwd_layered_gw<ND, ACT, ACCUM, SECOND><<<gw_grid, kThreadsL, 0, a.stream>>>(stash(a, l - 1), stash(a, l), din, dout, a.P, a.pitch, a.sstride, a.slice_points, a.partials, a.row_pitch, a.off[l]);
     err = cudaGetLastError();
     if (err != cudaSuccess) break;
     const dim3 gh_grid(blocks_for(a.P, kGemmM), blocks_for(din, kGemmN));
-    bwd_layered_gemm<ND, ACT, false><<<gh_grid, kThreadsL, 0, a.stream>>>(stash(a, l), a.params + a.off[l], nullptr, dout, din, a.P, a.pitch, a.sstride, stash(a, l - 1));
+    bwd_layered_gemm<ND, ACT, false, SECOND><<<gh_grid, kThreadsL, 0, a.stream>>>(stash(a, l), a.params + a.off[l], nullptr, dout, din, a.P, a.pitch, a.sstride, stash(a, l - 1));
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
@@ -751,31 +758,36 @@ cudaError_t run_chunk(const LayeredArgs& a) {
 
 // The chunks in order on a's stream: chunk c is points [c chunk_points, (c +
 // 1) chunk_points) of X, G and gX, its stash in the one scratch.
-template <int ND, int ACT>
+template <int ND, int ACT, bool SECOND>
 cudaError_t run(const LayeredArgs& a) {
   cudaError_t err = cudaSuccess;
   for (int p0 = 0; p0 < a.P && err == cudaSuccess; p0 += a.chunk_points) {
     LayeredArgs c = a;
     c.P = a.P - p0 < a.chunk_points ? a.P - p0 : a.chunk_points;
     c.X = a.X + (long long)p0 * a.w[0];
-    c.G = a.G + (long long)p0 * (1 + 2 * ND);
+    c.G = a.G + (long long)p0 * streams(ND, SECOND);
     c.gX = a.gX == nullptr ? nullptr : a.gX + (long long)p0 * a.w[0];
-    err = p0 == 0 ? run_chunk<ND, ACT, false>(c) : run_chunk<ND, ACT, true>(c);
+    err = p0 == 0 ? run_chunk<ND, ACT, false, SECOND>(c) : run_chunk<ND, ACT, true, SECOND>(c);
   }
   return err;
 }
 
-template <int ND>
+template <int ND, bool SECOND>
 cudaError_t run_act(const LayeredArgs& a, bool replay_only) {
-  if (a.act == 0) return replay_only ? run_replay<ND, 0>(a) : run<ND, 0>(a);
-  return replay_only ? run_replay<ND, 1>(a) : run<ND, 1>(a);
+  if (a.act == 0) return replay_only ? run_replay<ND, 0, SECOND>(a) : run<ND, 0, SECOND>(a);
+  return replay_only ? run_replay<ND, 1, SECOND>(a) : run<ND, 1, SECOND>(a);
+}
+
+template <int ND>
+cudaError_t run_mode(const LayeredArgs& a, bool replay_only) {
+  return a.second ? run_act<ND, true>(a, replay_only) : run_act<ND, false>(a, replay_only);
 }
 
 cudaError_t run_any(const LayeredArgs& a, bool replay_only) {
   switch (a.n_dirs) {
-    case 1: return run_act<1>(a, replay_only);
-    case 2: return run_act<2>(a, replay_only);
-    default: return run_act<3>(a, replay_only);
+    case 1: return run_mode<1>(a, replay_only);
+    case 2: return run_mode<2>(a, replay_only);
+    default: return run_mode<3>(a, replay_only);
   }
 }
 
@@ -788,11 +800,11 @@ int widest_hidden(const int* widths, int n_layers) {
 // The arguments, checked, into a; else an error code.  The scratch may be
 // null only without a hidden layer (no stash).
 cudaError_t layered_args(const float* X, const float* G, const float* params, const int* widths, int n_layers, int P,
-                         int n_dirs, int activation, int tiles, int chunk_points, float* scratch, float* partials,
-                         float* gX, int device, void* stream, LayeredArgs& a) {
+                         int n_dirs, int second, int activation, int tiles, int chunk_points, float* scratch,
+                         float* partials, float* gX, int device, void* stream, LayeredArgs& a) {
   if (n_layers < 1 || n_layers > kLayeredMaxLayers || n_dirs < 1 || n_dirs > 3 || P < 1 || tiles < 1 ||
-      chunk_points < 1 || activation < 0 || activation > 1 || widths[n_layers] != 1 || n_dirs > widths[0] ||
-      (scratch == nullptr && n_layers > 1))
+      chunk_points < 1 || second < 0 || second > 1 || activation < 0 || activation > 1 || widths[n_layers] != 1 ||
+      n_dirs > widths[0] || (scratch == nullptr && n_layers > 1))
     return cudaErrorInvalidValue;
   a = LayeredArgs{};
   a.X = X;
@@ -801,6 +813,8 @@ cudaError_t layered_args(const float* X, const float* G, const float* params, co
   a.n_layers = n_layers;
   a.P = P;
   a.n_dirs = n_dirs;
+  a.second = second == 1;
+  a.streams = streams(n_dirs, a.second);
   a.act = activation;
   a.slice_points = tiles * kSlicePoints;
   a.chunk_points = chunk_points < P ? chunk_points : P;
@@ -830,15 +844,17 @@ cudaError_t layered_args(const float* X, const float* G, const float* params, co
 extern "C" {
 
 // Device memory (bytes) of the layered form's scratch for chunks of `points`
-// points: the stash of the n_layers - 1 hidden layers, each (1 + 2 n_dirs) x
-// points x pitch floats, pitch = the widest hidden layer rounded up to 4
-// (zero without a hidden layer).  ops/fused_fields.py::
+// points: the stash of the n_layers - 1 hidden layers, each streams(n_dirs,
+// second) x points x pitch floats, pitch = the widest hidden layer rounded up
+// to 4 (zero without a hidden layer).  ops/fused_fields.py::
 // bwd_layered_scratch_bytes repeats it.
-long long hp_fused_fields_bwd_layered_scratch_bytes(int max_hidden_w, int n_layers, int n_dirs, int points) {
-  return (long long)sizeof(float) * (n_layers - 1LL) * (1 + 2 * n_dirs) * points * round4(max_hidden_w);
+long long hp_fused_fields_bwd_layered_scratch_bytes(int max_hidden_w, int n_layers, int n_dirs, int second,
+                                                    int points) {
+  return (long long)sizeof(float) * (n_layers - 1LL) * streams(n_dirs, second != 0) * points * round4(max_hidden_w);
 }
 
-// The layered form: X [P, widths[0]] and G [P, 1 + 2 n_dirs] row-major fp32;
+// The layered form: X [P, widths[0]] and G [P, 1 + 2 n_dirs] (second = 1) or
+// [P, 1 + n_dirs] (second = 0: the fields u, u_k alone) row-major fp32;
 // params packs W_0 [in, out], b_0, W_1, ... (n_params floats); widths (host
 // memory) has n_layers + 1 entries (n_layers 1-16, widths up to 256) and ends
 // in 1.  The points go in chunks of chunk_points consecutive points, one
@@ -846,30 +862,32 @@ long long hp_fused_fields_bwd_layered_scratch_bytes(int max_hidden_w, int n_laye
 // partials [ceil(min(chunk_points, P) / slice), round4(n_params)] gets one row
 // a slice, slice r of every chunk adding into row r (every entry written, pad
 // columns zero); scratch holds hp_fused_fields_bwd_layered_scratch_bytes(widest
-// hidden, n_layers, n_dirs, min(chunk_points, P)), 16-byte aligned (null
+// hidden, n_layers, n_dirs, second, min(chunk_points, P)), 16-byte aligned (null
 // without a hidden layer).  Unless gX is null it writes gX [P, widths[0]].
 // activation: 0 = tanh, 1 = sin.  Launches its kernels on `stream` in order,
 // does not synchronise, and returns the first launch error (0 on success).
 int hp_fused_fields_bwd_layered_f32(const float* X, const float* G, const float* params, const int* widths,
-                                    int n_layers, int P, int n_dirs, int activation, int tiles, int chunk_points,
-                                    float* scratch, float* partials, float* gX, int device, void* stream) {
+                                    int n_layers, int P, int n_dirs, int second, int activation, int tiles,
+                                    int chunk_points, float* scratch, float* partials, float* gX, int device,
+                                    void* stream) {
   LayeredArgs a;
-  cudaError_t err = layered_args(X, G, params, widths, n_layers, P, n_dirs, activation, tiles, chunk_points,
+  cudaError_t err = layered_args(X, G, params, widths, n_layers, P, n_dirs, second, activation, tiles, chunk_points,
                                  scratch, partials, gX, device, stream, a);
   if (err != cudaSuccess) return (int)err;
   return (int)run_any(a, false);
 }
 
 // The replay alone (seed and the replay GEMMs) over all P points, in one
-// chunk: the stash of every hidden layer in scratch, laid out as above
-// ([n_layers - 1][S][P][pitch]; scratch_bytes(..., P)).  For checks and
-// timings of that part (chip_smoke.py phase 15 (e)); it needs a hidden layer.
+// chunk, with second derivatives: the stash of every hidden layer in
+// scratch, laid out as above ([n_layers - 1][1 + 2 n_dirs][P][pitch];
+// scratch_bytes(..., 1, P)).  For checks and timings of that part
+// (chip_smoke.py phase 15 (e)); it needs a hidden layer.
 int hp_fused_fields_bwd_layered_replay_f32(const float* X, const float* params, const int* widths, int n_layers,
                                            int P, int n_dirs, int activation, float* scratch, int device,
                                            void* stream) {
   if (n_layers < 2) return (int)cudaErrorInvalidValue;
   LayeredArgs a;
-  cudaError_t err = layered_args(X, nullptr, params, widths, n_layers, P, n_dirs, activation, 1, P, scratch,
+  cudaError_t err = layered_args(X, nullptr, params, widths, n_layers, P, n_dirs, 1, activation, 1, P, scratch,
                                  nullptr, nullptr, device, stream, a);
   if (err != cudaSuccess) return (int)err;
   return (int)run_any(a, true);

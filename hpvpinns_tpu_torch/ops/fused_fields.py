@@ -15,16 +15,17 @@ GEMMs over chunks of points, its stash in device memory under
 LAYERED_SCRATCH_CAP bytes, csrc/fused_fields_bwd_layered.cu), chosen by
 `bwd_plan`.  Both plans are functions of the shapes alone.
 
-The gradient: for second=False it is autograd through the plain Taylor
-propagation (ops/taylor.py::mlp_fields), which is what the JAX package does
-(pallas_fields.py:194-196; its TPU kernel has no backward for that layout).
-For second=True it is B2, csrc/fused_fields_bwd.cu and
-csrc/fused_fields_bwd_layered.cu (the JAX package's _fields_bwd_kernel):
-per-block (per-slice) partial sums of the weight gradients, added in a fixed
-order by a second kernel (block_sum), so the gradient is bit-identical from
-run to run.  On a CPU tensor its plain
-version `fields_flat_bwd_reference` (autograd through the plain forward)
-runs instead.
+The gradient is B2, csrc/fused_fields_bwd.cu and
+csrc/fused_fields_bwd_layered.cu, in either mode: for second=True the JAX
+package's _fields_bwd_kernel, for second=False the same kernels compiled
+without the second-order streams (the VJP the JAX package leaves to XLA's
+VJP of its Taylor path, pallas_fields.py:190-196; its TPU kernel has no
+backward for that layout).  B2 writes per-block (per-slice) partial sums of
+the weight gradients, added in a fixed order by a second kernel
+(block_sum), so the gradient is bit-identical from run to run.  On a CPU
+tensor its plain version `fields_flat_bwd_reference` (autograd through the
+plain forward of the same mode) runs instead; on a CUDA tensor the kernels
+launch or the call raises.
 """
 
 from __future__ import annotations
@@ -200,16 +201,16 @@ _FWD_LIBRARY = CudaLibrary(
     [_VP, _I32, _I32, _I32, _I32, _I32, _I32], FWD_MAX_WIDTH,
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
-    "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
-    "hp_fused_fields_bwd_layered_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32,
-                                        _VP],
+    "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_layered_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP,
+                                        _I32, _VP],
     "hp_fused_fields_bwd_layered_replay_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _I32, _VP],
-    "hp_fused_fields_bwd_layered_scratch_bytes": ([_I32] * 4, _I64),
+    "hp_fused_fields_bwd_layered_scratch_bytes": ([_I32] * 5, _I64),
     "hp_block_sum_f32": [_VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP],
     "hp_fused_fields_bwd_block_points": [],
     "hp_fused_fields_bwd_point_stride": [],
     "hp_fused_fields_bwd_resident_max_width": [],
-}, [_I32] * 4, FWD_MAX_WIDTH, ("fused_fields_bwd.cu", "fused_fields_bwd_layered.cu"))
+}, [_I32] * 5, FWD_MAX_WIDTH, ("fused_fields_bwd.cu", "fused_fields_bwd_layered.cu"))
 
 
 # B1's launch shape.  FWD_STAGED_POINTS / FWD_STAGED_GROUPS / FWD_TILE must
@@ -395,15 +396,17 @@ class FusedFieldsKernel(KernelWrapper):
 fused_fields_kernel = FusedFieldsKernel(_FWD_LIBRARY, "hp_fused_fields_f32")
 
 
-def fields_flat_bwd_reference(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True):
+def fields_flat_bwd_reference(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
+                              second: bool = True):
     """Plain PyTorch version of B2 and its block sum (counterpart of
-    _pallas_fields_bwd's contract): (gparams, gX) of sum(g * fields) for
-    fields = fields_flat_reference(..., second=True), by autograd; gX is None
-    unless want_x."""
+    _pallas_fields_bwd's contract, and for second=False of the XLA VJP the
+    JAX package takes there): (gparams, gX) of sum(g * fields) for fields =
+    fields_flat_reference(..., second), by autograd; gX is None unless
+    want_x."""
     with torch.enable_grad():
         Xd = X.detach().requires_grad_(want_x)
         flat = [t.detach().requires_grad_(True) for t in _flatten(params)]
-        out = fields_flat_reference(spec, _unflatten(flat), Xd, n_dirs, True)
+        out = fields_flat_reference(spec, _unflatten(flat), Xd, n_dirs, second)
         grads = torch.autograd.grad(out, ([Xd] if want_x else []) + flat, g)
     return _unflatten(list(grads[len(grads) - len(flat):])), (grads[0] if want_x else None)
 
@@ -443,14 +446,15 @@ LAYERED_CHUNK_GROUP = LAYERED_ROWS * BWD_TILE_POINTS
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """B2's launch shape for a network and P points: the form (resident or
-    layered), tiles_per_block tiles of BWD_TILE_POINTS points per block (the
-    layered form: per slice of a chunk), n_blocks blocks (slices of a chunk),
-    each writing one partial row of row_pitch floats (n_params rounded up to
-    a multiple of 4), the shared memory one resident block needs
-    (bwd_smem_bytes, whatever the form), the layered form's scratch in
-    device memory (0 for the resident form) and its chunk_points (P for the
-    resident form, which does not chunk)."""
+    """B2's launch shape for a network, a mode (second derivatives or firsts
+    only) and P points: the form (resident or layered), tiles_per_block
+    tiles of BWD_TILE_POINTS points per block (the layered form: per slice
+    of a chunk), n_blocks blocks (slices of a chunk), each writing one
+    partial row of row_pitch floats (n_params rounded up to a multiple of
+    4), the shared memory one resident block needs (bwd_smem_bytes, whatever
+    the form), the layered form's scratch in device memory (0 for the
+    resident form) and its chunk_points (P for the resident form, which does
+    not chunk)."""
 
     tiles_per_block: int
     n_blocks: int
@@ -466,33 +470,40 @@ def _row_pitch(layers) -> int:
     return -(-sum(a * b + b for a, b in zip(layers[:-1], layers[1:])) // 4) * 4
 
 
-def bwd_smem_bytes(layers, n_dirs: int) -> int:
+def bwd_streams(n_dirs: int, second: bool) -> int:
+    """B2's streams (field columns, the width of its cotangent g): u, u_k and,
+    with second derivatives, u_kk."""
+    return 1 + n_dirs * (2 if second else 1)
+
+
+def bwd_smem_bytes(layers, n_dirs: int, second: bool = True) -> int:
     """Shared memory of one resident B2 block (hp_fused_fields_bwd_smem_bytes):
     the packed network and the block's gradient sums (row_pitch floats
     each), the stash of every hidden layer and three stream buffers, each
-    (1 + 2 n_dirs) x max width x BWD_POINT_STRIDE floats."""
+    bwd_streams x max width x BWD_POINT_STRIDE floats."""
     n_layers = len(layers) - 1
-    return 4 * (2 * _row_pitch(layers) + (n_layers + 2) * (1 + 2 * n_dirs) * max(layers[:-1]) * BWD_POINT_STRIDE)
+    return 4 * (2 * _row_pitch(layers)
+                + (n_layers + 2) * bwd_streams(n_dirs, second) * max(layers[:-1]) * BWD_POINT_STRIDE)
 
 
-def bwd_layered_scratch_bytes(layers, n_dirs: int, points: int) -> int:
+def bwd_layered_scratch_bytes(layers, n_dirs: int, points: int, second: bool = True) -> int:
     """Device memory of the layered form's scratch for chunks of `points`
     points (hp_fused_fields_bwd_layered_scratch_bytes): the stash of every
-    hidden layer, (1 + 2 n_dirs) x points x pitch floats each, pitch = the
+    hidden layer, bwd_streams x points x pitch floats each, pitch = the
     widest hidden layer rounded up to a multiple of 4 (gz takes the stash's
     place on the way down); 0 without a hidden layer."""
     hidden = layers[1:-1]
-    return 4 * len(hidden) * (1 + 2 * n_dirs) * points * (-(-max(hidden, default=0) // 4) * 4)
+    return 4 * len(hidden) * bwd_streams(n_dirs, second) * points * (-(-max(hidden, default=0) // 4) * 4)
 
 
-def layered_chunk_points(layers, n_dirs: int, P: int) -> int:
+def layered_chunk_points(layers, n_dirs: int, P: int, second: bool = True) -> int:
     """Points per chunk of the layered form: the most LAYERED_CHUNK_GROUP-point
     groups, a power of two, whose stash stays within LAYERED_SCRATCH_CAP
     bytes (never fewer than one group: at 16 layers, n_dirs 3 and width 256
     one group's is 220 MB), and never more than P.  Where that covers P it is
     P, and the plan is that of one call over all points."""
     chunk = LAYERED_CHUNK_GROUP
-    while chunk < P and bwd_layered_scratch_bytes(layers, n_dirs, 2 * chunk) <= LAYERED_SCRATCH_CAP:
+    while chunk < P and bwd_layered_scratch_bytes(layers, n_dirs, 2 * chunk, second) <= LAYERED_SCRATCH_CAP:
         chunk *= 2
     return min(chunk, P)
 
@@ -507,20 +518,23 @@ def layered_slice_tiles(P: int) -> int:
     return T
 
 
-def bwd_resident_fits(layers, n_dirs: int) -> bool:
+def bwd_resident_fits(layers, n_dirs: int, second: bool = True) -> bool:
     """Whether the resident form takes the network: no layer wider than
     BWD_RESIDENT_WIDTH and one block's shared memory within an H100's
     per-block opt-in."""
-    return max(layers) <= BWD_RESIDENT_WIDTH and bwd_smem_bytes(layers, n_dirs) <= SMEM_PER_BLOCK
+    return max(layers) <= BWD_RESIDENT_WIDTH and bwd_smem_bytes(layers, n_dirs, second) <= SMEM_PER_BLOCK
 
 
 def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, form: str | None = None,
-             chunk_points: int | None = None) -> BwdPlan:
-    """B2's plan, from the shapes alone (so the summation order, and the
-    gradient, do not depend on the card).  The resident form where
+             chunk_points: int | None = None, second: bool = True) -> BwdPlan:
+    """B2's plan, from the shapes and the mode alone (so the summation order,
+    and the gradient, do not depend on the card).  The resident form where
     bwd_resident_fits, else the layered form, which takes every network B1
     takes (`form` forces one: for tests and chip_smoke.py; forcing the
-    resident form on a network it does not take raises).
+    resident form on a network it does not take raises).  `second`: the
+    mode, second derivatives or firsts only (the g of bwd_streams columns);
+    firsts only needs less shared memory and scratch a point, so the
+    resident form takes more networks and a layered chunk more points.
 
     The layered form replaced a third, wide form (one kernel over tiles of
     16 points) wherever it ran: in turns within one call on an NVIDIA H100
@@ -539,42 +553,56 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
     for tests and chip_smoke.py) is layered_chunk_points, and its slices are
     layered_slice_tiles(chunk) tiles, at most LAYERED_ROWS a chunk; its
     scratch is one chunk's stash."""
-    fits = bwd_resident_fits(layers, n_dirs)
+    fits = bwd_resident_fits(layers, n_dirs, second)
     form = form or ("resident" if fits else "layered")
     if form not in BWD_FORMS:
         raise ValueError(f"B2's form is one of {BWD_FORMS}; got {form!r}")
     if form == "resident" and not fits:
         raise ValueError(
             f"B2's resident form takes widths <= {BWD_RESIDENT_WIDTH} and <= {SMEM_PER_BLOCK} B of shared memory; "
-            f"layers {tuple(layers)} at n_dirs {n_dirs} need {bwd_smem_bytes(layers, n_dirs)} B"
+            f"layers {tuple(layers)} at n_dirs {n_dirs} (second={second}) need "
+            f"{bwd_smem_bytes(layers, n_dirs, second)} B"
         )
     if chunk_points is not None and (chunk_points < 1 or form == "resident"):
         raise ValueError(f"chunk_points is the layered form's, at least 1; got {chunk_points} for the {form} form")
     if form == "layered":
-        chunk = min(chunk_points, P) if chunk_points else layered_chunk_points(layers, n_dirs, P)
+        chunk = min(chunk_points, P) if chunk_points else layered_chunk_points(layers, n_dirs, P, second)
         T = tiles_per_block or layered_slice_tiles(chunk)
-        scratch = bwd_layered_scratch_bytes(layers, n_dirs, chunk)
+        scratch = bwd_layered_scratch_bytes(layers, n_dirs, chunk, second)
     else:
         chunk, scratch = P, 0
         T = tiles_per_block or max(1, min(BWD_MAX_TILES, -(-P // BWD_TILE_POINTS) // BWD_BLOCKS))
     n_blocks = -(-(-(-chunk // BWD_TILE_POINTS)) // T)
-    return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs), form, scratch, chunk)
+    return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs, second), form, scratch, chunk)
+
+
+# The position of `second` among the arguments of both forms' C functions.
+_BWD_SECOND_ARG = 7
 
 
 class FusedFieldsBwdKernel(KernelWrapper):
     """One form of B2 (`form`): the CUDA kernel
     csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident) or the
     launches of csrc/fused_fields_bwd_layered.cu over every chunk of points
-    (layered: one C call, one count), built at first use.  A call returns
-    the per-block (per-slice) partial sums [n_blocks, row_pitch] of the
-    weight gradients (packed as pack_params packs the weights, then zero pad
-    columns; bwd_plan gives the shape) and gX (or None).  The resident form
-    raises for a network it cannot hold; the layered form takes every
-    network B1 takes (chip_smoke.py forces it at resident widths)."""
+    (layered: one C call, one count), built at first use, in either mode:
+    second derivatives (g [P, 1 + 2 n_dirs]) or firsts only (g [P, 1 +
+    n_dirs]).  A call returns the per-block (per-slice) partial sums
+    [n_blocks, row_pitch] of the weight gradients (packed as pack_params
+    packs the weights, then zero pad columns; bwd_plan gives the shape) and
+    gX (or None).  The resident form raises for a network it cannot hold;
+    the layered form takes every network B1 takes (chip_smoke.py forces it
+    at resident widths).  `launches` counts every launch, `firsts_launches`
+    those of the firsts-only mode among them."""
 
     def __init__(self, library: CudaLibrary, fn: str, form: str):
         super().__init__(library, fn)
         self.form = form
+        self.firsts_launches = 0
+
+    def launch(self, *args) -> None:
+        super().launch(*args)
+        if not args[_BWD_SECOND_ARG]:
+            self.firsts_launches += 1
 
     def load(self) -> BuiltLibrary:
         built = self.library.load()
@@ -586,42 +614,44 @@ class FusedFieldsBwdKernel(KernelWrapper):
         return built
 
     def prepare(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
-                tiles_per_block: int | None = None, chunk_points: int | None = None):
-        """Check the arguments and allocate the outputs (and the layered
-        form's scratch, one chunk's stash) of one launch: (the C function's
-        arguments and the buffers they point into, partials, gX or None).
-        `tiles_per_block` and `chunk_points` force bwd_plan's."""
-        check_kernel_args(spec, params, X, n_dirs, FWD_MAX_WIDTH)
+                tiles_per_block: int | None = None, chunk_points: int | None = None, second: bool = True):
+        """Check the arguments (g's width against the mode first) and
+        allocate the outputs (and the layered form's scratch, one chunk's
+        stash) of one launch: (the C function's arguments and the buffers
+        they point into, partials, gX or None).  `tiles_per_block` and
+        `chunk_points` force bwd_plan's."""
         P = X.shape[0]
-        n_fields = 1 + 2 * n_dirs
+        n_fields = bwd_streams(n_dirs, second)
         if g.device != X.device or g.dtype != torch.float32 or tuple(g.shape) != (P, n_fields) or not g.is_contiguous():
             raise ValueError(
-                f"g must be contiguous float32 [{P}, {n_fields}] on {X.device}; "
+                f"g must be contiguous float32 [{P}, {n_fields}] (second={second}) on {X.device}; "
                 f"got {g.dtype} {tuple(g.shape)} on {g.device}"
             )
-        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block, self.form, chunk_points)
+        check_kernel_args(spec, params, X, n_dirs, FWD_MAX_WIDTH)
+        plan = bwd_plan(spec.layers, n_dirs, P, tiles_per_block, self.form, chunk_points, second)
         packed, widths = pack_params(spec, params)
         dev = _device_index(X)
         self.load()
         scratch = None
         if self.form == "resident":
             self.library.check_smem(
-                dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs),
-                f"layers {spec.layers} and n_dirs {n_dirs} in the resident form")
+                dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs, int(second)),
+                f"layers {spec.layers} and n_dirs {n_dirs} (second={second}) in the resident form")
         else:
             scratch = torch.empty((plan.scratch_bytes // 4,), dtype=torch.float32, device=X.device)
         partials = torch.empty((plan.n_blocks, plan.row_pitch), dtype=torch.float32, device=X.device)
         gX = torch.empty_like(X) if want_x else None
         head = (X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P,
-                n_dirs, _ACTIVATION_CODE[spec.activation], plan.tiles_per_block)
+                n_dirs, int(second), _ACTIVATION_CODE[spec.activation], plan.tiles_per_block)
         tail = (partials.data_ptr(), gX.data_ptr() if want_x else None, dev,
                 torch.cuda.current_stream(X.device).cuda_stream)
         args = head + ((plan.chunk_points, scratch.data_ptr()) if scratch is not None else ()) + tail
         return (args, packed, widths, scratch), partials, gX
 
     def __call__(self, spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
-                 tiles_per_block: int | None = None, chunk_points: int | None = None):
-        (args, *_keep), partials, gX = self.prepare(spec, params, X, g, n_dirs, want_x, tiles_per_block, chunk_points)
+                 tiles_per_block: int | None = None, chunk_points: int | None = None, second: bool = True):
+        (args, *_keep), partials, gX = self.prepare(spec, params, X, g, n_dirs, want_x, tiles_per_block, chunk_points,
+                                                    second)
         if X.shape[0]:
             self.launch(*args)
         return partials, gX
@@ -703,31 +733,26 @@ class BlockSumKernel(KernelWrapper):
 block_sum_kernel = BlockSumKernel(_BWD_LIBRARY, "hp_block_sum_f32")
 
 
-def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True):
-    """(gparams, gX) of sum(g * fields_flat(..., second=True)): on a CUDA
-    tensor B2 in the form bwd_plan gives, then the block sum; on a CPU
-    tensor the plain version."""
+def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,
+                     second: bool = True):
+    """(gparams, gX) of sum(g * fields_flat(..., second)): on a CUDA tensor
+    B2 in the mode `second` and the form bwd_plan gives, then the block sum;
+    on a CPU tensor the plain version."""
     if not X.is_cuda:
-        return fields_flat_bwd_reference(spec, params, X, g, n_dirs, want_x)
-    kernel = _BWD_KERNELS[bwd_plan(spec.layers, n_dirs, X.shape[0]).form]
-    partials, gX = kernel(spec, params, X, g, n_dirs, want_x)
+        return fields_flat_bwd_reference(spec, params, X, g, n_dirs, want_x, second)
+    kernel = _BWD_KERNELS[bwd_plan(spec.layers, n_dirs, X.shape[0], second=second).form]
+    partials, gX = kernel(spec, params, X, g, n_dirs, want_x, second=second)
     return unpack_params(spec, block_sum_kernel(partials)), gX  # the pad columns are left out
 
 
 def _fields_flat_vjp(spec: MLP, n_dirs: int, second: bool, want_x: bool, g: torch.Tensor, X: torch.Tensor, flat):
     """The VJP of fields_flat at X for one cotangent g [P, F]: (gX, *gflat)
-    with want_x, else (*gflat).  With second derivatives B2 and its block sum
-    on a CUDA tensor, their plain version on a CPU tensor; firsts only, the
-    VJP of the plain Taylor forward (the JAX package's XLA VJP,
-    pallas_fields.py:190-196)."""
-    if second:
-        gparams, gX = fused_fields_bwd(spec, _unflatten(flat), X, g.contiguous(), n_dirs, want_x)
-        return ((gX,) if want_x else ()) + tuple(_flatten(gparams))
-    with torch.enable_grad():
-        Xd = X.detach().requires_grad_(want_x)
-        fd = [t.detach().requires_grad_(True) for t in flat]
-        out = fields_flat_reference(spec, _unflatten(fd), Xd, n_dirs, False)
-        return tuple(torch.autograd.grad(out, ([Xd] if want_x else []) + fd, g))
+    with want_x, else (*gflat).  In either mode B2 and its block sum on a
+    CUDA tensor (firsts only, the kernels compiled without the second-order
+    streams: what the JAX package leaves to XLA's VJP of its Taylor path,
+    pallas_fields.py:190-196), their plain version on a CPU tensor."""
+    gparams, gX = fused_fields_bwd(spec, _unflatten(flat), X, g.contiguous(), n_dirs, want_x, second)
+    return ((gX,) if want_x else ()) + tuple(_flatten(gparams))
 
 
 def _member(t: torch.Tensor, dim, i: int) -> torch.Tensor:
@@ -745,13 +770,14 @@ def _members(info, in_dims, args):
 
 class _FieldsFlatVjp(torch.autograd.Function):
     """The VJP of fields_flat as a function of its cotangent, so that
-    torch.func.vmap can batch it.  The vmap rule runs the VJP once for each
-    member of the batch: over the cotangent alone on one primal (the
-    Gauss-Newton dual Jacobian), or over the parameters with the cotangent
-    (and X where batched) alongside (a seed ensemble: `grad` inside
-    `vmap`).  The JAX package batches B2's grid instead; one launch for the
-    whole batch is ROADMAP B' 5 (cotangents) and B' 6 (members).  Not
-    differentiable again, as the JAX kernel's VJP is not."""
+    torch.func.vmap can batch it.  The vmap rule runs the VJP (B2 and its
+    block sum, in the mode of the fields) once for each member of the
+    batch: over the cotangent alone on one primal (the Gauss-Newton dual
+    Jacobian), or over the parameters with the cotangent (and X where
+    batched) alongside (a seed ensemble: `grad` inside `vmap`).  The JAX
+    package batches B2's grid instead (and XLA the firsts-only VJP); one
+    launch for the whole batch is ROADMAP B' 5 (cotangents) and B' 6
+    (members).  Not differentiable again, as the JAX kernel's VJP is not."""
 
     @staticmethod
     def forward(spec, n_dirs, second, want_x, g, X, *flat):

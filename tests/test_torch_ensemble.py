@@ -94,8 +94,9 @@ def test_vmapped_gradient_matches_jax(var_form, mode):
         with one_torch_thread():
             grads, (loss, aux) = torch.func.vmap(torch.func.grad_and_value(
                 lambda p: prob.loss_fn(p, prob.data), has_aux=True))(tstack)
-    # one rule call a field evaluation, B2's plain version once for each member with second derivatives
-    b2 = len(SEEDS) if var_form == 0 else 0
+    # one rule call a field evaluation, B2's plain version once for each member (in either mode: the
+    # firsts-only VJP of var_form 1 is B2's too)
+    b2 = len(SEEDS)
     assert calls == ({"fwd": 1, "vjp": 1, "b2": b2} if mode == "pallas" else {"fwd": 0, "vjp": 0, "b2": 0})
     for k, v in aux.items():
         np.testing.assert_allclose(tnp(v), jaux[k], **GRAD_TOL, err_msg=k)
