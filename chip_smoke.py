@@ -16,8 +16,9 @@
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
 (B1) and the backward kernels csrc/fused_fields_bwd.cu (B2's resident
-form, the block sum) and csrc/fused_fields_bwd_layered.cu (B2's layered
-form) with nvcc for sm_90a, and then, one line per phase:
+form with second derivatives, the block sum), csrc/fused_fields_bwd_firsts.cu
+(B2's resident form, firsts only) and csrc/fused_fields_bwd_layered.cu
+(B2's layered form) with nvcc for sm_90a, and then, one line per phase:
 
   1. prints the card (nvidia-smi name and power limit), torch/CUDA versions
      and both TF32 flags;
@@ -81,8 +82,9 @@ form) with nvcc for sm_90a, and then, one line per phase:
      16,384 (the layered form) and poisson2d_scaled with the layered form
      forced: gW, gb and gX against the plain version at the same
      tolerances, two runs bit-identical, the launch shape against bwd_plan,
-     and the C functions by CUDA events over 50 launches beside the block
-     sum, the plain version, the "taylor" VJP and the bound; and the block
+     and the C functions by CUDA events over 50 launches and by
+     torch.profiler beside the block sum, the plain version, the "taylor"
+     VJP (CUDA events and device time) and the bound; and the block
      sum on two streams at once (each launch has its own tickets) bit for
      bit against one stream;
   8. checks the loss (rtol 1e-5) and gradients (rtol 1e-3, atol 1e-4) under
@@ -395,12 +397,14 @@ also the path of an earlier csrc/fused_fields_bwd.cu whose B2 has no tiles
 argument (from a `git archive` of the commit before the tiled B2), phase 7
 holds this B2 at one tile per block bit for bit against it on the same
 inputs and times the two in turns.  With --bwd-parent PARENT_CSRC (the
-csrc/ of a `git archive` of the commit before B2's firsts-only mode, whose
-C functions take no `second`) it runs phases 1, 2 and 7, then holds both
-forms' second-derivative partials and gX bit for bit against that
-checkout's at every phase-7 shape (the resident form at BWD_CASES, the
-layered form forced there and at (2,256,256,256,1) P 16,384), timing the
-two in turns.  The
+csrc/ of a `git archive` of a parent commit whose B2 C functions take
+`second`, b60a35e or later) it runs phases 1, 2 and 7, prints ptxas's
+report of the parent's library, then holds both forms' second-derivative
+partials and gX bit for bit against that checkout's at every phase-7 shape
+(the resident form at BWD_CASES, the layered form forced there and at
+(2,256,256,256,1) P 16,384), timing the two in turns, and times the
+parent's firsts-only resident kernel and this one in turns at the resident
+firsts shapes of phase 7, each held against the plain version.  The
 tolerances are those of tests/test_pallas_fields.py.  It exits non-zero
 at the first failure, and when no CUDA device is present.  Its last three
 lines are the whole run's seconds, a JSON summary of the kernels and
@@ -596,16 +600,17 @@ def bound_ms(n_bytes: float, flops: float):
 
 KERNEL_NODES = {  # each wrapper's CUDA kernels, by the names in their graph nodes
     "fused_fields": ("fused_fields_kernel", "fused_fields_staged_kernel"),
-    "fused_fields_bwd": ("fused_fields_bwd_kernel",),
+    "fused_fields_bwd": ("fused_fields_bwd_kernel", "fused_fields_bwd_firsts_kernel"),  # both modes' resident kernels
     "fused_fields_bwd_layered": ("bwd_layered_",),  # its seven kernels, one launch of the wrapper
     "block_sum": ("block_sum_kernel",),
 }
 SECOND_PATH = ("fused_fields", "fused_fields_bwd", "block_sum")  # second derivatives, B2's resident form
 B2_WRAPPER = {"resident": "fused_fields_bwd", "layered": "fused_fields_bwd_layered"}
 LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered", "block_sum")  # second derivatives, B2's layered form
-# read_counts' names for each B2 form's firsts-only launches (a graph node
-# names the kernel, not its mode: SECOND_PATH and LAYERED_PATH name a
-# firsts-only step's nodes too)
+# read_counts' names for each B2 form's firsts-only launches (KERNEL_NODES
+# counts both resident kernels, and both modes of the layered form's, under
+# the wrapper's name: SECOND_PATH and LAYERED_PATH name a firsts-only step's
+# nodes too)
 FIRSTS = {"fused_fields_bwd": "fused_fields_bwd_firsts", "fused_fields_bwd_layered": "fused_fields_bwd_layered_firsts"}
 FIRSTS_PATH = ("fused_fields", "fused_fields_bwd_firsts", "block_sum")  # var_form 1: firsts, B2's resident form
 FIRSTS_LAYERED_PATH = ("fused_fields", "fused_fields_bwd_layered_firsts", "block_sum")  # firsts, B2's layered form
@@ -947,8 +952,10 @@ def phase7_firsts(dev) -> dict:
     wrapper in firsts-only mode and one of the block sum, counted), the
     launch shape against bwd_plan and the C function's own shared memory or
     scratch count, then the C functions by CUDA events over 50 launches
-    (B2 twice) beside the block sum, the plain version, the "taylor" VJP and
-    bwd_work's bound with S = 1 + n_dirs.  Returns {case: numbers}."""
+    (B2 twice) and by torch.profiler beside the block sum, the plain
+    version, the "taylor" VJP (CUDA events: host-bound; and its device
+    time by torch.profiler) and bwd_work's bound with S = 1 + n_dirs.
+    Returns {case: numbers}."""
     from hpvpinns_tpu_torch.ops.fused_fields import (
         _BWD_KERNELS,
         block_sum_kernel,
@@ -987,7 +994,8 @@ def phase7_firsts(dev) -> dict:
         lib = kernel.load().lib
         n_params = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
         if plan.form == "resident":
-            c_bytes = lib.hp_fused_fields_bwd_smem_bytes(n_params, max(layers[:-1]), len(layers) - 1, nd, 0)
+            c_bytes = lib.hp_fused_fields_bwd_firsts_smem_bytes(b2_keep[1].ctypes.data, len(layers) - 1, nd,
+                                                                 plan.group_points)
             want_bytes = plan.smem_bytes
         else:
             c_bytes = lib.hp_fused_fields_bwd_layered_scratch_bytes(max(layers[1:-1], default=0), len(layers) - 1,
@@ -1001,25 +1009,33 @@ def phase7_firsts(dev) -> dict:
         (sum_args, sum_keep), _ = block_sum_kernel.prepare(partials)
         total = lambda: block_sum_kernel.launch(*sum_args)  # noqa: E731
         ev = [1e3 * cuda_ms(b2) for _ in range(2)]
+        b2_dev = device_us(b2)
         sum_us = 1e3 * cuda_ms(total)
         p_ms = cuda_ms(lambda: fields_flat_bwd_reference(spec, net, X, g, nd, second=False))
-        t_us = taylor_vjp_us(spec, net, X, g, nd, second=False)
+        t_us, t_dev = taylor_vjp_us(spec, net, X, g, nd, second=False, device=True)
         bound, by = bound_ms(*bwd_work(layers, P, nd, second=False))
         rows, cols = partials.shape
         s_bound, s_by = bound_ms(4 * (rows * cols + cols), rows * cols)
         us = (ev[0] + ev[1]) / 2
-        out[name] = {"form": plan.form, "us": us, "runs_us": ev, "plain_ms": p_ms, "taylor_vjp_us": t_us,
+        out[name] = {"form": plan.form, "us": us, "runs_us": ev, "device_us": b2_dev, "plain_ms": p_ms,
+                     "taylor_vjp_us": t_us, "taylor_vjp_device_us": t_dev, "group_points": plan.group_points,
+                     "warps_per_block": plan.warps_per_block, "tiles_per_block": plan.tiles_per_block,
                      "bound_ms": bound, "bound_by": by, "max_abs_err": err, "sum_us": sum_us,
                      "sum_bound_ms": s_bound, "partials": [rows, cols], "layers": list(layers), "P": P,
                      "n_dirs": nd, "smem_bytes": plan.smem_bytes, "scratch_bytes": plan.scratch_bytes,
                      "chunk_points": plan.chunk_points}
+        shape = f"{plan.group_points * plan.tiles_per_block} points"
+        if plan.warps_per_block:
+            shape += f" ({plan.tiles_per_block} groups of {plan.group_points}), {plan.warps_per_block} warps"
         print(f"phase 7 firsts {name}: layers {layers} {act} P={P} n_dirs={nd}, the {plan.form} form"
-              + (" (forced)" if forced else "") + f", {plan.n_blocks} blocks of {16 * plan.tiles_per_block} points, "
+              + (" (forced)" if forced else "") + f", {plan.n_blocks} blocks of {shape}, "
               f"partials [{rows}, {cols}], smem {plan.smem_bytes} B, scratch {plan.scratch_bytes} B; max_abs_err "
               f"{err:.3e} (rtol {tol['rtol']} atol {tol['atol']}), two runs bit-identical; C function us/launch "
-              f"(CUDA events, 50 launches) {ev[0]:.2f} {ev[1]:.2f}; bound {1e3 * bound:.3f} us ({by}), "
+              f"(CUDA events, 50 launches) {ev[0]:.2f} {ev[1]:.2f}, device us (torch.profiler) "
+              + (f"{b2_dev:.2f}" if b2_dev else "not measured") + f"; bound {1e3 * bound:.3f} us ({by}), "
               f"{1e3 * bound / us:.3f} of it; block sum us/launch {sum_us:.2f}, bound {1e3 * s_bound:.3f} us "
-              f"({s_by}); plain ms/call {p_ms:.4f}; taylor VJP us/call {t_us:.2f}", flush=True)
+              f"({s_by}); plain ms/call {p_ms:.4f}; taylor VJP us/call {t_us:.2f} (CUDA events), device us "
+              + (f"{t_dev:.2f}" if t_dev else "not measured"), flush=True)
         del b2_keep, sum_keep
     return out
 
@@ -1027,18 +1043,24 @@ def phase7_firsts(dev) -> dict:
 def load_parent_bwd(src_dir: str):
     """Build B2's library from another checkout's csrc/ (`src_dir`: its
     fused_fields_bwd.cu and fused_fields_bwd_layered.cu, whose C functions
-    take no `second`) under another name; return the library with both
-    forms' argument types set."""
+    take `second` after n_dirs, as at b60a35e) under another name; print
+    ptxas's report of its kernels (registers, spills) and return the library
+    with both forms' argument types set."""
     import ctypes
     from pathlib import Path
 
     from hpvpinns_tpu_torch.ops.cuda_build import build_library
 
-    lib = build_library("fused_fields_bwd_parent", [Path(src_dir) / "fused_fields_bwd.cu",
-                                                    Path(src_dir) / "fused_fields_bwd_layered.cu"]).lib
+    built = build_library("fused_fields_bwd_parent", [Path(src_dir) / "fused_fields_bwd.cu",
+                                                      Path(src_dir) / "fused_fields_bwd_layered.cu"])
+    print(f"--bwd-parent build: {built.path.name} in {built.build_seconds:.1f} s", flush=True)
+    for ln in built.log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(f"  parent ptxas {ln.strip()}", flush=True)
+    lib = built.lib
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hp_fused_fields_bwd_f32.argtypes = [vp] * 4 + [i32] * 5 + [vp, vp, i32, vp]
-    lib.hp_fused_fields_bwd_layered_f32.argtypes = [vp] * 4 + [i32] * 6 + [vp] * 3 + [i32, vp]
+    lib.hp_fused_fields_bwd_f32.argtypes = [vp] * 4 + [i32] * 6 + [vp, vp, i32, vp]
+    lib.hp_fused_fields_bwd_layered_f32.argtypes = [vp] * 4 + [i32] * 7 + [vp] * 3 + [i32, vp]
     lib.hp_fused_fields_bwd_f32.restype = lib.hp_fused_fields_bwd_layered_f32.restype = i32
     return lib
 
@@ -1048,12 +1070,25 @@ PARENT_CASES = BWD_CASES + [("p2d_scaled 3 x 256", (2, 256, 256, 256, 1), "tanh"
 
 def against_parent(dev, src_dir: str) -> dict:
     """With --bwd-parent: the second-derivative partials and gX of both
-    forms bit for bit against `src_dir`'s (the csrc/ from before B2's
-    firsts-only mode) at every phase-7 shape, PARENT_CASES: the resident
-    form where it fits, the layered form (forced where the resident form
-    fits); the C functions by CUDA events over 50 launches in turns parent,
-    this, this, parent.  Returns {case: numbers}."""
-    from hpvpinns_tpu_torch.ops.fused_fields import _BWD_KERNELS, bwd_resident_fits
+    forms bit for bit against `src_dir`'s at every phase-7 shape,
+    PARENT_CASES: the resident form where it fits, the layered form (forced
+    where the resident form fits); the C functions by CUDA events over 50
+    launches in turns parent, this, this, parent.  Then the firsts-only
+    resident form: the parent's (its second-derivative kernel compiled
+    without the second-order streams, at its own plan: 16-point tiles, as
+    many a block as keep 512 blocks) and this one (fused_fields_bwd_firsts.cu)
+    at the resident firsts shapes of phase 7, each through the block sum
+    within phase 7's tolerances of the plain version, timed in turns
+    parent, this, this, parent.  Returns {case: numbers}."""
+    from hpvpinns_tpu_torch.ops.fused_fields import (
+        _BWD_KERNELS,
+        block_sum_kernel,
+        bwd_plan,
+        bwd_resident_fits,
+        fields_flat_bwd_reference,
+        fused_fields_bwd_kernel,
+        unpack_params,
+    )
 
     lib = load_parent_bwd(src_dir)
     fns = {"resident": lib.hp_fused_fields_bwd_f32, "layered": lib.hp_fused_fields_bwd_layered_f32}
@@ -1066,9 +1101,9 @@ def against_parent(dev, src_dir: str) -> dict:
             (args, *keep), partials, gX = kernel.prepare(spec, net, X, g, nd)
             kernel.launch(*args)
             other, other_x = torch.full_like(partials, float("nan")), torch.full_like(gX, float("nan"))
-            # the parent's arguments: no `second`, its own outputs (the layered form's scratch shared)
+            # the parent's arguments: the same, its own outputs (the layered form's scratch shared)
             n = len(args)
-            theirs_args = args[:7] + args[8:n - 4] + (other.data_ptr(), other_x.data_ptr()) + args[n - 2:]
+            theirs_args = args[:n - 4] + (other.data_ptr(), other_x.data_ptr()) + args[n - 2:]
             code = fns[form](*theirs_args)
             torch.cuda.synchronize()
             if code != 0 or not (torch.equal(partials, other) and torch.equal(gX, other_x)):
@@ -1086,6 +1121,45 @@ def against_parent(dev, src_dir: str) -> dict:
                   f"this, parent {ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f} (this / parent "
                   f"{(ev[1] + ev[2]) / (ev[0] + ev[3]):.4f})", flush=True)
             del keep, other, other_x
+    rng = np.random.default_rng(73)
+    for name, layers, act, P, nd, forced in BWD_FIRSTS_CASES:
+        if forced or bwd_plan(layers, nd, P, second=False).form != "resident":
+            continue
+        spec, net, X, g = b2_inputs(layers, act, P, nd, rng, dev, second=False)
+        tol = WIDE_GRAD_TOL if max(layers) >= 48 else GRAD_TOL
+        want, want_x = fields_flat_bwd_reference(spec, net, X, g, nd, second=False)
+        (args, *keep), partials, gX = fused_fields_bwd_kernel.prepare(spec, net, X, g, nd, second=False)
+        tiles = max(1, min(8, -(-P // 16) // 512))  # the parent's bwd_plan for its resident form
+        old_p = torch.empty((-(-(-(-P // 16)) // tiles), partials.shape[1]), dtype=torch.float32, device=dev)
+        old_x = torch.empty_like(X)
+        theirs_args = args[:9] + (tiles, old_p.data_ptr(), old_x.data_ptr()) + args[-2:]
+
+        def theirs(a=theirs_args):
+            if lib.hp_fused_fields_bwd_f32(*a) != 0:
+                fail(f"--bwd-parent {name}: {src_dir}'s firsts-only resident B2 did not launch")
+
+        ours = lambda a=args: fused_fields_bwd_kernel.launch(*a)  # noqa: E731
+        theirs()
+        ours()
+        err = {}
+        for who, rows, x in (("parent", old_p, old_x), ("this", partials, gX)):
+            got = unpack_params(spec, block_sum_kernel(rows))
+            torch.cuda.synchronize()
+            e = check_close(f"--bwd-parent {name} firsts {who} gX", x, want_x, **tol)
+            for l, (a, b) in enumerate(zip(got, want)):
+                for k in ("W", "b"):
+                    e = max(e, check_close(f"--bwd-parent {name} firsts {who} g{k}_{l}", a[k], b[k], **tol))
+            err[who] = e
+        ev = [1e3 * cuda_ms(f) for f in (theirs, ours, ours, theirs)]
+        out[f"{name} firsts resident"] = {"turns_us": ev, "parent_us": (ev[0] + ev[3]) / 2,
+                                          "this_us": (ev[1] + ev[2]) / 2, "max_abs_err": err,
+                                          "partials": {"parent": list(old_p.shape), "this": list(partials.shape)}}
+        print(f"--bwd-parent {name} firsts resident: layers {layers} {act} P={P} n_dirs={nd}: parent partials "
+              f"{list(old_p.shape)} max_abs_err {err['parent']:.3e}, this {list(partials.shape)} max_abs_err "
+              f"{err['this']:.3e} (rtol {tol['rtol']} atol {tol['atol']}); C functions us/launch (CUDA events, 50 "
+              f"launches) in turns parent, this, this, parent {ev[0]:.2f} {ev[1]:.2f} {ev[2]:.2f} {ev[3]:.2f} "
+              f"(this / parent {(ev[1] + ev[2]) / (ev[0] + ev[3]):.4f})", flush=True)
+        del keep
     return out
 
 
@@ -2085,10 +2159,13 @@ def layered_replay(dev) -> dict:
     return out
 
 
-def taylor_vjp_us(spec, net, X, g, nd, second=True) -> float:
+def taylor_vjp_us(spec, net, X, g, nd, second=True, device=False):
     """µs a call of the "taylor" VJP at these inputs: autograd's backward
     through ops/taylor.py's forward (cuBLAS), the forward taken once outside
-    the timing.  A yardstick only: the kernel path never calls it."""
+    the timing, by CUDA events (host-bound at these sizes); with `device`
+    also its kernels' device µs a call by torch.profiler (None where the
+    profiler records none).  A yardstick only: the kernel path never calls
+    it."""
     from hpvpinns_tpu_torch.ops.fused_fields import fields_flat_reference
 
     with torch.enable_grad():
@@ -2096,7 +2173,9 @@ def taylor_vjp_us(spec, net, X, g, nd, second=True) -> float:
         leaves = [t.detach().requires_grad_(True) for layer in net for t in (layer["W"], layer["b"])]
         prm = [{"W": leaves[i], "b": leaves[i + 1]} for i in range(0, len(leaves), 2)]
         out = fields_flat_reference(spec, prm, Xd, nd, second)
-        return 1e3 * cuda_ms(lambda: torch.autograd.grad(out, [Xd] + leaves, g, retain_graph=True))
+        vjp = lambda: torch.autograd.grad(out, [Xd] + leaves, g, retain_graph=True)  # noqa: E731
+        us = 1e3 * cuda_ms(vjp)
+        return (us, device_us(vjp)) if device else us
 
 
 def layered_b2(dev) -> dict:
@@ -5297,7 +5376,8 @@ def main() -> int:
                 "max_abs_err": max(v["max_abs_err"] for v in firsts_times.values() if v["form"] == form),
                 "ms": main["us"] * 1e-3, "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None, "shape": shape,
-                "taylor_vjp_ms": main["taylor_vjp_us"] * 1e-3, "block_sum_us": main["sum_us"],
+                "device_us": main["device_us"], "taylor_vjp_ms": main["taylor_vjp_us"] * 1e-3,
+                "taylor_vjp_device_us": main["taylor_vjp_device_us"], "block_sum_us": main["sum_us"],
                 "block_sum_bound_ms": main["sum_bound_ms"], "partials": main["partials"],
                 "by_shape": {k: v for k, v in firsts_times.items() if v["form"] == form}}
     kernels = [
@@ -5326,7 +5406,7 @@ def main() -> int:
          "block_sum_bound_ms": lay_main["sum_bound_ms"], "partials": lay_main["partials"],
          "replay": wide_times["layered replay"], "by_shape": lay, "cap": wide_times["cap"],
          "train": wide_times["train"]},
-        firsts_entry("fused_fields_bwd_firsts", "hpvpinns_tpu_torch/csrc/fused_fields_bwd.cu", "resident", f_res,
+        firsts_entry("fused_fields_bwd_firsts", "hpvpinns_tpu_torch/csrc/fused_fields_bwd_firsts.cu", "resident", f_res,
                      main_counts["fused_fields_bwd_firsts"],
                      "poisson2d_scaled firsts, P 16384 (C function, CUDA events)"),
         firsts_entry("fused_fields_bwd_layered_firsts", "hpvpinns_tpu_torch/csrc/fused_fields_bwd_layered.cu",

@@ -1,18 +1,19 @@
 // Backward of the fused MLP + derivative-field propagation (B2), fp32, sm_90a:
-// its resident form, for networks no wider than 64 whose shared memory fits
-// a block, and the block sum of B2's partial rows.  Every other network takes
-// the layered form, csrc/fused_fields_bwd_layered.cu (built into the same
-// library; ops/fused_fields.py::bwd_plan picks the form from the shapes).
+// its resident form with second derivatives, for networks no wider than 64
+// whose shared memory fits a block, and the block sum of B2's partial rows.
+// Every other network takes the layered form, csrc/fused_fields_bwd_layered.cu,
+// and the firsts-only mode's resident form is a kernel of its own,
+// csrc/fused_fields_bwd_firsts.cu (all three built into one library;
+// ops/fused_fields.py::bwd_plan picks the form from the shapes).
 //
 // Replaces hpvpinns_tpu/ops/pallas_fields.py::_fields_bwd_kernel (launched by
 // _pallas_fields_bwd, the custom VJP of fields_flat for second=True).  Given
 // the cotangent g [P, S] of every field column (S = 1 + 2 n_dirs: u, u_k,
 // u_kk), it returns the gradient of sum(g * fields) with respect to every
-// W_l, b_l and (optionally) X.  The same kernel, compiled without the
-// second-order streams (SECOND false: S = 1 + n_dirs, z_kk, h_kk and gz_kk
-// gone), is the VJP of fields_flat for second=False, which the JAX package
-// leaves to XLA's VJP of its Taylor path (pallas_fields.py:190-196): the
-// var_form-1 backward.
+// W_l, b_l and (optionally) X.  The kernel keeps the rules' SECOND flag but
+// is instantiated with it true only: its firsts-only instantiation (the
+// var_form-1 backward before) was replaced by
+// csrc/fused_fields_bwd_firsts.cu.
 //
 // Per tile of 16 points: replay the forward (z = h W + b, z_k = h_k W,
 // z_kk = h_kk W; h' = act(z), h_k' = act'(z) z_k,
@@ -601,9 +602,10 @@ cudaError_t launch_act(int act, const BwdArgs& a) {
   return act == 0 ? launch_minb<ND, 0, SECOND>(a) : launch_minb<ND, 1, SECOND>(a);
 }
 
+// Second derivatives only: the firsts-only mode is hp_fused_fields_bwd_firsts_f32.
 template <int ND>
 cudaError_t launch_mode(int act, const BwdArgs& a) {
-  return a.second ? launch_act<ND, true>(act, a) : launch_act<ND, false>(act, a);
+  return a.second ? launch_act<ND, true>(act, a) : cudaErrorInvalidValue;
 }
 
 // The arguments, checked, into a (widths up to kResidentMaxWidth); else an
@@ -658,8 +660,9 @@ int hp_fused_fields_bwd_smem_limit(int device) {
   return bytes;
 }
 
-// X [P, widths[0]] and G [P, 1 + 2 n_dirs] (second = 1) or [P, 1 + n_dirs]
-// (second = 0: the fields u, u_k alone) row-major fp32 on device `device`;
+// X [P, widths[0]] and G [P, 1 + 2 n_dirs] row-major fp32 on device
+// `device`; second must be 1 (the firsts-only mode, g [P, 1 + n_dirs], is
+// csrc/fused_fields_bwd_firsts.cu's hp_fused_fields_bwd_firsts_f32);
 // params packs W_0 [in, out], b_0, W_1, b_1, ... back to back (n_params
 // floats); widths (host memory) has n_layers + 1 entries and ends in 1.  Each
 // block takes `tiles` consecutive tiles of 16 points and writes one row of

@@ -15,12 +15,13 @@ GEMMs over chunks of points, its stash in device memory under
 LAYERED_SCRATCH_CAP bytes, csrc/fused_fields_bwd_layered.cu), chosen by
 `bwd_plan`.  Both plans are functions of the shapes alone.
 
-The gradient is B2, csrc/fused_fields_bwd.cu and
-csrc/fused_fields_bwd_layered.cu, in either mode: for second=True the JAX
-package's _fields_bwd_kernel, for second=False the same kernels compiled
-without the second-order streams (the VJP the JAX package leaves to XLA's
-VJP of its Taylor path, pallas_fields.py:190-196; its TPU kernel has no
-backward for that layout).  B2 writes per-block (per-slice) partial sums of
+The gradient is B2, csrc/fused_fields_bwd.cu, csrc/fused_fields_bwd_firsts.cu
+and csrc/fused_fields_bwd_layered.cu, in either mode: for second=True the
+JAX package's _fields_bwd_kernel, for second=False the same chain without
+the second-order streams (the VJP the JAX package leaves to XLA's VJP of
+its Taylor path, pallas_fields.py:190-196; its TPU kernel has no backward
+for that layout): the layered form compiled without them, and a resident
+kernel of its own.  B2 writes per-block (per-slice) partial sums of
 the weight gradients, added in a fixed order by a second kernel
 (block_sum), so the gradient is bit-identical from run to run.  On a CPU
 tensor its plain version `fields_flat_bwd_reference` (autograd through the
@@ -180,9 +181,12 @@ class KernelWrapper:
         return self.library.load()
 
     def launch(self, *args) -> None:
-        err = getattr(self.load().lib, self.fn)(*args)
+        self._launch(self.fn, args)
+
+    def _launch(self, fn: str, args) -> None:
+        err = getattr(self.load().lib, fn)(*args)
         if err != 0:
-            raise RuntimeError(f"{self.fn} launch failed: CUDA error {err}")
+            raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
         self.launches += 1
 
 
@@ -202,6 +206,8 @@ _FWD_LIBRARY = CudaLibrary(
 )
 _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_firsts_f32": [_VP, _VP, _VP, _VP] + [_I32] * 8 + [_VP, _VP, _I32, _VP],
+    "hp_fused_fields_bwd_firsts_smem_bytes": ([_VP, _I32, _I32, _I32], _I64),
     "hp_fused_fields_bwd_layered_f32": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP,
                                         _I32, _VP],
     "hp_fused_fields_bwd_layered_replay_f32": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _I32, _VP],
@@ -210,7 +216,7 @@ _BWD_LIBRARY = CudaLibrary("fused_fields_bwd", {
     "hp_fused_fields_bwd_block_points": [],
     "hp_fused_fields_bwd_point_stride": [],
     "hp_fused_fields_bwd_resident_max_width": [],
-}, [_I32] * 5, FWD_MAX_WIDTH, ("fused_fields_bwd.cu", "fused_fields_bwd_layered.cu"))
+}, [_I32] * 5, FWD_MAX_WIDTH, ("fused_fields_bwd.cu", "fused_fields_bwd_firsts.cu", "fused_fields_bwd_layered.cu"))
 
 
 # B1's launch shape.  FWD_STAGED_POINTS / FWD_STAGED_GROUPS / FWD_TILE must
@@ -442,19 +448,35 @@ BWD_FORMS = ("resident", "layered")
 LAYERED_ROWS = 128
 LAYERED_SCRATCH_CAP = 2**28
 LAYERED_CHUNK_GROUP = LAYERED_ROWS * BWD_TILE_POINTS
+# The firsts-only resident form (csrc/fused_fields_bwd_firsts.cu, a kernel of
+# its own): groups of FIRSTS_GROUP_POINTS points (half as many where that
+# leaves an SM of an H100 without a group, fewer still where a block's shared
+# memory needs it, down to FIRSTS_MIN_POINTS), blocks of 32 x 1, 2 or 4
+# threads (FIRSTS_MAX_WARPS), threads of FIRSTS_TILE_POINTS points by
+# FIRSTS_TILE_NEURONS neurons a pass (kTP, kTN), and as many groups a block
+# as keep the blocks within one wave and the partial rows within
+# FIRSTS_PARTIAL_CAP floats.
+FIRSTS_GROUP_POINTS = 16
+FIRSTS_MIN_POINTS = 4
+FIRSTS_MAX_WARPS = 4
+FIRSTS_TILE_POINTS = 2
+FIRSTS_TILE_NEURONS = 3
+FIRSTS_PARTIAL_CAP = 2**21
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """B2's launch shape for a network, a mode (second derivatives or firsts
     only) and P points: the form (resident or layered), tiles_per_block
-    tiles of BWD_TILE_POINTS points per block (the layered form: per slice
-    of a chunk), n_blocks blocks (slices of a chunk), each writing one
+    tiles (groups) of group_points points per block (the layered form: per
+    slice of a chunk), n_blocks blocks (slices of a chunk), each writing one
     partial row of row_pitch floats (n_params rounded up to a multiple of
     4), the shared memory one resident block needs (bwd_smem_bytes, whatever
     the form), the layered form's scratch in device memory (0 for the
     resident form) and its chunk_points (P for the resident form, which does
-    not chunk)."""
+    not chunk).  group_points is BWD_TILE_POINTS but in the firsts-only
+    resident form, whose blocks have 32 warps_per_block threads
+    (warps_per_block is 0 for the other forms, whose blocks are fixed)."""
 
     tiles_per_block: int
     n_blocks: int
@@ -463,6 +485,8 @@ class BwdPlan:
     form: str
     scratch_bytes: int
     chunk_points: int
+    group_points: int = BWD_TILE_POINTS
+    warps_per_block: int = 0
 
 
 def _row_pitch(layers) -> int:
@@ -476,14 +500,34 @@ def bwd_streams(n_dirs: int, second: bool) -> int:
     return 1 + n_dirs * (2 if second else 1)
 
 
-def bwd_smem_bytes(layers, n_dirs: int, second: bool = True) -> int:
-    """Shared memory of one resident B2 block (hp_fused_fields_bwd_smem_bytes):
-    the packed network and the block's gradient sums (row_pitch floats
-    each), the stash of every hidden layer and three stream buffers, each
-    bwd_streams x max width x BWD_POINT_STRIDE floats."""
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _point_stride(group_points: int) -> int:
+    """Floats between neurons in a stream buffer of the firsts-only resident
+    form (csrc/fused_fields_bwd_firsts.cu's point_stride): group_points
+    rounded up to four times an odd number (16-byte rows, eight consecutive
+    rows on distinct banks)."""
+    p = _round4(group_points)
+    return p if (p // 4) % 2 else p + 4
+
+
+def bwd_smem_bytes(layers, n_dirs: int, second: bool = True, group_points: int = FIRSTS_MIN_POINTS) -> int:
+    """Shared memory of one resident B2 block.  With second derivatives
+    (hp_fused_fields_bwd_smem_bytes): the packed network and the block's
+    gradient sums (row_pitch floats each), the stash of every hidden layer
+    and three stream buffers, each bwd_streams x max width x
+    BWD_POINT_STRIDE floats.  Firsts only (hp_fused_fields_bwd_firsts_smem_bytes,
+    by default at its smallest groups): the packed network (row_pitch
+    floats) and (n_layers + 1) stream buffers (the hidden layers' stash and
+    two), each bwd_streams x the widest input rounded up to 4 x
+    _point_stride(group_points) floats."""
     n_layers = len(layers) - 1
-    return 4 * (2 * _row_pitch(layers)
-                + (n_layers + 2) * bwd_streams(n_dirs, second) * max(layers[:-1]) * BWD_POINT_STRIDE)
+    S = bwd_streams(n_dirs, second)
+    if second:
+        return 4 * (2 * _row_pitch(layers) + (n_layers + 2) * S * max(layers[:-1]) * BWD_POINT_STRIDE)
+    return 4 * (_row_pitch(layers) + (n_layers + 1) * S * _round4(max(layers[:-1])) * _point_stride(group_points))
 
 
 def bwd_layered_scratch_bytes(layers, n_dirs: int, points: int, second: bool = True) -> int:
@@ -520,9 +564,42 @@ def layered_slice_tiles(P: int) -> int:
 
 def bwd_resident_fits(layers, n_dirs: int, second: bool = True) -> bool:
     """Whether the resident form takes the network: no layer wider than
-    BWD_RESIDENT_WIDTH and one block's shared memory within an H100's
-    per-block opt-in."""
+    BWD_RESIDENT_WIDTH and one block's shared memory (firsts only: at its
+    smallest groups) within an H100's per-block opt-in.  Firsts only it
+    takes every network the second-derivative kernel compiled without the
+    second-order streams took (that block held the network twice and
+    16-point buffers of width max(layers) a layer, one more than this)."""
     return max(layers) <= BWD_RESIDENT_WIDTH and bwd_smem_bytes(layers, n_dirs, second) <= SMEM_PER_BLOCK
+
+
+def firsts_launch(layers, n_dirs: int, P: int, groups_per_block: int | None = None) -> tuple:
+    """The firsts-only resident form's launch shape, from the shapes alone:
+    (group_points, warps_per_block, groups_per_block).  Groups of
+    FIRSTS_GROUP_POINTS points, or half as many where fewer groups than an
+    H100 has SMs would leave SMs empty, halved again while a block's shared
+    memory exceeds the per-block opt-in; the fewest warps (a power of two up
+    to FIRSTS_MAX_WARPS) whose threads cover the widest hidden layer at
+    FIRSTS_TILE_POINTS points by FIRSTS_TILE_NEURONS neurons a thread in two
+    passes, or FIRSTS_MAX_WARPS where fewer blocks than twice the SMs leave
+    the card room; one group a block, doubled while the blocks exceed one
+    wave (the blocks an SM's shared memory holds, on every SM) or the
+    partial rows exceed FIRSTS_PARTIAL_CAP floats (`groups_per_block`
+    forces it)."""
+    pb = FIRSTS_GROUP_POINTS
+    if -(-P // pb) < FWD_SMS:
+        pb //= 2
+    while pb > FIRSTS_MIN_POINTS and bwd_smem_bytes(layers, n_dirs, False, pb) > SMEM_PER_BLOCK:
+        pb //= 2
+    groups, T = -(-P // pb), groups_per_block or 1
+    per_sm = SMEM_PER_SM // (bwd_smem_bytes(layers, n_dirs, False, pb) + SMEM_RESERVED_PER_BLOCK)
+    while not groups_per_block and (-(-groups // T) > FWD_SMS * per_sm
+                                    or -(-groups // T) * _row_pitch(layers) > FIRSTS_PARTIAL_CAP):
+        T *= 2
+    lanes = pb // FIRSTS_TILE_POINTS * -(-max(layers[1:-1], default=1) // (2 * FIRSTS_TILE_NEURONS))
+    warps = 1
+    while warps < FIRSTS_MAX_WARPS and (32 * warps < lanes or -(-groups // T) < 2 * FWD_SMS):
+        warps *= 2
+    return pb, warps, T
 
 
 def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, form: str | None = None,
@@ -549,7 +626,9 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
 
     T = tiles_per_block, by default as many tiles per block as keep at least
     BWD_BLOCKS blocks (at most BWD_MAX_TILES), a function of P alone, for
-    the resident form.  The layered form's chunk (`chunk_points` forces it:
+    the resident form with second derivatives; firsts only, the resident
+    form is its own kernel, with groups of points and blocks of warps from
+    firsts_launch (T its groups a block).  The layered form's chunk (`chunk_points` forces it:
     for tests and chip_smoke.py) is layered_chunk_points, and its slices are
     layered_slice_tiles(chunk) tiles, at most LAYERED_ROWS a chunk; its
     scratch is one chunk's stash."""
@@ -569,6 +648,10 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
         chunk = min(chunk_points, P) if chunk_points else layered_chunk_points(layers, n_dirs, P, second)
         T = tiles_per_block or layered_slice_tiles(chunk)
         scratch = bwd_layered_scratch_bytes(layers, n_dirs, chunk, second)
+    elif not second:
+        pb, warps, T = firsts_launch(layers, n_dirs, P, tiles_per_block)
+        return BwdPlan(T, -(-(-(-P // pb)) // T), _row_pitch(layers), bwd_smem_bytes(layers, n_dirs, False, pb), form,
+                       0, P, pb, warps)
     else:
         chunk, scratch = P, 0
         T = tiles_per_block or max(1, min(BWD_MAX_TILES, -(-P // BWD_TILE_POINTS) // BWD_BLOCKS))
@@ -576,32 +659,38 @@ def bwd_plan(layers, n_dirs: int, P: int, tiles_per_block: int | None = None, fo
     return BwdPlan(T, n_blocks, _row_pitch(layers), bwd_smem_bytes(layers, n_dirs, second), form, scratch, chunk)
 
 
-# The position of `second` among the arguments of both forms' C functions.
+# The position of `second` among the arguments of B2's C functions (both forms, both modes).
 _BWD_SECOND_ARG = 7
 
 
 class FusedFieldsBwdKernel(KernelWrapper):
-    """One form of B2 (`form`): the CUDA kernel
-    csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel (resident) or the
-    launches of csrc/fused_fields_bwd_layered.cu over every chunk of points
-    (layered: one C call, one count), built at first use, in either mode:
-    second derivatives (g [P, 1 + 2 n_dirs]) or firsts only (g [P, 1 +
-    n_dirs]).  A call returns the per-block (per-slice) partial sums
-    [n_blocks, row_pitch] of the weight gradients (packed as pack_params
-    packs the weights, then zero pad columns; bwd_plan gives the shape) and
-    gX (or None).  The resident form raises for a network it cannot hold;
-    the layered form takes every network B1 takes (chip_smoke.py forces it
-    at resident widths).  `launches` counts every launch, `firsts_launches`
-    those of the firsts-only mode among them."""
+    """One form of B2 (`form`), built at first use, in either mode: second
+    derivatives (g [P, 1 + 2 n_dirs]) or firsts only (g [P, 1 + n_dirs]).
+    Resident: the CUDA kernels csrc/fused_fields_bwd.cu::fused_fields_bwd_kernel
+    (second derivatives, C function `fn`) and
+    csrc/fused_fields_bwd_firsts.cu::fused_fields_bwd_firsts_kernel (firsts
+    only, `firsts_fn`); layered: the launches of
+    csrc/fused_fields_bwd_layered.cu over every chunk of points (one C call
+    in either mode, one count).  A call returns the per-block (per-slice)
+    partial sums [n_blocks, row_pitch] of the weight gradients (packed as
+    pack_params packs the weights, then zero pad columns; bwd_plan gives the
+    shape) and gX (or None).  The resident form raises for a network it
+    cannot hold; the layered form takes every network B1 takes
+    (chip_smoke.py forces it at resident widths).  `launches` counts every
+    launch, `firsts_launches` those of the firsts-only mode among them."""
 
-    def __init__(self, library: CudaLibrary, fn: str, form: str):
+    def __init__(self, library: CudaLibrary, fn: str, form: str, firsts_fn: str | None = None):
         super().__init__(library, fn)
         self.form = form
+        self.firsts_fn = firsts_fn or fn
         self.firsts_launches = 0
 
     def launch(self, *args) -> None:
-        super().launch(*args)
-        if not args[_BWD_SECOND_ARG]:
+        """Launch the C function of the mode that args[_BWD_SECOND_ARG] names
+        (prepare's args: both modes' functions take `second` there)."""
+        second = args[_BWD_SECOND_ARG]
+        self._launch(self.fn if second else self.firsts_fn, args)
+        if not second:
             self.firsts_launches += 1
 
     def load(self) -> BuiltLibrary:
@@ -633,16 +722,23 @@ class FusedFieldsBwdKernel(KernelWrapper):
         dev = _device_index(X)
         self.load()
         scratch = None
-        if self.form == "resident":
+        if self.form == "resident" and second:
             self.library.check_smem(
                 dev, (packed.numel(), max(spec.layers[:-1]), spec.n_layers, n_dirs, int(second)),
                 f"layers {spec.layers} and n_dirs {n_dirs} (second={second}) in the resident form")
-        else:
+        elif self.form == "resident" and plan.smem_bytes > self.library.smem_limit(dev):
+            raise ValueError(
+                f"fused_fields_bwd_firsts kernel needs {plan.smem_bytes} B of shared memory for layers {spec.layers} "
+                f"and n_dirs {n_dirs}; the card allows {self.library.smem_limit(dev)} B per block")
+        elif self.form == "layered":
             scratch = torch.empty((plan.scratch_bytes // 4,), dtype=torch.float32, device=X.device)
         partials = torch.empty((plan.n_blocks, plan.row_pitch), dtype=torch.float32, device=X.device)
         gX = torch.empty_like(X) if want_x else None
+        launch_shape = (plan.tiles_per_block,)
+        if self.form == "resident" and not second:
+            launch_shape = (plan.group_points, plan.warps_per_block, plan.tiles_per_block)
         head = (X.data_ptr(), g.data_ptr(), packed.data_ptr(), widths.ctypes.data, spec.n_layers, P,
-                n_dirs, int(second), _ACTIVATION_CODE[spec.activation], plan.tiles_per_block)
+                n_dirs, int(second), _ACTIVATION_CODE[spec.activation], *launch_shape)
         tail = (partials.data_ptr(), gX.data_ptr() if want_x else None, dev,
                 torch.cuda.current_stream(X.device).cuda_stream)
         args = head + ((plan.chunk_points, scratch.data_ptr()) if scratch is not None else ()) + tail
@@ -657,7 +753,8 @@ class FusedFieldsBwdKernel(KernelWrapper):
         return partials, gX
 
 
-fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32", "resident")
+fused_fields_bwd_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_f32", "resident",
+                                               "hp_fused_fields_bwd_firsts_f32")
 fused_fields_bwd_layered_kernel = FusedFieldsBwdKernel(_BWD_LIBRARY, "hp_fused_fields_bwd_layered_f32", "layered")
 _BWD_KERNELS = {k.form: k for k in (fused_fields_bwd_kernel, fused_fields_bwd_layered_kernel)}
 

@@ -2,10 +2,11 @@
 
 The var_form-1 backward: the VJP of fields_flat(..., second=False), whose
 fields are u and u_k alone.  The JAX package sends it to XLA's VJP of its
-Taylor path (hpvpinns_tpu/ops/pallas_fields.py:190-196); the port runs B2
-compiled without the second-order streams (csrc/fused_fields_bwd.cu and
-csrc/fused_fields_bwd_layered.cu) on a CUDA tensor, and its plain version
-fields_flat_bwd_reference(..., second=False) on a CPU tensor.  The kernels
+Taylor path (hpvpinns_tpu/ops/pallas_fields.py:190-196); the port runs B2's
+firsts-only forms on a CUDA tensor (resident: csrc/fused_fields_bwd_firsts.cu;
+layered: csrc/fused_fields_bwd_layered.cu compiled without the second-order
+streams), and its plain version fields_flat_bwd_reference(..., second=False)
+on a CPU tensor.  The kernels
 run only on a GPU (chip_smoke.py phase 7 holds them against the plain
 version there).  Here:
 
@@ -15,10 +16,14 @@ version there).  Here:
   _xla_fields_flat(..., False) (what that custom VJP calls) in float64 at
   1e-10;
 - a torch model of the kernels' firsts-only rules (the stash (t or z, z_k),
-  outputs() and gz_point() without the kk streams, the layered form's
-  launches chunk by chunk) against the plain version in float64;
-- bwd_plan's firsts-only plans (shared memory, scratch, chunks) by hand with
-  S = 1 + n_dirs, and the second=True plans unchanged;
+  outputs() and gz_point() without the kk streams), launch by launch as the
+  layered form runs them chunk by chunk, and group by group as the resident
+  kernel sums them into its blocks' partial rows, against the plain version
+  in float64;
+- bwd_plan's firsts-only plans (shared memory, launch shapes, scratch,
+  chunks) by hand with S = 1 + n_dirs, the resident form taking every
+  network the second-derivative kernel's firsts-only build took, and the
+  second=True plans unchanged;
 - the routing: fields_flat's second=False VJP reaches fused_fields_bwd(...,
   second=False), which on a CPU tensor is the plain version bit for bit, and
   each form's wrapper refuses a g whose width is not the mode's.
@@ -42,6 +47,7 @@ from hpvpinns_tpu_torch.models.mlp import MLP  # noqa: E402
 from hpvpinns_tpu_torch.ops import fused_fields as ff  # noqa: E402
 from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
     BWD_TILE_POINTS,
+    FIRSTS_PARTIAL_CAP,
     LAYERED_CHUNK_GROUP,
     LAYERED_SCRATCH_CAP,
     bwd_layered_scratch_bytes,
@@ -55,6 +61,7 @@ from hpvpinns_tpu_torch.ops.fused_fields import (  # noqa: E402
     fused_fields_bwd_kernel,
     fused_fields_bwd_layered_kernel,
     layered_chunk_points,
+    pack_params,
 )
 
 GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
@@ -219,6 +226,86 @@ def test_firsts_rules_model_equals_the_plain_backward_in_float64(layers, act, nd
                                atol=1e-12 * want_x.abs().max().item())
 
 
+def resident_model(layers, act, params, X, g, nd, pb, T):
+    """csrc/fused_fields_bwd_firsts.cu's decomposition: groups of pb points
+    (the last one short), each through the replay, gh with gz_point and the
+    outputs fused in its epilogue, and gW as its threads sum it (each entry
+    over the streams in order, each stream over the group's points), the
+    group sums of block b's T groups stored into or added to partial row b
+    in group order (pad columns zero); gX group by group.  (partials
+    [n_blocks, row pitch], gX)."""
+    L, P, d = len(layers) - 1, X.shape[0], layers[0]
+    W, b = [p["W"] for p in params], [p["b"] for p in params]
+    offs = np.cumsum([0] + [a * c + c for a, c in zip(layers[:-1], layers[1:])]).tolist()
+    n_groups = -(-P // pb)
+    rows = torch.zeros((-(-n_groups // T), row_pitch(layers)), dtype=X.dtype)
+    gX = torch.empty_like(X)
+    for grp in range(n_groups):
+        sl = slice(grp * pb, min(P, (grp + 1) * pb))
+        x, G = X[sl], g[sl].T  # [n, d], [1 + nd, n]
+        seed = torch.zeros((1 + nd, x.shape[0], d), dtype=X.dtype)
+        seed[0] = x
+        for k in range(nd):
+            seed[1 + k, :, k] = 1.0
+        h, st = seed, []
+        for l in range(L - 1):  # replay: stash (t or z, z_k), next inputs
+            Z = h @ W[l]
+            st.append(torch.cat([stash_value(Z[0] + b[l], act)[None], Z[1:]]))
+            h = outputs(st[l], act)
+        sums = torch.zeros(offs[-1], dtype=X.dtype)
+        gz = G[:, :, None]  # [1 + nd, n, 1]: gz of the last layer
+        for l in range(L - 1, -1, -1):
+            din, dout = layers[l], layers[l + 1]
+            if l > 0:  # gh's epilogue: gz of the layer below, and its outputs over its stash
+                gzn = gz_point(st[l - 1], gz @ W[l].T, act)
+                H = outputs(st[l - 1], act)
+            else:
+                H = seed
+            gw = torch.zeros((din, dout), dtype=X.dtype)
+            for s in range(1 + nd):
+                gw = gw + H[s].T @ gz[s]
+            sums[offs[l]:offs[l] + din * dout] = gw.reshape(-1)
+            sums[offs[l] + din * dout:offs[l + 1]] = gz[0].sum(0)
+            if l == 0:
+                gX[sl] = gz[0] @ W[0].T
+            else:
+                gz = gzn
+        rows[grp // T, :offs[-1]] += sums
+    return rows, gX
+
+
+RESIDENT_CASES = [  # layers, activation, n_dirs, points, groups a block forced (None: the plan's)
+    ((2, 20, 20, 20, 1), "tanh", 2, 150, None),
+    ((3, 48, 48, 48, 1), "sin", 3, 37, None),
+    ((1, 12, 9, 1), "sin", 1, 45, 3),
+    ((3, 33, 20, 17, 1), "tanh", 3, 70, 2),
+    ((2, 1), "tanh", 2, 20, None),
+]
+
+
+@pytest.mark.parametrize("layers,act,nd,n,T", RESIDENT_CASES, ids=[str(c[0]) + c[1] for c in RESIDENT_CASES])
+def test_firsts_resident_model_equals_the_plain_backward_in_float64(layers, act, nd, n, T):
+    """The resident kernel's groups, epilogues and partial rows (bwd_plan's
+    launch shape: its groups of points, T of them a block) give the plain
+    version's gradient to 1e-12, with one row a block and zero pad columns."""
+    spec = MLP(layers=layers, activation=act)
+    rng = np.random.default_rng(5)
+    params = [{k: torch.as_tensor(v) for k, v in p.items()} for p in tree_of(layers, 6)]
+    X = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, layers[0])))
+    g = torch.as_tensor(rng.standard_normal((n, 1 + nd)))
+    plan = bwd_plan(layers, nd, n, tiles_per_block=T, second=False)
+    assert plan.form == "resident" and plan.warps_per_block in (1, 2, 4)
+    rows, gX = resident_model(layers, act, params, X, g, nd, plan.group_points, plan.tiles_per_block)
+    assert rows.shape == (plan.n_blocks, plan.row_pitch)
+    n_params = pack_params(spec, params)[0].numel()
+    assert (rows[:, n_params:] == 0).all()
+    want, want_x = fields_flat_bwd_reference(spec, params, X, g, nd, second=False)
+    want = torch.as_tensor(flat(want))
+    np.testing.assert_allclose(rows.sum(0)[:n_params].numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12 * want.abs().max().item())
+    np.testing.assert_allclose(gX.numpy(), want_x.numpy(), rtol=1e-12, atol=1e-12 * want_x.abs().max().item())
+
+
 # ---- the plans, by hand with S = 1 + n_dirs ----
 
 def row_pitch(layers):
@@ -226,17 +313,26 @@ def row_pitch(layers):
 
 
 # chip_smoke.py phase 7's firsts-only shapes: (name, layers, n_dirs, P) and
-# (form, tiles_per_block, n_blocks, shared memory, scratch, chunk points);
-# shared memory: two padded copies of the network and (n_layers + 2) buffers
-# of (1 + n_dirs) x max width x 20 floats; scratch: the hidden layers' stash
-# of (1 + n_dirs) x P x pitch floats each.
+# (form, tiles (groups) a block, n_blocks, shared memory, scratch, chunk
+# points, points a group, warps a block).  Resident (csrc/fused_fields_bwd_firsts.cu):
+# groups of 16 points (ragged: 8, as 63 groups of 16 would leave SMs of an
+# H100 empty), one a block, the fewest warps whose 2-point x 3-neuron threads
+# cover the widest hidden layer in two passes (20: 8 x 4 = 32 threads, 1
+# warp), or 4 where there are fewer blocks than twice the SMs
+# (p2d_quality's 256, ragged's 126); shared memory: the packed network
+# (row_pitch floats) and (n_layers + 1) buffers of (1 + n_dirs) x round4(max
+# width) x point stride floats (16 points -> 20, 8 -> 12).  The layered
+# form's shared-memory entry is the resident kernel's at its smallest groups
+# (4 points, stride 4); scratch: the hidden layers' stash of (1 + n_dirs) x
+# P x pitch floats each.
 FIRSTS_PLANS = [
-    ("p2d_scaled", (2, 20, 20, 20, 1), 2, 16384, ("resident", 2, 512, 4 * (2 * 924 + 6 * 3 * 20 * 20), 0, 16384)),
+    ("p2d_scaled", (2, 20, 20, 20, 1), 2, 16384,
+     ("resident", 1, 1024, 4 * (924 + 5 * 3 * 20 * 20), 0, 16384, 16, 1)),
     ("p2d_quality", (2, 48, 48, 48, 48, 1), 2, 4096,
-     ("resident", 1, 256, 4 * (2 * 7252 + 7 * 3 * 48 * 20), 0, 4096)),
-    ("ragged", (3, 48, 48, 48, 1), 3, 1003, ("resident", 1, 63, 4 * (2 * 4948 + 6 * 4 * 48 * 20), 0, 1003)),
+     ("resident", 1, 256, 4 * (7252 + 6 * 3 * 48 * 20), 0, 4096, 16, 4)),
+    ("ragged", (3, 48, 48, 48, 1), 3, 1003, ("resident", 1, 126, 4 * (4948 + 5 * 4 * 48 * 12), 0, 1003, 8, 4)),
     ("p2d_scaled 3 x 256", (2, 256, 256, 256, 1), 2, 16384,
-     ("layered", 8, 128, 4 * (2 * 132612 + 6 * 3 * 256 * 20), 4 * 3 * 3 * 16384 * 256, 16384)),
+     ("layered", 8, 128, 4 * (132612 + 5 * 3 * 256 * 4), 4 * 3 * 3 * 16384 * 256, 16384, 16, 0)),
 ]
 
 
@@ -244,11 +340,59 @@ FIRSTS_PLANS = [
 def test_firsts_plan_by_hand_at_phase7_shapes(name, layers, nd, P_, want):
     plan = bwd_plan(layers, nd, P_, second=False)
     assert (plan.form, plan.tiles_per_block, plan.n_blocks, plan.smem_bytes, plan.scratch_bytes,
-            plan.chunk_points) == want
+            plan.chunk_points, plan.group_points, plan.warps_per_block) == want
     assert plan.row_pitch == row_pitch(layers) and bwd_streams(nd, False) == 1 + nd
-    assert bwd_smem_bytes(layers, nd, False) == want[3]
+    pb = plan.group_points if plan.form == "resident" else 4
+    assert bwd_smem_bytes(layers, nd, False, pb) == want[3]
     assert bwd_layered_scratch_bytes(layers, nd, P_, False) == 4 * (len(layers) - 2) * (1 + nd) * P_ * (
         -(-max(layers[1:-1]) // 4) * 4)
+
+
+LAUNCH_CASES = [  # layers, n_dirs, P and the resident form's (group points, warps, groups a block, blocks)
+    ((2, 20, 20, 20, 1), 2, 65536, (16, 1, 4, 1024)),  # 4,096 groups: four a block keep one wave (8 blocks an SM)
+    ((3, 48, 48, 48, 1), 3, 8000, (16, 4, 2, 250)),  # poisson3d_quality: 500 groups, 2 blocks an SM: 250 < 264
+    ((2, 64, 64, 64, 64, 1), 2, 4096, (16, 4, 2, 128)),  # 256 rows of 12,740 floats exceed FIRSTS_PARTIAL_CAP
+    ((2, 5, 5, 5, 1), 2, 100, (8, 4, 1, 13)),  # advdiff_of_record's shapes: 8-point groups, 13 of them: 4 warps
+    ((1, 12, 1), 1, 2000, (8, 4, 1, 250)),
+    ((2, 12, 12, 1), 1, 8192, (16, 1, 1, 512)),  # 512 groups: the fewest warps covering 12 neurons (8 x 2 threads)
+]
+
+
+@pytest.mark.parametrize("layers,nd,P_,want", LAUNCH_CASES, ids=[f"{c[0]} P {c[2]}" for c in LAUNCH_CASES])
+def test_firsts_resident_launch_shapes_by_hand(layers, nd, P_, want):
+    """firsts_launch's rules at other shapes: groups a block double until the
+    blocks fit one wave and the partial rows FIRSTS_PARTIAL_CAP."""
+    plan = bwd_plan(layers, nd, P_, second=False)
+    assert plan.form == "resident"
+    assert (plan.group_points, plan.warps_per_block, plan.tiles_per_block, plan.n_blocks) == want
+    assert plan.n_blocks * plan.row_pitch <= FIRSTS_PARTIAL_CAP
+    assert bwd_plan(layers, nd, P_, tiles_per_block=1, second=False).n_blocks == -(-P_ // plan.group_points)
+
+
+def old_firsts_smem(layers, nd):
+    """The shared memory of the second-derivative kernel compiled firsts only
+    (before its own kernel): two padded copies of the network, (n_layers + 2) buffers
+    of (1 + n_dirs) x max width x 20 floats."""
+    return 4 * (2 * row_pitch(layers) + (len(layers) + 1) * (1 + nd) * max(layers[:-1]) * 20)
+
+
+@pytest.mark.parametrize("nd", [1, 2, 3])
+def test_firsts_resident_takes_every_network_the_old_build_took(nd):
+    """Every network of widths <= 64 whose old firsts-only block fit an H100
+    block (232,448 B) fits the new kernel, at its least groups and at the
+    plan's, for a spread of depths and widths."""
+    rng = np.random.default_rng(nd)
+    seen = 0
+    for depth in range(1, 17):
+        for _ in range(12):
+            layers = (int(rng.integers(nd, 65)), *rng.integers(1, 65, depth - 1).tolist(), 1)
+            if old_firsts_smem(layers, nd) > 232448:
+                continue
+            seen += 1
+            assert bwd_resident_fits(layers, nd, second=False)
+            plan = bwd_plan(layers, nd, 4096, second=False)
+            assert plan.form == "resident" and plan.smem_bytes <= 232448
+    assert seen > 20
 
 
 SECOND_PLANS = [  # tests/test_torch_fused_fields_bwd.py's PHASE7 plans and phase 15's 3 x 256, second=True
@@ -285,9 +429,9 @@ def test_firsts_chunks_and_forms_follow_the_smaller_stash():
         assert plan.scratch_bytes == bwd_layered_scratch_bytes(layers, 2, chunk, second) <= LAYERED_SCRATCH_CAP
         assert bwd_layered_scratch_bytes(layers, 2, 2 * chunk, second) > LAYERED_SCRATCH_CAP
         assert chunk % LAYERED_CHUNK_GROUP == 0
-    deep = (2, 64, 64, 64, 64, 1)  # second derivatives 281,120 B of shared memory; firsts only 209,440 B
+    deep = (2, 64, 64, 64, 64, 1)  # second derivatives 281,120 B of shared memory; firsts only 69,392 B at least
     assert not bwd_resident_fits(deep, 2) and bwd_resident_fits(deep, 2, second=False)
-    assert bwd_smem_bytes(deep, 2, second=False) == 4 * (2 * 12740 + 7 * 3 * 64 * 20) == 209440
+    assert bwd_smem_bytes(deep, 2, second=False) == 4 * (12740 + 6 * 3 * 64 * 4) == 69392
     assert (bwd_plan(deep, 2, 4096).form, bwd_plan(deep, 2, 4096, second=False).form) == ("layered", "resident")
 
 
