@@ -11,7 +11,7 @@
                            | --ns-quality [SEED...] | --ns-jacobian [CHUNK...]
                            | --ns-precision-stage adam-lbfgs|lm PRESET [CHECKPOINT_DIR]
                            | --ensemble-only | --march-only | --march | --inverse-only | --cli-only
-                           | --mesh-only | --mesh-cards | --draws-only]
+                           | --mesh-only | --mesh-cards | --draws-only | --trace-only [CELL...]]
 
 Run from the root of the repository.  It imports `hpvpinns_tpu_torch` (never
 JAX or `hpvpinns_tpu`), builds the fused field kernel csrc/fused_fields.cu
@@ -320,7 +320,21 @@ form with second derivatives, the block sum), csrc/fused_fields_bwd_firsts.cu
      run's first record (tools/draws/jax_cpu.json), loss and eps to rtol
      DRAWS_ADVDIFF_RTOL; (b) poisson2d_quality under "pallas" in float32
      from its seed-1234 draw, Adam up to JAX's first record, the loss
-     within DRAWS_P2D_FIRST_BOUND relative of JAX's, B1 launched.
+     within DRAWS_P2D_FIRST_BOUND relative of JAX's, B1 launched;
+ 25. the recorder (utils/profiling.py): (a) each one-card benchmark cell's
+     captured step, its nodes as the recorder counts them against
+     torch.profiler's device activities in replays of it; (b) each "pallas"
+     cell the host's cards hold through bench_port/cell.py with a 1 s traced
+     window and the recorder on in every rank (tools/chunk_trace.py):
+     replays x captured B1 / B2 / block-sum launches against the call counts
+     the roofline readers assume, on the recorder's chunks, and the profiled
+     window's kernels no more than those counts and no fewer than 98% of
+     them (torch.profiler drops a whole replay's records now and then), the
+     window's device periods against its host time (2%), the four numbers
+     of tools/chunk_trace.py's METRICS given; (c) clock
+     causality in a `train` run of poisson2d_scaled: each chunk's device
+     interval, mapped onto the host clock, starts after its `chunk.launch`
+     starts and ends before its `chunk.read` ends, within 20 µs.
 
 Phases 6 and 12 print beside each L-BFGS row the numbers the same schedule
 gave with torch.optim.LBFGS (TORCH_LBFGS_ROWS).  With --volumetric-only it runs phases 1, 2, 13 and 14
@@ -337,6 +351,8 @@ JAX row 8.6e-3) and helmholtz2d_quality with its LM tail cut
 once for each seed given (default: the presets').
 With --cli-only it runs phases 1, 2 and 22 and prints no summary.
 With --draws-only it runs phases 1, 2 and 24 and prints no summary.
+With --trace-only [CELL...] it runs phases 1, 2 and 25 ((b) at the cells
+named, default the one-card ones) and prints no summary.
 With --mesh-only it runs phases 1, 2 and 23 and prints no summary; with
 --mesh-cards, on a host of several cards, phases 1, 2 and 23 (e) alone.
 With --inverse-only it runs phases 1, 2 and 21, (b)'s routes at the
@@ -4914,6 +4930,149 @@ def gn_point_child(argv) -> int:
     return 0
 
 
+TRACE_CELLS = ("p2d_scaled.pallas", "p2d_scaled.ens4", "p2d_scaled.taylor")  # the one-card cells
+TRACE_SEED = 2**31 + 26
+CAUSALITY_US = 20.0  # a mapped device time may lie this far outside the host span that must hold it
+B1_NAMES = ("fused_fields_kernel", "fused_fields_staged_kernel")
+B2_NAMES = ("fused_fields_bwd_kernel", "fused_fields_bwd_firsts_kernel", "bwd_layered_")
+
+
+def replay_activities(graph, replays: int = 3):
+    """(device activities, their names) torch.profiler sees in `replays`
+    replays of `graph` (it loses a record now and then late in a run, so
+    the larger of two tries)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    best = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(replays):
+                graph.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        best = max(best, names, key=len)
+    return len(best), best
+
+
+def calls_by_counters(program: dict, members: int) -> None:
+    """The roofline readers' call counts against the program's counters over
+    the recorded chunks: B1 (steps + chunks) x members, B2 and the block sum
+    steps x members, each replays x the graph's captured launches."""
+    graphs = {g["name"]: g for g in program["graphs"]}
+    steps, chunks = sum(c["n"] for c in program["chunks"]), len(program["chunks"])
+    want = {"B1": (steps + chunks) * members, "B2": steps * members, "block_sum": steps * members}
+    got = {k: sum(g["launches"][k] * g["replays"] for g in graphs.values()) for k in want}
+    if got != want:
+        fail(f"phase 25 replays x captured launches {got} != the readers' call counts {want}")
+
+
+def phase25(dev, cells_=TRACE_CELLS, seconds: float = 1.0) -> None:
+    """Phase 25: the recorder (utils/profiling.py) on the card.  (a) each
+    one-card cell's captured step: its nodes as the recorder counts them
+    against torch.profiler's device activities in replays of it (kernels,
+    and copies and sets, which it sometimes names as kernels), and the
+    kernels' launches its capture made; (b) each "pallas" cell (the mesh on
+    a host of four cards) run through bench_port/cell.py with --trace 1's
+    window of `seconds` and the recorder on in every rank
+    (tools/chunk_trace.py::recorded_runs): replays x captured launches
+    against the call counts fields_fwd_roofline / fields_bwd_roofline
+    assume, on the recorder's chunks (exactly) and in the profiled window
+    (no more, and no fewer than 98%: torch.profiler drops a replay's records
+    now and then), the device periods of the window's chunks against its
+    host time (2%), and the four numbers of tools/chunk_trace.py's METRICS
+    given; (c) in a `train` run of poisson2d_scaled
+    ("pallas", var_form 1), each chunk's events mapped onto the host clock
+    lie inside its `chunk.launch` start and its `chunk.read` end
+    (CAUSALITY_US)."""
+    import hpvpinns_tpu_torch as hv
+    from bench_port import cell as cells
+    from hpvpinns_tpu_torch.utils import profiling
+    from tools import chunk_trace
+    from tools.chunk_trace import cell_chunk
+
+    t0 = time.perf_counter()
+    for name in TRACE_CELLS:
+        profiling.enable()
+        chunk, members = cell_chunk(name, TRACE_SEED, dev)
+        for n in (0, 10, 10):
+            torch.stack([v.detach() for v in chunk(n).values()]).tolist()
+        profiling.disable()
+        rec = profiling.records()
+        graphs = {g["name"]: g for g in rec["graphs"]}
+        step = graphs["step"]
+        seen, seen_names = replay_activities(chunk.graphs[0])
+        copies = [x for x in seen_names if x.startswith(("Memcpy", "Memset"))]
+        if seen != 3 * step["nodes"]:
+            fail(f"phase 25 (a) {name}: the profiler saw {seen} device activities in 3 replays of the step; "
+                 f"the recorder counts {step['nodes']} nodes ({step['kernel_nodes']} kernel nodes)")
+        pallas = name != "p2d_scaled.taylor"
+        want = {"B1": members * pallas, "B2": members * pallas, "block_sum": members * pallas}
+        if step["launches"] != want or graphs["metrics"]["launches"]["B1"] != members * pallas:
+            fail(f"phase 25 (a) {name}: captured launches {step['launches']} / {graphs['metrics']['launches']}")
+        loads = ", ".join(f"{s['name']} {s['attrs']} {(s['end_ns'] - s['start_ns']) / 1e6:.1f} ms"
+                          for s in rec["spans"] if s["name"] in ("kernels.load", "chunk.capture"))
+        print(f"phase 25 (a) {name}: step graph {step['nodes']} nodes, {step['kernel_nodes']} of them kernels "
+              f"(CUgraphNodeType counts {profiling.node_types(chunk.graphs[0])}; the profiler: {seen // 3} device activities a "
+              f"replay, {len(copies) // 3} named as copies or sets), captured launches {step['launches']}, metrics graph "
+              f"{graphs['metrics']['kernel_nodes']} kernel nodes; {loads}", flush=True)
+        del chunk
+
+    names = [c for c in cells_ if cells.load(c)["chips"] <= torch.cuda.device_count()
+             and cells.load(c)["traffic"]["deriv_mode"] == "pallas"]
+    for name in names:
+        cell = cells.load(name)
+        runs = chunk_trace.recorded_runs(cell, TRACE_SEED, seconds, True, time.monotonic())
+        result, _ = cells.summarize(cell, runs, True)
+        program = chunk_trace.program_metrics(runs)
+        for r in runs:
+            members, trace = r["members"], r["trace"]
+            calls_by_counters(r["program"], members)
+            count = {what: sum(v[1] for k, v in trace["kernels"].items() if k.startswith(names_))
+                     for what, names_ in (("B1", B1_NAMES), ("B2", B2_NAMES), ("block_sum", ("block_sum_kernel",)))}
+            want = {"B1": (trace["steps"] + trace["chunks"]) * members, "B2": trace["steps"] * members,
+                    "block_sum": trace["steps"] * members}
+            # the profiler drops a whole graph replay's records now and then, so it may see fewer
+            if any(count[k] > want[k] or count[k] < 0.98 * want[k] for k in want):
+                fail(f"phase 25 (b) {name}: the profiled window's kernels {count} against the readers' counts {want}")
+            kept = min(count[k] / want[k] for k in want)
+            chunks = chunk_trace.window_chunks(r)
+            device_s = (sum(chunk_trace.step_periods(chunks)) * chunks[0]["n"]
+                        + chunks[-1]["device_ns"][1] - chunks[-1]["device_ns"][0]) / 1e9
+            if abs(device_s / r["window"]["host_window_s"] - 1) > 0.02:
+                fail(f"phase 25 (b) {name}: the chunks' device periods {device_s:.4f} s against the window's "
+                     f"{r['window']['host_window_s']:.4f} s")
+        missing = set(chunk_trace.METRICS) - set(program)
+        if missing or not result["correct"]:
+            fail(f"phase 25 (b) {name}: missing {sorted(missing)}, correct {result['correct']}")
+        print(f"phase 25 (b) {name}: {len(runs)} rank(s), replays x captured launches = the readers' call counts, "
+              f"the profiled window kept {kept:.4f} of them, device periods / host window {device_s / r['window']['host_window_s']:.5f}; " + ", ".join(
+                  f"{k} {result['metrics'][k]['value']:.4g}" for k in sorted(result["metrics"])) + "; the recorder's: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in program.items()), flush=True)
+
+    cfg = hv.poisson2d_scaled()
+    cfg = dataclasses.replace(cfg, deriv_mode="pallas", var_form=1,
+                              train=dataclasses.replace(cfg.train, iterations=2000, lbfgs_iterations=0,
+                                                        check_every=10))
+    problem = hv.build(cfg, device=dev)
+    profiling.enable()
+    hv.train(problem, cfg.train, verbose=False)
+    profiling.disable()
+    rec = profiling.records()
+    spans, early, late = rec["spans"], [], []
+    for c in rec["chunks"]:
+        launch, read = spans[c["launch"]], spans[c["span"] + 2]
+        if read["name"] != "chunk.read" or c["device_ns"] is None:
+            fail(f"phase 25 (c): chunk {c} has no read or no device times")
+        early.append((c["device_ns"][0] - launch["start_ns"]) / 1e3)
+        late.append((read["end_ns"] - c["device_ns"][1]) / 1e3)
+    if min(early) < -CAUSALITY_US or min(late) < -CAUSALITY_US:
+        fail(f"phase 25 (c): a device interval leaves its host span by {-min(early):.1f} / {-min(late):.1f} µs")
+    print(f"phase 25 (c) train: {len(rec['chunks'])} chunks, device start - launch start min {min(early):.1f} µs, "
+          f"read end - device end min {min(late):.1f} µs (limit -{CAUSALITY_US}); anchors {rec['anchors']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def mesh_child(argv) -> int:
     """A rank of phase 23 (e)'s NCCL world: PORT RANK N OUT (as
     multihost_check.spawn passes them)."""
@@ -5208,6 +5367,11 @@ def main() -> int:
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
         return 0
 
+    if sys.argv[1:2] == ["--trace-only"]:  # for work on the recorder: phases 1, 2 and 25, no summary
+        phase25(dev, *([sys.argv[2:]] if len(sys.argv) > 2 else []))
+        print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
+        return 0
+
     if sys.argv[1:2] == ["--advdiff-only"]:  # for work on AdvDiff: phases 1, 2 and 12 only, no summary
         phase12(dev)
         print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s", flush=True)
@@ -5353,6 +5517,10 @@ def main() -> int:
     # 24. from the JAX package's own initial draws: advdiff_quality in
     # float64 and poisson2d_quality under "pallas" against the JAX CPU runs
     draw_paths = phase24(dev)
+
+    # 25. the recorder: graph node counts against the profiler, replays x
+    # captured launches against the roofline readers' call counts, the clock
+    phase25(dev)
 
     ms, plain_ms, c_dev, c_graph, _ = times["scaled"]
     wide_ms, wide_plain_ms, wide_c_dev, wide_c_graph, wide_plain_dev = times["wide_scaled"]

@@ -130,6 +130,12 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    help="train N seeds as one vmapped ensemble (Adam phase; "
                    "reports per-seed metrics + best member)")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--trace-out", metavar="PATH", dest="trace_out",
+                   help="record the program's spans, each chunk's device "
+                   "interval and the captured graphs' counters "
+                   "(utils/profiling.py) and write them to PATH as "
+                   "Chrome-trace JSON (Perfetto); on a mesh rank r > 0 "
+                   "writes PATH.rank<r>")
     _add_train_flags(p)
     _add_device_flag(p)
 
@@ -1171,6 +1177,23 @@ def _mesh_from_args(args):
 
 
 def cmd_run(args) -> int:
+    trace_out = getattr(args, "trace_out", None)
+    if trace_out is None:
+        return _cmd_run(args)
+    import torch.distributed as dist
+
+    from hpvpinns_tpu_torch.utils import profiling
+
+    profiling.enable()
+    try:
+        return _cmd_run(args)
+    finally:
+        profiling.disable()
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        profiling.export_chrome(trace_out if rank == 0 else f"{trace_out}.rank{rank}")
+
+
+def _cmd_run(args) -> int:
     import hpvpinns_tpu_torch as hv
 
     cfg = _config_from_args(args)

@@ -21,6 +21,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
+from hpvpinns_tpu_torch.utils import profiling
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -60,7 +62,15 @@ def _run(cmd) -> subprocess.CompletedProcess:
 def build_library(name: str, sources) -> BuiltLibrary:
     """Compile `sources` (paths under csrc/, which may include its .cuh
     headers) into `_build/<name>-<hash>.so` unless that file exists, then
-    load it."""
+    load it; the recorder's span `kernels.load` (its library's name, and
+    whether nvcc ran) covers both."""
+    with profiling.span("kernels.load", library=name) as span:
+        built = _build_library(name, sources)
+        span.set(nvcc=built.build_seconds > 0)
+    return built
+
+
+def _build_library(name: str, sources) -> BuiltLibrary:
     sources = [Path(s) for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})

@@ -171,7 +171,10 @@ class CudaLibrary:
 
 class KernelWrapper:
     """A kernel's wrapper around the launch function `fn` of `library`:
-    `launch` raises on a CUDA error, and `launches` counts the launches."""
+    `launch` raises on a CUDA error, and `launches` counts the host
+    launches.  Under a CUDA graph those are the warm-up's and the capture's,
+    not the replays: the graph's counters in utils/profiling.py give the
+    kernel's nodes and its replays."""
 
     def __init__(self, library: CudaLibrary, fn: str):
         self.library, self.fn = library, fn
@@ -677,7 +680,8 @@ class FusedFieldsBwdKernel(KernelWrapper):
     shape) and gX (or None).  The resident form raises for a network it
     cannot hold; the layered form takes every network B1 takes
     (chip_smoke.py forces it at resident widths).  `launches` counts every
-    launch, `firsts_launches` those of the firsts-only mode among them."""
+    host launch, `firsts_launches` those of the firsts-only mode among them:
+    under a CUDA graph, the warm-up's and the capture's, not the replays."""
 
     def __init__(self, library: CudaLibrary, fn: str, form: str, firsts_fn: str | None = None):
         super().__init__(library, fn)
@@ -828,6 +832,14 @@ class BlockSumKernel(KernelWrapper):
 
 
 block_sum_kernel = BlockSumKernel(_BWD_LIBRARY, "hp_block_sum_f32")
+
+
+def launch_counts() -> dict:
+    """The host launches so far of B1 (either form), B2 (every form, either
+    mode) and the block sum: the difference over a capture is the count of
+    each one's nodes in the graph."""
+    return {"B1": fused_fields_kernel.launches, "B2": sum(k.launches for k in _BWD_KERNELS.values()),
+            "block_sum": block_sum_kernel.launches}
 
 
 def fused_fields_bwd(spec: MLP, params, X: torch.Tensor, g: torch.Tensor, n_dirs: int, want_x: bool = True,

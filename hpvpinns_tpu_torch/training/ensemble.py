@@ -48,6 +48,7 @@ from hpvpinns_tpu_torch.training.trainer import (
     _repeat,
     make_optimizer,
 )
+from hpvpinns_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -168,31 +169,33 @@ def train_ensemble(
         verbose = verbose and mesh.is_root
     opt = make_optimizer(cfg, params_stack)
     check = max(1, cfg.check_every)
-    chunk = _build_ens_chunk(problem.loss_fn, opt, params_stack, data, mesh=mesh)
+    with profiling.span("phase", name="ensemble"):
+        chunk = _build_ens_chunk(problem.loss_fn, opt, params_stack, data, mesh=mesh)
 
-    records = []
-    t0 = time.perf_counter()
-    t_warm = None
-    it = it_warm = 0
-    aux_host: Dict[str, np.ndarray] = {}
-    while it < cfg.iterations:
-        n = min(check, cfg.iterations - it)
-        aux = chunk(n)
-        keys = list(aux)
-        values = torch.stack([aux[k].detach() for k in keys]).cpu().numpy()  # one device sync
-        aux_host = {k: v.astype(np.float64) for k, v in zip(keys, values)}
-        it += n
-        if t_warm is None:  # the first chunk carries the one-time build and capture costs
-            t_warm, it_warm = time.perf_counter(), it
-        records.append({"iteration": it, **aux_host})
-        if verbose and it % cfg.log_every < check:
-            losses = aux_host["loss"]
-            print(f"It: {it}, loss min/med/max: {losses.min():.3e}/{np.median(losses):.3e}/{losses.max():.3e}")
-        if cfg.threshold is not None and aux_host["loss"].max() < cfg.threshold:
-            break
-    del chunk  # its graphs, and the gradient buffers in their pools
-    for t in parameters(params_stack):
-        t.grad = None
+        records = []
+        t0 = time.perf_counter()
+        t_warm = None
+        it = it_warm = 0
+        aux_host: Dict[str, np.ndarray] = {}
+        while it < cfg.iterations:
+            n = min(check, cfg.iterations - it)
+            aux = chunk(n)
+            keys = list(aux)
+            with profiling.span("chunk.read"):
+                values = torch.stack([aux[k].detach() for k in keys]).cpu().numpy()  # one device sync
+            aux_host = {k: v.astype(np.float64) for k, v in zip(keys, values)}
+            it += n
+            if t_warm is None:  # the first chunk carries the one-time build and capture costs
+                t_warm, it_warm = time.perf_counter(), it
+            records.append({"iteration": it, **aux_host})
+            if verbose and it % cfg.log_every < check:
+                losses = aux_host["loss"]
+                print(f"It: {it}, loss min/med/max: {losses.min():.3e}/{np.median(losses):.3e}/{losses.max():.3e}")
+            if cfg.threshold is not None and aux_host["loss"].max() < cfg.threshold:
+                break
+        del chunk  # its graphs, and the gradient buffers in their pools
+        for t in parameters(params_stack):
+            t.grad = None
 
     t_end = time.perf_counter()
     if t_warm is not None and it > it_warm and t_end > t_warm:

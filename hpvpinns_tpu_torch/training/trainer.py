@@ -46,11 +46,13 @@ from torch import nn
 
 from hpvpinns_tpu_torch.config import TrainConfig
 from hpvpinns_tpu_torch.models.mlp import use_ieee_fp32_matmuls
+from hpvpinns_tpu_torch.ops.fused_fields import launch_counts
 from hpvpinns_tpu_torch.parallel.sharding import AXIS, allreduce_grads, replicate, shard_problem
 from hpvpinns_tpu_torch.problems.base import Problem, map_params, parameters
 from hpvpinns_tpu_torch.training.checkpoint import Checkpointer
 from hpvpinns_tpu_torch.training.gauss_newton import gauss_newton
 from hpvpinns_tpu_torch.training.lbfgs import LBFGS
+from hpvpinns_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -136,26 +138,44 @@ def _side_stream() -> "torch.cuda.Stream":
     return _SIDE_STREAMS[device]
 
 
-def _capture(fn: Callable, debug: bool = False):
+def _capture(fn: Callable, name: str, debug: bool = False):
     """Run `fn` twice on the side stream (the kernels build and set their
     attributes, lazily created state appears), then capture one call of it
-    in a CUDA graph: (graph, what the captured call returned).  The warm-up
-    calls run; the capture runs nothing.  `debug` keeps the captured graph
-    (not only its instantiation) for `debug_dump`."""
-    side = _side_stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph(keep_graph=debug)
-    if debug:
-        graph.enable_debug_mode()
-    with torch.cuda.graph(graph):
-        out = fn()
-    if debug:
-        graph.instantiate()
-    return graph, out
+    in a CUDA graph: (graph, what the captured call returned, a function
+    that replays the graph).  The warm-up calls run; the capture runs
+    nothing.  `debug` keeps the captured graph (not only its instantiation)
+    for `debug_dump`.  While the recorder is on (utils/profiling.py) the
+    spans `chunk.capture` (graph=`name`), `capture.warmup` and
+    `capture.graph` time it, the graph is kept to count its kernel nodes and
+    the kernel launches its capture made, and the replay function counts its
+    calls."""
+    recording = profiling.enabled()
+    with profiling.span("chunk.capture", graph=name):
+        side = _side_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with profiling.span("capture.warmup"), torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=debug or recording)
+        if debug:
+            graph.enable_debug_mode()
+        with profiling.span("capture.graph"):
+            before = launch_counts()
+            with torch.cuda.graph(graph):
+                out = fn()
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
+            if debug or recording:
+                graph.instantiate()
+    if not recording:
+        return graph, out, graph.replay
+    counts = profiling.capture_counts(name, graph, launched)
+
+    def replay():
+        graph.replay()
+        counts.replays += 1
+
+    return graph, out, replay
 
 
 def _mesh_losses(loss_fn: Callable, axis):
@@ -180,10 +200,10 @@ def _eager_metrics(loss_fn: Callable, params, data):
 
 def _graph_metrics(aux: Callable, debug: bool = False):
     """The metrics `aux()` as a replayed CUDA graph: (() -> aux, the graph)."""
-    graph, out = _capture(aux, debug)
+    graph, out, run = _capture(aux, "metrics", debug)
 
     def replay():
-        graph.replay()
+        run()
         return out
 
     return replay, graph
@@ -192,14 +212,24 @@ def _graph_metrics(aux: Callable, debug: bool = False):
 class _Chunk:
     """chunk(n): n optimizer iterations, then the metrics at the updated
     params (a dict of tensors).  `graphs` holds the CUDA graphs it replays
-    (empty when it runs eagerly)."""
+    (empty when it runs eagerly).  While the recorder is on
+    (utils/profiling.py) a call records its `chunk` and `chunk.launch` spans
+    and, for a chunk of graphs, an event before and one after it."""
 
     def __init__(self, iterate: Callable[[int], None], metrics: Callable, graphs=()):
         self._iterate, self._metrics, self.graphs = iterate, metrics, tuple(g for g in graphs if g is not None)
 
     def __call__(self, n: int):
-        self._iterate(n)
-        return self._metrics()
+        recorder = profiling.RECORDER
+        if not recorder.on:
+            self._iterate(n)
+            return self._metrics()
+        recorder.chunk_begin(n, bool(self.graphs))
+        try:
+            self._iterate(n)
+            return self._metrics()
+        finally:
+            recorder.chunk_end()
 
 
 def _backward(loss_fn: Callable, params, data, axis) -> torch.Tensor:
@@ -254,7 +284,7 @@ def _graph_chunk(step: Callable[[], None], aux: Callable, opt, leaves, debug: bo
     with torch.no_grad():
         saved = [t.clone() for t in leaves]
         saved_state = {p: {k: v.clone() for k, v in s.items() if torch.is_tensor(v)} for p, s in opt.state.items()}
-    step_graph, _ = _capture(step, debug)
+    step_graph, _, step_replay = _capture(step, "step", debug)
     with torch.no_grad():
         for t, s in zip(leaves, saved):
             t.copy_(s)
@@ -263,7 +293,7 @@ def _graph_chunk(step: Callable[[], None], aux: Callable, opt, leaves, debug: bo
                 if torch.is_tensor(v):
                     v.copy_(saved_state[p][k]) if p in saved_state else v.zero_()
     metrics, metrics_graph = _graph_metrics(aux, debug)
-    return _Chunk(_repeat(step_graph.replay), metrics, (step_graph, metrics_graph))
+    return _Chunk(_repeat(step_replay), metrics, (step_graph, metrics_graph))
 
 
 def _captures(params, mesh) -> bool:
@@ -310,10 +340,10 @@ def _build_lbfgs_chunk(loss_fn: Callable, opt: LBFGS, params, data, mesh=None) -
     graph = metrics_graph = None
     closure, metrics = evaluate, _eager_metrics(metric_loss, params, data)
     if _captures(params, mesh):
-        graph, loss = _capture(evaluate)
+        graph, loss, replay = _capture(evaluate, "closure")
 
         def closure():
-            graph.replay()
+            replay()
             return loss
 
         metrics, metrics_graph = _graph_metrics(metrics)
@@ -377,41 +407,43 @@ def train(
 
     def run_phase(name, build_chunk, opt, n_iters):
         nonlocal stopped, best_params, min_loss
-        t_phase, it_start = time.perf_counter(), state["it"]
-        chunk = build_chunk(loss_fn, opt, params, data, mesh=mesh)
-        end = state["it"] + n_iters
-        while state["it"] < end:
-            n = min(check, end - state["it"])
-            aux = chunk(n)
-            keys = list(aux)
-            values = torch.stack([aux[k].detach() for k in keys]).tolist()  # one device sync
-            aux_host = state["aux"] = dict(zip(keys, values))
-            it = state["it"] = state["it"] + n
-            if state["t_warm"] is None:  # the first chunk carries one-time build/capture costs
-                state["t_warm"], state["it_warm"] = time.perf_counter(), it
-            records.append({"iteration": it, **aux_host})
-            loss_value = aux_host["loss"]
+        with profiling.span("phase", name=name):
+            t_phase, it_start = time.perf_counter(), state["it"]
+            chunk = build_chunk(loss_fn, opt, params, data, mesh=mesh)
+            end = state["it"] + n_iters
+            while state["it"] < end:
+                n = min(check, end - state["it"])
+                aux = chunk(n)
+                keys = list(aux)
+                with profiling.span("chunk.read"):
+                    values = torch.stack([aux[k].detach() for k in keys]).tolist()  # one device sync
+                aux_host = state["aux"] = dict(zip(keys, values))
+                it = state["it"] = state["it"] + n
+                if state["t_warm"] is None:  # the first chunk carries one-time build/capture costs
+                    state["t_warm"], state["it_warm"] = time.perf_counter(), it
+                records.append({"iteration": it, **aux_host})
+                loss_value = aux_host["loss"]
 
-            if snap_after is not None and it > snap_after and loss_value < min_loss:
-                min_loss = loss_value
-                best_params = _copy_params(params, as_parameters=False)
-            if checkpointer is not None and cfg.checkpoint_every and it - state["it_saved"] >= cfg.checkpoint_every:
-                checkpointer.save(it, params, opt.state_dict())
-                state["it_saved"] = it
-            if cfg.threshold is not None and loss_value < cfg.threshold:
-                if verbose:
-                    print(f"It: {it}, Loss: {loss_value:.3e} (threshold reached)")
-                stopped = True
-                break
-            if verbose and it % cfg.log_every < check:
-                now = time.perf_counter()
-                parts = ", ".join(f"{k}: {v:.3e}" for k, v in aux_host.items() if k != "loss")
-                print(f"It: {it}, Loss: {loss_value:.3e}, {parts}, Time: {now - state['t_log']:.2f}")
-                state["t_log"] = now
-        del chunk  # its graphs, and the gradient buffers in their pools
-        for t in parameters(params):
-            t.grad = None
-        phases[name] = {"iterations": state["it"] - it_start, "wall_s": time.perf_counter() - t_phase}
+                if snap_after is not None and it > snap_after and loss_value < min_loss:
+                    min_loss = loss_value
+                    best_params = _copy_params(params, as_parameters=False)
+                if checkpointer is not None and cfg.checkpoint_every and it - state["it_saved"] >= cfg.checkpoint_every:
+                    checkpointer.save(it, params, opt.state_dict())
+                    state["it_saved"] = it
+                if cfg.threshold is not None and loss_value < cfg.threshold:
+                    if verbose:
+                        print(f"It: {it}, Loss: {loss_value:.3e} (threshold reached)")
+                    stopped = True
+                    break
+                if verbose and it % cfg.log_every < check:
+                    now = time.perf_counter()
+                    parts = ", ".join(f"{k}: {v:.3e}" for k, v in aux_host.items() if k != "loss")
+                    print(f"It: {it}, Loss: {loss_value:.3e}, {parts}, Time: {now - state['t_log']:.2f}")
+                    state["t_log"] = now
+            del chunk  # its graphs, and the gradient buffers in their pools
+            for t in parameters(params):
+                t.grad = None
+            phases[name] = {"iterations": state["it"] - it_start, "wall_s": time.perf_counter() - t_phase}
 
     if cfg.iterations > 0:
         run_phase("adam", _build_chunk, adam, cfg.iterations)

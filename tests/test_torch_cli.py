@@ -3,7 +3,8 @@ against the JAX package's, on the CPU (--device cpu), at tiny sizes.
 
 (i) The argparse trees are the same, subcommand by subcommand (option
 strings, dests, defaults, choices, nargs, consts, types), but for --device,
-which every subcommand that builds a problem or loads an artifact adds.
+which every subcommand that builds a problem or loads an artifact adds, and
+`run`'s --trace-out (the recorder of utils/profiling.py).
 (ii) `presets` prints what JAX's prints.  (iii) `_config_from_args` gives
 JAX's config over a table of argv.  (iv) From the same float64 record, a few
 Adam steps in each CLI give the same summary keys and rel_l2, max_abs_err
@@ -73,7 +74,9 @@ def test_parser_matches_jax_but_for_device(path):
     extra = [d for d in got if d not in want]
     assert [d for d in got if d in want] == want
     if path in WITH_DEVICE:
-        assert extra == [(("--device",), "device", "None", None, None, "None", False, None, "_StoreAction")]
+        trace_out = [(("--trace-out",), "trace_out", "None", None, None, "None", False, None, "_StoreAction")]
+        assert extra == (trace_out if path[0] == "run" else []) + [
+            (("--device",), "device", "None", None, None, "None", False, None, "_StoreAction")]
     else:
         assert extra == []
     assert port[path].prog.replace("hpvpinns_tpu_torch", "hpvpinns_tpu") == JAX_TREE[path].prog
